@@ -1,0 +1,445 @@
+"""Drive the PyTorch port on one CUDA card and hold its kernels against
+their plain PyTorch versions.
+
+    python3 chip_smoke.py
+
+Phases, each printing its lines before the next starts:
+
+  device   the card's name and power limit (nvidia-smi)
+  build    nvcc builds every kernel source under csrc/ (sm_90a), in parallel
+  wavernn  the sample-loop kernel (K1) against its plain version, full width,
+           8 folds x 2200 samples, greedy and sampled (shared generator),
+           and 3 folds (a partly filled block)
+  decoder  the decode kernel (K2) against its plain version, full width,
+           B=3, T_in=64, dropout 0.5: a 200-step run with the stop bias at
+           -30 (per-step error growth printed), a run with normal weights,
+           and a ragged B=5, T_in=37 run
+  serve    full-width random weights written as an export artifact, served
+           on localhost: three /generate_tts requests and one
+           /generate_tts_batch, WAV headers and lengths checked, both
+           kernels' launch counters read around the requests
+  kernels  each kernel against its plain version again at the shapes the
+           serve path gave it: times, bounds, errors; one JSON line
+
+Any failed check exits non-zero.  The line before the last is the card's
+name and power limit; the last line is {"ok": true, "device": {...}}.
+Weights are random, made from fixed seeds.
+"""
+
+from __future__ import annotations
+
+import base64
+import io
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+import wave
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+
+# Published H100 SXM peaks (NVIDIA data sheet): the kernels run f32 FMA on
+# the CUDA cores, so the operations bound uses the f32 non-tensor rate.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOP_PER_S = 67e12
+
+SENTENCES = ["你好，欢迎使用语音合成系统。", "今天天气很好，我们去公园散步吧。", "这是第3个测试句子。"]
+SERVE_FRAMES = 150  # stop bias -30 and max_iters 150: every decode runs 150 frames
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def phase(name: str, msg: str) -> None:
+    print(f"[{name}] {msg}", flush=True)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 1, warmup: bool = False) -> float:
+    """Mean milliseconds of ``fn`` on the card, by CUDA events; with
+    ``warmup`` one untimed call first (module loading, first launch)."""
+    import torch
+
+    if warmup:
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# ---------------------------------------------------------------------------
+# bounds: the least time the card could take for the same work
+# ---------------------------------------------------------------------------
+
+
+def wavernn_work(cfg, T: int, B: int):
+    """(flops, bytes) of the sample loop over T steps and B folds."""
+    H, FC, NC, aux = cfg.rnn_dims, cfg.fc_dims, 1024, 32
+    macs = ((1 + 80 + aux) * H          # I projection
+            + 2 * H * 3 * H             # GRU1 input and hidden gates
+            + (H + aux) * 3 * H + H * 3 * H  # GRU2
+            + (H + aux) * FC + (FC + aux) * FC + FC * NC)  # fc1, fc2, fc3
+    weights = macs + H + 12 * H + 2 * FC + NC  # matrices + biases, f32
+    flops = 2.0 * macs * T * B
+    nbytes = 4.0 * (weights + T * B * (80 + 4 * aux) + T * B)
+    return flops, nbytes
+
+
+def decoder_work(tcfg, B: int, T_in: int, V: int, steps: int, max_iters: int):
+    """(flops, bytes) of ``steps`` decoder steps for B rows (outputs for
+    all max_iters steps are written)."""
+    u, A, taps = tcfg.decoder_lstm_units, tcfg.attention_dim, tcfg.attention_kernel
+    p1, p2 = tcfg.prenet_layers
+    macs_row = (80 * p1 + p1 * p2 + (p2 + V + u) * 4 * u + 2 * u * 4 * u + u * A
+                + T_in * (taps * A + A) + T_in * V + (u + V) * 82)
+    weights = 80 * p1 + p1 * p2 + (p2 + V + u) * 4 * u + 2 * u * 4 * u + u * A + taps * A \
+        + 3 * A + (u + V) * 82 + p1 + p2 + 8 * u + 82
+    flops = 2.0 * macs_row * B * steps
+    nbytes = 4.0 * (weights + B * T_in * (A + V + 1) + max_iters * B * (80 + 1 + T_in))
+    return flops, nbytes
+
+
+def bound(flops: float, nbytes: float):
+    t_ops, t_bytes = flops / PEAK_F32_FLOP_PER_S, nbytes / PEAK_BYTES_PER_S
+    return (t_ops * 1e3, "operations") if t_ops >= t_bytes else (t_bytes * 1e3, "bytes")
+
+
+# ---------------------------------------------------------------------------
+# K1: the WaveRNN sample loop
+# ---------------------------------------------------------------------------
+
+
+def compare_labels(lk, lp, gaps, n_classes: int, tag: str) -> dict:
+    """Labels must agree; a fold may diverge only where the plain
+    version's top-2 gap was below 1e-4 (both then follow different but
+    valid trajectories, so the fold is compared no further).
+
+    Returns what was measured: ``max_abs_err``, the largest difference of
+    the fed-back sample 2*l/(n-1) - 1 over the compared steps (a diverged
+    fold's first mismatch included); ``compared`` and ``uncompared`` steps;
+    ``diverged`` folds; ``near_ties``, compared steps whose plain top-2 gap
+    was below 1e-4."""
+    lk, lp, gaps = lk.cpu().numpy(), lp.cpu().numpy(), gaps.cpu().numpy()
+    T, B = lk.shape
+    upto = np.full(B, T)  # steps compared per fold
+    for b in range(B):
+        bad = np.nonzero(lk[:, b] != lp[:, b])[0]
+        if bad.size == 0:
+            continue
+        t = int(bad[0])
+        gap = float(gaps[t, b])
+        phase("wavernn", f"{tag}: fold {b} first mismatch at step {t}: kernel {lk[t, b]} plain "
+              f"{lp[t, b]}, plain top-2 gap {gap:.3e}")
+        check(gap < 1e-4, f"{tag}: fold {b} label mismatch at step {t} with top-2 gap {gap:.3e} >= 1e-4")
+        upto[b] = t + 1
+    sel = np.arange(T)[:, None] < upto[None, :]
+    to_x = lambda l: 2.0 * l.astype(np.float64) / (n_classes - 1) - 1.0
+    err = np.abs(to_x(lk) - to_x(lp))[sel]
+    return {"max_abs_err": float(err.max()) if err.size else 0.0, "compared": int(sel.sum()),
+            "uncompared": int(T * B - sel.sum()), "diverged": int((upto < T).sum()),
+            "near_ties": int((gaps[sel] < 1e-4).sum())}
+
+
+def run_k1(params, wcfg, mels, seed: int, greedy: bool, tag: str, warmup: bool = True):
+    from tacotronv2_wavernn_chinese_tpu_torch.models import wavernn as W
+    from tacotronv2_wavernn_chinese_tpu_torch.ops import wavernn_kernel as WK
+
+    cond = W.precompute_conditioning(params, wcfg, mels)
+    w = WK.pack_weights(params, wcfg)
+    out = {}
+    out["ms"] = cuda_ms(lambda: out.__setitem__("lk", WK.sample_labels(cond, w, seed, greedy)),
+                        warmup=warmup)
+    t0 = time.time()
+    out["plain_ms"] = cuda_ms(
+        lambda: out.__setitem__("lp", WK.sample_labels_plain(cond, w, seed, greedy, return_gaps=True))
+    )
+    lp, gaps = out["lp"]
+    out.update(compare_labels(out["lk"], lp, gaps, w["wfc3"].shape[0], tag))
+    T, B = out["lk"].shape
+    phase("wavernn", f"{tag}: T={T} B={B}: {out['compared']}/{T * B} steps compared "
+          f"({out['uncompared']} left after {out['diverged']} folds diverged at a near-tie), "
+          f"max|d| of the fed-back sample {out['max_abs_err']:.3e}, {out['near_ties']} plain "
+          f"near-ties (gap < 1e-4); kernel {out['ms']:.1f} ms ({out['ms'] / T * 1e3:.1f} us/step), "
+          f"plain {out['plain_ms']:.1f} ms ({time.time() - t0:.1f} s host)")
+    out["T"], out["B"] = T, B
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2: the Tacotron decode
+# ---------------------------------------------------------------------------
+
+
+def run_k2(params, tcfg, memory, mask, seeds, max_iters: int, tag: str, per_step: bool):
+    import torch
+
+    from tacotronv2_wavernn_chinese_tpu_torch.ops import tacotron_decoder_kernel as DK
+
+    out = {}
+    out["ms"] = cuda_ms(lambda: out.__setitem__(
+        "k", DK.decode_autoregressive_kernel(params, tcfg, memory, mask, seeds, max_iters)), warmup=True)
+    out["plain_ms"] = cuda_ms(lambda: out.__setitem__(
+        "p", DK.decode_autoregressive_plain(params, tcfg, memory, mask, seeds, max_iters)))
+    fk, sk, ak, lk = out["k"]
+    fp, sp, ap, lp = out["p"]
+    lk, lp = lk.cpu().numpy(), lp.cpu().numpy()
+    phase("decoder", f"{tag}: stop_len kernel {lk.tolist()} plain {lp.tolist()}; kernel "
+          f"{out['ms']:.2f} ms, plain {out['plain_ms']:.2f} ms")
+    check(np.array_equal(lk, lp), f"{tag}: stop lengths differ: kernel {lk} plain {lp}")
+    n = int(lk.min())
+    df = (fk[:, :n] - fp[:, :n]).abs().amax(dim=(0, 2)) if n else torch.zeros(0)
+    da = (ak[:, :n] - ap[:, :n]).abs().amax(dim=(0, 2)) if n else torch.zeros(0)
+    err = torch.maximum(df, da).cpu().numpy()
+    if per_step and n:
+        marks = sorted({1, 2, 5, 10, 20, 50, 100, 150, n} & set(range(1, n + 1)))
+        growth = ", ".join(f"<={m}: {err[:m].max():.2e}" for m in marks)
+        phase("decoder", f"{tag}: max|d| (frames, aligns) by step: {growth}")
+    out["max_abs_err"] = float(err.max()) if n else 0.0
+    # steps the kernel really ran: until every row was done
+    out["steps"] = int(min(max_iters, lk.max() + 1))
+    phase("decoder", f"{tag}: {out['steps']} steps run, kernel {out['ms'] / out['steps'] * 1e3:.1f} us/step")
+    return out
+
+
+def encode_batch(params, tcfg, ids_list, device):
+    import torch
+
+    from tacotronv2_wavernn_chinese_tpu_torch.models import tacotron as T
+
+    lens = [len(x) for x in ids_list]
+    T_in = max(lens)
+    T_in += (-T_in) % 16
+    inputs = np.zeros((len(ids_list), T_in), np.int64)
+    for i, ids in enumerate(ids_list):
+        inputs[i, : len(ids)] = ids
+    inputs = torch.as_tensor(inputs, device=device)
+    lens_t = torch.as_tensor(lens, device=device)
+    memory = T.encode(params, tcfg, inputs, lens_t)
+    return memory, T.input_mask(lens_t, T_in)
+
+
+# ---------------------------------------------------------------------------
+# main
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from tacotronv2_wavernn_chinese_tpu_torch.config import default_config
+
+    run_all(default_config(), torch.device("cuda"), SERVE_FRAMES)
+    print(smi_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def run_all(cfg, dev, serve_frames: int) -> dict:
+    """Every phase on ``dev`` at the widths of ``cfg``; returns the kernels
+    record.  Raises SmokeFailure on a failed check."""
+    import torch
+
+    from tacotronv2_wavernn_chinese_tpu_torch import ops
+    from tacotronv2_wavernn_chinese_tpu_torch.frontend import default_symbols, get_pyin
+    from tacotronv2_wavernn_chinese_tpu_torch.serving import server as SRV
+    from tacotronv2_wavernn_chinese_tpu_torch.serving.export import load_exported, write_artifact
+    from tacotronv2_wavernn_chinese_tpu_torch.utils.checkpoints import init_tacotron, init_wavernn
+
+    t_start = time.time()
+    smi = smi_line()
+    phase("device", f"{smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+
+    t0 = time.time()
+    ops.build_all()
+    phase("build", f"nvcc built {ops.BUILD_INFO.get('built')} in {time.time() - t0:.1f} s "
+          f"into {ops.BUILD_INFO.get('dir')}")
+    for src, log in ops.BUILD_INFO.get("logs", {}).items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                phase("build", f"{src}: {line.strip()}")
+
+    # ---------------- wavernn ----------------
+    wcfg = cfg.wavernn
+    wp = init_wavernn(1, wcfg, device=dev)
+    rng = np.random.default_rng(11)
+    mels = torch.as_tensor(rng.uniform(0.0, 1.0, (8, 8 + 2 * wcfg.pad, 80)), dtype=torch.float32, device=dev)
+    for greedy in (True, False):
+        run_k1(wp, wcfg, mels, 1234, greedy, "greedy" if greedy else "sampled")
+    # a fold count that does not fill the last block of 4 folds
+    mels_r = torch.as_tensor(rng.uniform(0.0, 1.0, (3, 3 + 2 * wcfg.pad, 80)), dtype=torch.float32, device=dev)
+    run_k1(wp, wcfg, mels_r, 99, False, "ragged 3 folds")
+
+    # ---------------- decoder ----------------
+    tcfg = cfg.tacotron  # dropout 0.5, zoneout 0.1: the serving defaults
+    tp = init_tacotron(2, tcfg, device=dev)
+    ids = rng.integers(1, tcfg.vocab_size, (3, 64))
+    lens = torch.as_tensor([64, 50, 37], device=dev)
+    from tacotronv2_wavernn_chinese_tpu_torch.models import tacotron as T
+
+    inputs = torch.as_tensor(ids, device=dev)
+    memory = T.encode(tp, tcfg, inputs, lens)
+    mask = T.input_mask(lens, 64)
+    seeds = [7, 8, 9]
+    tp_long = dict(tp, stop_projection=dict(tp["stop_projection"], b=torch.full_like(tp["stop_projection"]["b"], -30.0)))
+    r = run_k2(tp_long, tcfg, memory, mask, seeds, 200, "stop bias -30, 200 steps", per_step=True)
+    check(r["max_abs_err"] <= 1e-3, f"decoder: max|d| {r['max_abs_err']:.3e} > 1e-3")
+    run_k2(tp, tcfg, memory, mask, seeds, 200, "normal weights", per_step=False)
+    # ragged shapes: 5 rows (two matvec passes of 4), T_in not a multiple of 4 or 32
+    ids_r = torch.as_tensor(rng.integers(1, tcfg.vocab_size, (5, 37)), device=dev)
+    lens_r = torch.as_tensor([37, 30, 21, 9, 1], device=dev)
+    mem_r = T.encode(tp, tcfg, ids_r, lens_r)
+    r = run_k2(tp_long, tcfg, mem_r, T.input_mask(lens_r, 37), [1, 2, 3, 4, 5], 40,
+               "ragged B=5 T_in=37", per_step=False)
+    check(r["max_abs_err"] <= 1e-3, f"decoder ragged: max|d| {r['max_abs_err']:.3e} > 1e-3")
+
+    # ---------------- serve ----------------
+    art = os.path.join(HERE, "build", "chip_smoke_artifact")
+    write_artifact(cfg, tp_long, art, wp)
+    synth = load_exported(art, max_iters=serve_frames, device=dev)
+    httpd = SRV.serve(synth.cfg, synth, "127.0.0.1", 0, max_batch=4, max_queue=8)
+    port = httpd.server_address[1]
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        t0 = time.time()
+        SRV.warmup(synth, httpd.service.max_batch_hard)
+        phase("serve", f"warmup (batch buckets up to {httpd.service.max_batch_hard}) "
+              f"{time.time() - t0:.1f} s")
+        res = synth.synthesize(SENTENCES[0], seed=3)
+        check(np.isfinite(res["wav"]).all(), "serve: non-finite audio")
+        check(res["wav"].shape[0] == serve_frames * 275, f"serve: wav length {res['wav'].shape[0]}")
+
+        def post(path, payload):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode("utf-8"),
+                headers={"Content-Type": "application/json"},
+            )
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            h0 = time.time()
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                body = json.loads(resp.read())
+            end.record()
+            torch.cuda.synchronize()
+            return body, (time.time() - h0) * 1e3, start.elapsed_time(end)
+
+        def check_wav(b64: str, tag: str):
+            with wave.open(io.BytesIO(base64.b64decode(b64))) as wf:
+                check(wf.getnchannels() == 1 and wf.getsampwidth() == 2 and wf.getframerate() == 22050,
+                      f"{tag}: bad WAV header")
+                n = wf.getnframes()
+                pcm = np.frombuffer(wf.readframes(n), "<i2")
+            check(n == serve_frames * 275, f"{tag}: {n} samples, expected {serve_frames} x 275")
+            check(np.abs(pcm).max() > 0, f"{tag}: silent audio")
+
+        ops.reset_launch_counts()
+        for i, text in enumerate(SENTENCES):
+            body, host_ms, ev_ms = post("/generate_tts", {"text": text, "seed": i})
+            check(body.get("status") == 0, f"serve: /generate_tts failed: {body.get('error')}")
+            check_wav(body["wav_b64"], f"/generate_tts #{i}")
+            phase("serve", f"/generate_tts #{i} ({body['pyin'][:40]}...): {host_ms:.1f} ms host, "
+                  f"{ev_ms:.1f} ms CUDA events, {body['duration_s']:.2f} s audio")
+        body, host_ms, ev_ms = post("/generate_tts_batch", {"texts": SENTENCES, "seed": 5})
+        check(body.get("status") == 0, f"serve: /generate_tts_batch failed: {body.get('error')}")
+        for j, r_ in enumerate(body["results"]):
+            check_wav(r_["wav_b64"], f"/generate_tts_batch[{j}]")
+        phase("serve", f"/generate_tts_batch x{len(SENTENCES)}: {host_ms:.1f} ms host, {ev_ms:.1f} ms CUDA events")
+        launches = dict(ops.LAUNCHES)
+        phase("serve", f"kernel launches on the serve path: {launches}")
+        # where one request's time goes: the acoustic decode vs the vocoder
+        ids0 = synth.symbols.encode(get_pyin(SENTENCES[0])[0])
+        box = {}
+        t_mel = cuda_ms(lambda: box.__setitem__("m", synth.mel_from_ids([ids0], seed=[0])))
+        t_voc = cuda_ms(lambda: synth.mels_to_wavs([box["m"][0][0]], seed=0))
+        phase("serve", f"one request split (CUDA events): text->mel {t_mel:.1f} ms, "
+              f"mel->wav {t_voc:.1f} ms")
+        for k, v in launches.items():
+            check(v > 0, f"serve: kernel {k} was never launched on the serve path")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+
+    # ---------------- kernels at the serve path's shapes ----------------
+    from tacotronv2_wavernn_chinese_tpu_torch.models import wavernn as W
+
+    sym = default_symbols()
+    ids_list = [sym.encode(get_pyin(t)[0]) for t in SENTENCES]
+    ids_list = ids_list + [ids_list[-1]]  # pad_batch: 3 rows -> 4
+    mem_s, mask_s = encode_batch(synth.params, tcfg, ids_list, dev)
+    k2 = run_k2(synth.params, tcfg, mem_s, mask_s, [5, 5, 5, 5], serve_frames,
+                f"serve shape B={mem_s.shape[0]} T_in={mem_s.shape[1]}", per_step=False)
+    check(k2["max_abs_err"] <= 1e-3, f"decoder at serve shape: max|d| {k2['max_abs_err']:.3e} > 1e-3")
+    hop = wcfg.total_upsample
+    gen = cfg.wavernn_gen
+    mel = np.zeros((serve_frames, 80), np.float32)
+    folds, n = W.fold_with_overlap(mel, gen.target // hop, gen.overlap // hop)
+    n_folds = W.bucket_folds(np.concatenate([folds] * len(SENTENCES))).shape[0]
+    mels_s = torch.as_tensor(
+        rng.uniform(0.0, 1.0, (n_folds, folds.shape[1] + 2 * wcfg.pad, 80)), dtype=torch.float32, device=dev
+    )
+    # the serve phase already ran this kernel at this shape: no extra warmup
+    k1 = run_k1(synth.vocoder_params, wcfg, mels_s, 5, False, f"serve shape {n_folds} folds", warmup=False)
+
+    f1, b1 = wavernn_work(wcfg, k1["T"], k1["B"])
+    bms1, by1 = bound(f1, b1)
+    f2, b2 = decoder_work(tcfg, mem_s.shape[0], mem_s.shape[1], mem_s.shape[2], k2["steps"], serve_frames)
+    bms2, by2 = bound(f2, b2)
+    kernels = {"kernels": [
+        {"name": "wavernn_sample", "route": "cuda",
+         "source": "tacotronv2_wavernn_chinese_tpu_torch/csrc/wavernn_sample.cu",
+         "replaces": "tacotronv2_wavernn_chinese_tpu/ops/wavernn_kernel.py:234",
+         "launches": launches["wavernn_sample"], "max_abs_err": k1["max_abs_err"],
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": bms1, "bound_by": by1,
+         "library_ms": None, "compared_steps": k1["compared"], "uncompared_steps": k1["uncompared"],
+         "diverged_folds": k1["diverged"]},
+        {"name": "tacotron_decode", "route": "cuda",
+         "source": "tacotronv2_wavernn_chinese_tpu_torch/csrc/tacotron_decode.cu",
+         "replaces": "tacotronv2_wavernn_chinese_tpu/ops/tacotron_decoder_kernel.py:627",
+         "launches": launches["tacotron_decode"], "max_abs_err": k2["max_abs_err"],
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": bms2, "bound_by": by2,
+         "library_ms": None},
+    ]}
+    phase("kernels", f"shapes: K1 T={k1['T']} folds={k1['B']}; K2 B={mem_s.shape[0]} "
+          f"T_in={mem_s.shape[1]} steps={k2['steps']}; total {time.time() - t_start:.1f} s")
+    print(json.dumps(kernels), flush=True)
+    return kernels
+
+
+if __name__ == "__main__":
+    try:
+        code = main()
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
+        code = 1
+    sys.exit(code)

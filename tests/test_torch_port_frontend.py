@@ -1,0 +1,52 @@
+"""The port's frontend and config copies agree with the JAX package's."""
+
+import pytest
+
+from tacotronv2_wavernn_chinese_tpu import config as jcfg
+from tacotronv2_wavernn_chinese_tpu import frontend as jfe
+from tacotronv2_wavernn_chinese_tpu_torch import config as tcfg
+from tacotronv2_wavernn_chinese_tpu_torch import frontend as tfe
+
+SENTENCES = [
+    "你好。",
+    "今天天气很好，我们去公园散步吧！",
+    "这是第3个测试句子。",
+    "他在2023年花了12345元买了一台电脑。",
+    "圆周率约等于3.14159。",
+    "银行的行长走在行人道上，长长的队伍。",
+    "我们重新开始，重要的事情说三遍。",
+    "还是还钱吧，这个乐队的音乐很快乐。",
+    "ni3 hao3，世界！",
+    "中文和English混合的句子。",
+    "“你好！”他说：“欢迎。”",
+    "数量：100,000个；时间——下午三点……",
+    "为什么？因为他为人民服务。",
+    "小明的电话号码是110。",
+    "长城很长，长江也很长。",
+    "他着急地睡着了。",
+    "这件衣服很便宜，但是不太方便。",
+    "阿姨给了我一把钥匙。",
+    "0.5加上0.25等于0.75。",
+    "好好学习，天天向上！",
+]
+
+
+@pytest.mark.parametrize("text", SENTENCES)
+def test_g2p_and_symbols_match(text):
+    jp, jn = jfe.get_pyin(text)
+    tp, tn = tfe.get_pyin(text)
+    assert (tp, tn) == (jp, jn)
+    assert tfe.default_symbols().encode(tp) == jfe.default_symbols().encode(jp)
+
+
+def test_default_config_matches():
+    assert tcfg.default_config().to_dict() == jcfg.default_config().to_dict()
+
+
+def test_config_from_dict_round_trip():
+    from tacotronv2_wavernn_chinese_tpu.serving.export import _config_from_dict as j_from
+
+    cfg = tcfg.default_config().override("tacotron.max_iters=77,wavernn.upsample_factors=(2,2,5)")
+    d = cfg.to_dict()
+    assert tcfg._config_from_dict(d) == cfg
+    assert tcfg._config_from_dict(d).to_dict() == j_from(d).to_dict()
