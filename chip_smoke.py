@@ -18,8 +18,18 @@ Phases, each printing its lines before the next starts:
            on localhost: three /generate_tts requests and one
            /generate_tts_batch, WAV headers and lengths checked, both
            kernels' launch counters read around the requests
+  train    the trainer kernels (K3 forward, K4 backward) against the eager
+           loop differentiated by autograd, full width, B=32, T_in=128
+           (ragged lengths), 400 steps, zoneout masks: max|d| of every
+           output and gradient; then run_training at the default config,
+           batch 32, on a synthetic corpus (64 utterances, 40-150
+           symbols, 200-600 frames): 6 steps with a checkpoint every 3 and
+           the eval render, the K3/K4 launch counters read around it, and a
+           restart that must resume at the saved step; one step split by
+           CUDA events
   kernels  each kernel against its plain version again at the shapes the
-           serve path gave it: times, bounds, errors; one JSON line
+           serve and train paths gave it: times, bounds, errors; one JSON
+           line
 
 Any failed check exits non-zero.  The line before the last is the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
@@ -32,6 +42,7 @@ import base64
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -122,6 +133,27 @@ def decoder_work(tcfg, B: int, T_in: int, V: int, steps: int, max_iters: int):
     flops = 2.0 * macs_row * B * steps
     nbytes = 4.0 * (weights + B * T_in * (A + V + 1) + max_iters * B * (80 + 1 + T_in))
     return flops, nbytes
+
+
+def trainer_work(tcfg, B: int, T: int, T_in: int, backward: bool, masks: bool = True):
+    """(flops, bytes) of the trainer core kernel, forward (K3) or backward
+    (K4), over T steps and B rows (ops/tacotron_trainer_kernel.py)."""
+    from tacotronv2_wavernn_chinese_tpu_torch.ops import tacotron_trainer_kernel as TK
+
+    P, U, V, A, F, taps = TK.widths(tcfg)
+    gates = (P + V + U) * 4 * U + 2 * U * 4 * U
+    small = U * A + taps * F + F * A + 2 * A + V + U + 1  # wq, location, ball, v, mu
+    inputs = T * B * (P + (4 * U if masks else 0)) + B * T_in * (A + V + 1)
+    saves = T * B * (3 * T_in + 6 * U + 2 * V + 1)  # out2, ctx, align + FWD_OUTS saves
+    if not backward:
+        macs = gates + U * A + T_in * (taps * F + F * A + A + V) + V + U
+        nbytes = inputs + gates + 8 * U + small + saves
+    else:
+        macs = (gates + 2 * U * 4 * U + (V + U) * 4 * U + 2 * U * A + V + U
+                + T_in * (V + 3 * taps * F + 3 * F * A + 2 * A))
+        nbytes = (inputs + B * T_in + T * B * (U + V + T_in) + 2 * gates + 8 * U + small + F * A
+                  + saves + T * B * (8 * U + A + 1 + V) + B * T_in * A + B * (taps * F + F * A + 2 * A))
+    return 2.0 * macs * T * B, 4.0 * nbytes
 
 
 def bound(flops: float, nbytes: float):
@@ -244,6 +276,260 @@ def encode_batch(params, tcfg, ids_list, device):
 
 
 # ---------------------------------------------------------------------------
+# K3/K4: the teacher-forced decoder core of training
+# ---------------------------------------------------------------------------
+
+# the core's parameter leaves, whose gradients K4 (with the products after
+# it) must give
+CORE_LEAVES = (
+    ("dec_lstm1", "w"), ("dec_lstm1", "b"), ("dec_lstm2", "w"), ("dec_lstm2", "b"),
+    ("attention", "query_layer", "w"), ("attention", "location_conv", "w"),
+    ("attention", "location_conv", "b"), ("attention", "location_layer", "w"),
+    ("attention", "v"), ("attention", "b"), ("attention", "mu_layer", "w"),
+    ("attention", "mu_layer", "b"),
+)
+
+
+def core_inputs(params, tcfg, B: int, T: int, T_in: int, dev, seed: int) -> dict:
+    """Inputs of the core at the given shape from a numpy seed: values in
+    (-1, 1) like the encoder's LSTM outputs, keys projected from them,
+    ragged lengths, non-negative prenet outputs, zoneout keep-masks
+    (keep 0.9) and random cotangents."""
+    import torch
+
+    from tacotronv2_wavernn_chinese_tpu_torch.ops import tacotron_trainer_kernel as TK
+
+    P, U, V, A, _, _ = TK.widths(tcfg)
+    rng = np.random.default_rng(seed)
+    f = lambda lo, hi, *s: torch.as_tensor(rng.uniform(lo, hi, s), dtype=torch.float32, device=dev)
+    lens = np.linspace(T_in, max(1, T_in // 4), B).astype(int)
+    mask = (np.arange(T_in)[None, :] < lens[:, None]).astype(np.float32)
+    values = f(-1, 1, B, T_in, V) * torch.as_tensor(mask, device=dev)[..., None]
+    return {
+        "pre": f(0, 2, T, B, P), "values": values,
+        "keys": (values @ params["attention"]["memory_layer"]["w"]).contiguous(),
+        "mask": torch.as_tensor(mask, device=dev),
+        "masks": tuple(torch.as_tensor((rng.uniform(size=(T, B, U)) < 0.9).astype(np.float32), device=dev)
+                       for _ in range(4)),
+        "cots": (f(-1, 1, T, B, U), f(-1, 1, T, B, V), f(-1, 1, T, B, T_in)),
+    }
+
+
+def _core_vjp(fn, params, tcfg, x):
+    """Outputs of ``fn`` (fused_core_apply or fused_core_plain) and the
+    gradients of sum(outputs * cotangents) w.r.t. the prenet input, keys,
+    values and every core parameter leaf."""
+    import torch
+
+    ps = dict(params)
+    leaves = {}
+    for path in CORE_LEAVES:
+        node = ps
+        for k in path[:-1]:
+            node[k] = dict(node[k])
+            node = node[k]
+        node[path[-1]] = leaves[path] = node[path[-1]].detach().clone().requires_grad_(True)
+    xs = {k: x[k].detach().clone().requires_grad_(True) for k in ("pre", "keys", "values")}
+    outs = fn(ps, tcfg, xs["pre"], x["masks"], xs["keys"], xs["values"], x["mask"])
+    loss = sum((o * c).sum() for o, c in zip(outs, x["cots"]))
+    names = ["pre", "keys", "values"] + ["/".join(p) for p in CORE_LEAVES]
+    grads = torch.autograd.grad(loss, [xs["pre"], xs["keys"], xs["values"], *leaves.values()])
+    return [o.detach() for o in outs], dict(zip(names, grads))
+
+
+def run_k34(params, tcfg, x, tag: str) -> dict:
+    """K3 and K4 against the eager loop differentiated by autograd, at the
+    shape of ``x``: errors of every output and gradient, kernel and plain
+    times by CUDA events."""
+    import torch
+
+    from tacotronv2_wavernn_chinese_tpu_torch.ops import tacotron_trainer_kernel as TK
+
+    T, B, _ = x["pre"].shape
+    T_in = x["keys"].shape[1]
+    ok, gk = _core_vjp(TK.fused_core_apply, params, tcfg, x)
+    op, gp = _core_vjp(TK.fused_core_plain, params, tcfg, x)
+    out = {"T": T, "B": B, "T_in": T_in}
+    d_out = {n: float((a - b).abs().max()) for n, a, b in zip(("out2", "ctx", "align"), ok, op)}
+    phase("train", f"{tag}: K3 max|d| " + ", ".join(f"{n} {v:.2e}" for n, v in d_out.items()))
+    check(max(d_out.values()) <= 1e-3, f"{tag}: K3 output max|d| {max(d_out.values()):.3e} > 1e-3")
+    rel = {}
+    for n in gk:
+        d, scale = float((gk[n] - gp[n]).abs().max()), float(gp[n].abs().max())
+        rel[n] = (d, scale)
+    phase("train", f"{tag}: K4 gradient max|d| / max|g| " + ", ".join(
+        f"{n} {d:.2e}/{g:.2e}" for n, (d, g) in rel.items()))
+    for n, (d, g) in rel.items():
+        check(d <= 1e-3 * max(g, 1e-6), f"{tag}: K4 gradient {n} max|d| {d:.3e} > 1e-3 * max|g| {g:.3e}")
+    out["k3_err"] = max(d_out.values())
+    out["k4_err"] = max(d for d, _ in rel.values())
+    out["k4_rel"] = max(d / max(g, 1e-6) for d, g in rel.values())
+    # times: each kernel alone, and its plain version (the eager loop's
+    # forward; autograd's backward through it)
+    w = TK.pack_core_weights(params, tcfg)
+    args = (w, x["pre"], x["masks"], x["keys"], x["values"], x["mask"], float(tcfg.zoneout_rate))
+    box = {}
+    out["k3_ms"] = cuda_ms(lambda: box.__setitem__("f", TK.train_fwd(*args)), warmup=True)
+    out["k4_ms"] = cuda_ms(lambda: TK.train_bwd(*args, box["f"], list(x["cots"])), warmup=True)
+    with torch.no_grad():
+        out["k3_plain_ms"] = cuda_ms(lambda: TK.fused_core_plain(
+            params, tcfg, x["pre"], x["masks"], x["keys"], x["values"], x["mask"]))
+    xs = {k: x[k].detach().clone().requires_grad_(True) for k in ("pre", "keys", "values")}
+    outs = TK.fused_core_plain(params, tcfg, xs["pre"], x["masks"], xs["keys"], xs["values"], x["mask"])
+    loss = sum((o * c).sum() for o, c in zip(outs, x["cots"]))
+    out["k4_plain_ms"] = cuda_ms(lambda: torch.autograd.grad(loss, list(xs.values())))
+    phase("train", f"{tag}: K3 {out['k3_ms']:.2f} ms ({out['k3_ms'] / T * 1e3:.1f} us/step), plain "
+          f"{out['k3_plain_ms']:.1f} ms; K4 {out['k4_ms']:.2f} ms ({out['k4_ms'] / T * 1e3:.1f} us/step), "
+          f"plain backward {out['k4_plain_ms']:.1f} ms")
+    return out
+
+
+class EventHooks:
+    """Wraps module functions so each call records CUDA events around
+    itself (for one step's split); ``restore`` puts the originals back."""
+
+    def __init__(self):
+        self.marks: dict = {}
+        self._orig: list = []
+
+    def wrap(self, module, name: str):
+        import torch
+
+        orig = getattr(module, name)
+
+        def wrapped(*a, **kw):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            r = orig(*a, **kw)
+            e1.record()
+            self.marks.setdefault(name, []).append((e0, e1))
+            return r
+
+        setattr(module, name, wrapped)
+        self._orig.append((module, name, orig))
+
+    def restore(self):
+        for module, name, orig in reversed(self._orig):
+            setattr(module, name, orig)
+        self._orig.clear()
+
+
+def step_split(cfg, state, batch, dev) -> dict:
+    """One train step split by CUDA events: encoder + prenet, K3,
+    projections + postnet + loss, K4, the weight-gradient products after
+    K4, the rest of the backward, and the optimizer."""
+    import torch
+
+    from tacotronv2_wavernn_chinese_tpu_torch.ops import tacotron_trainer_kernel as TK
+    from tacotronv2_wavernn_chinese_tpu_torch.train import tacotron_task as task
+
+    hooks = EventHooks()
+    for module, name in ((TK, "train_fwd"), (TK, "train_bwd"), (TK, "weight_grads"),
+                         (task, "loss_fn"), (task, "apply_gradients")):
+        hooks.wrap(module, name)
+    try:
+        gen = torch.Generator(device=dev)
+        res = {}
+        for _ in range(2):  # the second call is reported
+            hooks.marks.clear()
+            gen.manual_seed(0)
+            s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            s0.record()
+            task.train_step(state, batch, gen, cfg)
+            s1.record()
+            torch.cuda.synchronize()
+            m = {k: v[0] for k, v in hooks.marks.items()}
+            ms = lambda a, b: a.elapsed_time(b)
+            lf, k3, k4, wg, opt = (m[k] for k in ("loss_fn", "train_fwd", "train_bwd", "weight_grads",
+                                                  "apply_gradients"))
+            res = {
+                "encoder_prenet": ms(lf[0], k3[0]), "k3": ms(*k3), "proj_postnet_loss": ms(k3[1], lf[1]),
+                "k4": ms(*k4), "weight_grad_matmuls": ms(*wg),
+                "rest_of_backward": ms(lf[1], opt[0]) - ms(*k4) - ms(*wg),
+                "optimizer": ms(*opt), "step": ms(s0, s1),
+            }
+    finally:
+        hooks.restore()
+    return res
+
+
+def run_train_phase(cfg, dev, core_shape, corpus: dict, steps: int, ckpt_every: int) -> dict:
+    """(1) K3/K4 against the plain version at ``core_shape``; (2) the real
+    trainer on a synthetic corpus, with launch counters, restore and one
+    step's split.  Returns what the kernels line needs."""
+    import torch
+
+    from tacotronv2_wavernn_chinese_tpu_torch import ops
+    from tacotronv2_wavernn_chinese_tpu_torch.data.loader import (
+        TacotronDataset, read_metadata, write_synthetic_corpus,
+    )
+    from tacotronv2_wavernn_chinese_tpu_torch.train import tacotron_task as task
+    from tacotronv2_wavernn_chinese_tpu_torch.train import tacotron_train as TR
+    from tacotronv2_wavernn_chinese_tpu_torch.utils.checkpoints import init_tacotron
+    from tacotronv2_wavernn_chinese_tpu_torch.utils.metrics import read_scalars
+
+    tcfg = cfg.tacotron
+    B, T_in, T = core_shape
+    tp = init_tacotron(4, tcfg, device=dev)
+    r1 = run_k34(tp, tcfg, core_inputs(tp, tcfg, B, T, T_in, dev, 21),
+                 f"core B={B} T_in={T_in} T={T} train masks")
+
+    tcfg_run = cfg.override(f"tacotron_train.checkpoint_interval={ckpt_every},tacotron_train.summary_interval=1")
+    corpus_dir = os.path.join(HERE, "build", "chip_smoke_corpus")
+    log_dir = os.path.join(HERE, "build", "chip_smoke_train")
+    for d in (corpus_dir, log_dir):
+        if os.path.isdir(d):
+            shutil.rmtree(d)
+    meta = write_synthetic_corpus(corpus_dir, corpus["utts"], corpus["symbols"], corpus["frames"], seed=5)
+    logs: list = []
+
+    def log(msg):
+        logs.append(msg)
+        phase("train", f"  | {msg}")
+
+    ops.reset_launch_counts()
+    t0 = time.time()
+    state = TR.run_training(tcfg_run, meta, corpus_dir, log_dir, total_steps=steps, log=log, device=dev)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: ops.LAUNCHES[k] for k in ("tacotron_train_fwd", "tacotron_train_bwd")}
+    renders = sum("eval render at step" in m for m in logs)
+    phase("train", f"run_training: {state.step} steps in {wall:.1f} s wall (build, checkpoints and "
+          f"renders included); launches {launches}; {renders} eval renders")
+    check(state.step == steps, f"train: ended at step {state.step}, expected {steps}")
+    check(not any("failed" in m for m in logs), "train: the eval render or the embedding dump failed")
+    check(renders == steps // ckpt_every, f"train: {renders} eval renders, expected {steps // ckpt_every}")
+    losses = [r["loss"] for r in read_scalars(os.path.join(log_dir, "scalars.jsonl"))]
+    check(len(losses) == steps and all(np.isfinite(losses)), f"train: losses {losses}")
+    phase("train", "losses " + ", ".join(f"{v:.4f}" for v in losses))
+    check(launches["tacotron_train_bwd"] == steps, f"train: K4 launched {launches['tacotron_train_bwd']} "
+          f"times in {steps} steps")
+    check(launches["tacotron_train_fwd"] == steps + renders,
+          f"train: K3 launched {launches['tacotron_train_fwd']} times for {steps} steps + {renders} renders")
+    sec_step = [float(m.split("[")[1].split(" sec/step")[0]) for m in logs if m.startswith("Step")]
+    phase("train", f"sec/step (run_training's rolling window, host clock): {sec_step[-1]:.3f}")
+
+    logs.clear()
+    state2 = TR.run_training(tcfg_run, meta, corpus_dir, log_dir, total_steps=steps + 1, log=log,
+                             device=dev, render_eval=False)
+    check(f"restored checkpoint at step {steps}" in logs, "train: the restart did not restore the checkpoint")
+    check(state2.step == steps + 1, f"train: the restart ended at step {state2.step}")
+
+    # one step split, on the first batch of the corpus
+    ds = TacotronDataset(read_metadata(meta), corpus_dir, tcfg_run)
+    b0 = next(ds.batches(epoch_seed=tcfg_run.tacotron_train.data_seed))
+    batch = TR.batch_to_device(b0, dev)
+    split = step_split(tcfg_run, task.TrainState(state2.step, state2.params, state2.opt_state), batch, dev)
+    B_, T_in_ = b0.inputs.shape
+    T_ = b0.mel_targets.shape[1] // tcfg.outputs_per_step
+    phase("train", f"step split (CUDA events, B={B_} T_in={T_in_} T={T_}): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items()))
+    return {"core": r1, "launches": launches, "sec_per_step": sec_step[-1], "split": split,
+            "main_shape": (B_, T_, T_in_), "params": state2.params}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -256,6 +542,9 @@ def main() -> int:
         return 2
     from tacotronv2_wavernn_chinese_tpu_torch.config import default_config
 
+    # f32 matmuls and convolutions in full f32 (cuDNN would take TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     run_all(default_config(), torch.device("cuda"), SERVE_FRAMES)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -263,7 +552,12 @@ def main() -> int:
     return 0
 
 
-def run_all(cfg, dev, serve_frames: int) -> dict:
+TRAIN_CORE_SHAPE = (32, 128, 400)  # B, T_in, T of the K3/K4 check
+TRAIN_CORPUS = {"utts": 64, "symbols": (40, 150), "frames": (200, 600)}
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 6, 3
+
+
+def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRAIN_CORPUS) -> dict:
     """Every phase on ``dev`` at the widths of ``cfg``; returns the kernels
     record.  Raises SmokeFailure on a failed check."""
     import torch
@@ -374,7 +668,7 @@ def run_all(cfg, dev, serve_frames: int) -> dict:
         for j, r_ in enumerate(body["results"]):
             check_wav(r_["wav_b64"], f"/generate_tts_batch[{j}]")
         phase("serve", f"/generate_tts_batch x{len(SENTENCES)}: {host_ms:.1f} ms host, {ev_ms:.1f} ms CUDA events")
-        launches = dict(ops.LAUNCHES)
+        launches = {k: ops.LAUNCHES[k] for k in ("wavernn_sample", "tacotron_decode")}
         phase("serve", f"kernel launches on the serve path: {launches}")
         # where one request's time goes: the acoustic decode vs the vocoder
         ids0 = synth.symbols.encode(get_pyin(SENTENCES[0])[0])
@@ -389,6 +683,9 @@ def run_all(cfg, dev, serve_frames: int) -> dict:
         httpd.shutdown()
         httpd.server_close()
         th.join(timeout=30)
+
+    # ---------------- train ----------------
+    tr = run_train_phase(cfg, dev, core_shape, corpus, TRAIN_STEPS, TRAIN_CKPT_EVERY)
 
     # ---------------- kernels at the serve path's shapes ----------------
     from tacotronv2_wavernn_chinese_tpu_torch.models import wavernn as W
@@ -415,6 +712,12 @@ def run_all(cfg, dev, serve_frames: int) -> dict:
     bms1, by1 = bound(f1, b1)
     f2, b2 = decoder_work(tcfg, mem_s.shape[0], mem_s.shape[1], mem_s.shape[2], k2["steps"], serve_frames)
     bms2, by2 = bound(f2, b2)
+    # K3/K4 at the train path's batch shape, on the trained weights
+    Bm, Tm, Tim = tr["main_shape"]
+    k34 = run_k34(tr["params"], tcfg, core_inputs(tr["params"], tcfg, Bm, Tm, Tim, dev, 33),
+                  f"train shape B={Bm} T_in={Tim} T={Tm}")
+    bms3, by3 = bound(*trainer_work(tcfg, Bm, Tm, Tim, backward=False))
+    bms4, by4 = bound(*trainer_work(tcfg, Bm, Tm, Tim, backward=True))
     kernels = {"kernels": [
         {"name": "wavernn_sample", "route": "cuda",
          "source": "tacotronv2_wavernn_chinese_tpu_torch/csrc/wavernn_sample.cu",
@@ -429,9 +732,23 @@ def run_all(cfg, dev, serve_frames: int) -> dict:
          "launches": launches["tacotron_decode"], "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": bms2, "bound_by": by2,
          "library_ms": None},
+        {"name": "tacotron_train_fwd", "route": "cuda",
+         "source": "tacotronv2_wavernn_chinese_tpu_torch/csrc/tacotron_train_fwd.cu",
+         "replaces": "tacotronv2_wavernn_chinese_tpu/ops/tacotron_trainer_kernel.py:689",
+         "launches": tr["launches"]["tacotron_train_fwd"], "max_abs_err": k34["k3_err"],
+         "ms": k34["k3_ms"], "plain_ms": k34["k3_plain_ms"], "bound_ms": bms3, "bound_by": by3,
+         "library_ms": None},
+        {"name": "tacotron_train_bwd", "route": "cuda",
+         "source": "tacotronv2_wavernn_chinese_tpu_torch/csrc/tacotron_train_bwd.cu",
+         "replaces": "tacotronv2_wavernn_chinese_tpu/ops/tacotron_trainer_kernel.py:761",
+         "launches": tr["launches"]["tacotron_train_bwd"], "max_abs_err": k34["k4_err"],
+         "max_rel_err": k34["k4_rel"],
+         "ms": k34["k4_ms"], "plain_ms": k34["k4_plain_ms"], "bound_ms": bms4, "bound_by": by4,
+         "library_ms": None},
     ]}
     phase("kernels", f"shapes: K1 T={k1['T']} folds={k1['B']}; K2 B={mem_s.shape[0]} "
-          f"T_in={mem_s.shape[1]} steps={k2['steps']}; total {time.time() - t_start:.1f} s")
+          f"T_in={mem_s.shape[1]} steps={k2['steps']}; K3/K4 B={Bm} T_in={Tim} T={Tm}; "
+          f"total {time.time() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)
     return kernels
 

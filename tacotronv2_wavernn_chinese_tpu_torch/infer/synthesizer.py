@@ -128,7 +128,7 @@ class Synthesizer:
     def _require_vocoder(self) -> None:
         if self.vocoder_params is None:
             raise NotImplementedError(
-                "Griffin-Lim vocoding is not ported yet (ROADMAP.md, queue item 2); "
+                "Griffin-Lim vocoding is not ported yet (ROADMAP.md, queue item 4); "
                 "load WaveRNN weights"
             )
 

@@ -1,12 +1,15 @@
-"""Functional building blocks over plain params dicts (inference only).
+"""Functional building blocks over plain params dicts.
 
 Each function mirrors its counterpart in the JAX package's
 ``models/layers.py`` and takes the same ``[in, out]`` weight layout:
 
 * the LSTM cell uses TF gate order (i, j, f, o) with forget-gate bias +1;
-* zoneout in eval mode EMA-mixes the carried state only;
-* prenet dropout is always on and takes its keep-masks from the caller;
-* BatchNorm runs in eval mode (TF eps 1e-3 on the Tacotron side);
+* zoneout mixes the carried state only: with binary keep-masks in train
+  mode, as an EMA in eval mode;
+* dropout (always on in the prenet) takes its keep-masks from the caller,
+  or draws them from an explicit ``torch.Generator``;
+* BatchNorm (TF eps 1e-3 on the Tacotron side) uses batch statistics in
+  train mode and returns the momentum-0.99 moving averages;
 * the GRU cell uses torch gate order (r, z, n).
 """
 
@@ -52,6 +55,40 @@ def batchnorm(p: Params, x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
     return (x - p["mean"]) * torch.rsqrt(p["var"] + eps) * p["scale"] + p["bias"]
 
 
+def batchnorm_train(p: Params, x: torch.Tensor, momentum: float = 0.99, eps: float = 1e-3):
+    """Train-mode BatchNorm -> (y, updated params).  Statistics are taken
+    over every axis but the last, padded positions included; the moving
+    averages track the biased variance (tf.layers.batch_normalization).
+    The updated statistics carry no gradient."""
+    axes = tuple(range(x.dim() - 1))
+    mean = x.mean(dim=axes)
+    var = x.var(dim=axes, unbiased=False)
+    new_p = dict(
+        p,
+        mean=(momentum * p["mean"] + (1 - momentum) * mean).detach(),
+        var=(momentum * p["var"] + (1 - momentum) * var).detach(),
+    )
+    return (x - mean) * torch.rsqrt(var + eps) * p["scale"] + p["bias"], new_p
+
+
+def keep_mask(shape, rate: float, generator: torch.Generator, device=None) -> torch.Tensor:
+    """A boolean dropout keep-mask (True with probability 1 - rate) drawn
+    from ``generator`` on its device."""
+    device = generator.device if device is None else device
+    return torch.rand(shape, generator=generator, device=device) < (1.0 - rate)
+
+
+def dropout(x: torch.Tensor, rate: float, mask: torch.Tensor | None = None,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """Inverted dropout from a keep-mask, or from one drawn from
+    ``generator``; rate 0 is the identity."""
+    if rate == 0.0:
+        return x
+    if mask is None:
+        mask = keep_mask(x.shape, rate, generator, x.device)
+    return torch.where(mask, x / (1.0 - rate), torch.zeros_like(x))
+
+
 def _lstm_gates(z: torch.Tensor, c: torch.Tensor):
     i, j, f, o = torch.chunk(z, 4, dim=-1)
     new_c = torch.sigmoid(f + 1.0) * c + torch.sigmoid(i) * torch.tanh(j)
@@ -72,16 +109,25 @@ def zoneout_eval(new: torch.Tensor, prev: torch.Tensor, rate: float) -> torch.Te
     return (1.0 - rate) * new + rate * prev
 
 
-def zoneout_lstm_step(p: Params, x, c, h, rate: float, zx=None):
+def zoneout_train(new: torch.Tensor, prev: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Train-mode zoneout: keep the state delta where ``mask`` is set
+    (reference modules.py:131-138)."""
+    return torch.where(mask.bool(), new - prev, torch.zeros_like(new)) + prev
+
+
+def zoneout_lstm_step(p: Params, x, c, h, rate: float, zx=None, masks=None):
     """Returns ``(c_carry, h_carry, out)``: zoneout mixes only the carried
     state, the raw ``new_h`` goes downstream (reference modules.py:114-142).
-    ``zx`` is the precomputed input half of the gate matmul."""
+    ``zx`` is the precomputed input half of the gate matmul; ``masks``
+    (cell, hidden keep-masks) select train-mode zoneout, None eval mode."""
     if zx is not None:
         units = h.shape[-1]
         z = zx + h @ p["w"][p["w"].shape[0] - units:] + p["b"]
         new_c, new_h = _lstm_gates(z, c)
     else:
         new_c, new_h = lstm_step(p, x, c, h)
+    if masks is not None and rate > 0.0:
+        return zoneout_train(new_c, c, masks[0]), zoneout_train(new_h, h, masks[1]), new_h
     return zoneout_eval(new_c, c, rate), zoneout_eval(new_h, h, rate), new_h
 
 
@@ -104,9 +150,12 @@ def unidir_lstm(
     zoneout_rate: float = 0.0,
     reverse: bool = False,
     lengths: torch.Tensor | None = None,
+    masks=None,
 ) -> torch.Tensor:
-    """Eval-mode LSTM over [B, T, D] -> [B, T, units]; with ``reverse`` and
-    ``lengths`` it is tf.nn.bidirectional_dynamic_rnn's backward pass."""
+    """LSTM over [B, T, D] -> [B, T, units]; with ``reverse`` and
+    ``lengths`` it is tf.nn.bidirectional_dynamic_rnn's backward pass.
+    ``masks`` (cell, hidden) zoneout keep-masks [T, B, units], indexed by
+    loop step (after the per-length reversal), select train mode."""
     B, T, D = xs.shape
     if reverse:
         xs = reverse_sequence(xs, lengths)
@@ -115,7 +164,8 @@ def unidir_lstm(
     h = xs.new_zeros(B, units)
     outs = []
     for t in range(T):
-        c, h, out = zoneout_lstm_step(p, None, c, h, zoneout_rate, zx=zx_all[t])
+        m = None if masks is None else (masks[0][t], masks[1][t])
+        c, h, out = zoneout_lstm_step(p, None, c, h, zoneout_rate, zx=zx_all[t], masks=m)
         outs.append(out)
     hs = torch.stack(outs, dim=1)
     if reverse:
@@ -146,13 +196,43 @@ def prenet(p: Params, x: torch.Tensor, rate: float, masks=None) -> torch.Tensor:
     return x
 
 
+def prenet_masks(p: Params, rate: float, shape_prefix, generator: torch.Generator):
+    """One keep-mask per prenet layer, shaped ``shape_prefix + (width,)``,
+    drawn from ``generator``; None when rate is 0."""
+    if rate == 0.0:
+        return None
+    return tuple(
+        keep_mask(tuple(shape_prefix) + (lp["w"].shape[1],), rate, generator)
+        for lp in p["layers"]
+    )
+
+
 def conv_stack(p: Params, x: torch.Tensor, activations=None) -> torch.Tensor:
     """Eval-mode conv -> activation -> BN stack (reference modules.py:379-391);
     ``activations`` defaults to ReLU on every layer, None entries are linear."""
+    return _conv_stack(p, x, activations, False, 0.0, None)[0]
+
+
+def conv_stack_train(p: Params, x: torch.Tensor, rate: float, masks=None, activations=None):
+    """Train-mode conv -> activation -> BN (batch statistics) -> dropout
+    stack; ``masks`` holds one keep-mask per layer (None: no dropout).
+    Returns (y, params with the updated BN statistics)."""
+    return _conv_stack(p, x, activations, True, rate, masks)
+
+
+def _conv_stack(p, x, activations, train, rate, masks):
+    new_layers = []
     for i, lp in enumerate(p["layers"]):
         act = torch.relu if activations is None else activations[i]
         y = conv1d(lp["conv"], x)
         if act is not None:
             y = act(y)
-        x = batchnorm(lp["bn"], y)
-    return x
+        if train:
+            y, bn = batchnorm_train(lp["bn"], y)
+            if masks is not None:
+                y = dropout(y, rate, mask=masks[i])
+        else:
+            y, bn = batchnorm(lp["bn"], y), lp["bn"]
+        new_layers.append(dict(lp, bn=bn))
+        x = y
+    return x, {"layers": new_layers}

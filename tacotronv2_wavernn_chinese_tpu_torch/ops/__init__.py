@@ -1,5 +1,6 @@
-"""Hand-written CUDA kernels for the two autoregressive loops, plus what
-they share: the build, the launch counters and the random generator.
+"""Hand-written CUDA kernels (the two autoregressive loops of serving and
+the teacher-forced decoder core of training, forward and backward), plus
+what they share: the build, the launch counters and the random generator.
 
 Build.  The sources under ``csrc/`` are compiled at first use with ``nvcc``
 for ``sm_90a`` into plain-C shared libraries (one per ``.cu`` file, all
@@ -34,13 +35,13 @@ import torch
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
-SOURCES = ("wavernn_sample.cu", "tacotron_decode.cu")
+SOURCES = ("wavernn_sample.cu", "tacotron_decode.cu", "tacotron_train_fwd.cu", "tacotron_train_bwd.cu")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
-LAUNCHES = {"wavernn_sample": 0, "tacotron_decode": 0}
+LAUNCHES = {"wavernn_sample": 0, "tacotron_decode": 0, "tacotron_train_fwd": 0, "tacotron_train_bwd": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -120,6 +121,10 @@ _ARGTYPES = {
     "tacotron_decode_launch": [ctypes.c_void_p] * 23 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
     + [ctypes.c_uint32, ctypes.c_void_p],
     "tacotron_decode_scratch_floats": [ctypes.c_int] * 6,
+    # the trainer kernels take their device pointers as one host array
+    "tacotron_train_fwd_launch": [ctypes.c_void_p] + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p],
+    "tacotron_train_bwd_launch": [ctypes.c_void_p] + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p],
+    "tacotron_train_smem_bytes": [ctypes.c_int] * 8,
 }
 
 

@@ -40,12 +40,12 @@ def check_supported(cfg: WaveRNNModelConfig, num_mels: int = 80) -> None:
     aux 32, widths that are multiples of 4)."""
     if cfg.mode != "RAW":
         raise NotImplementedError(
-            f"WaveRNN mode {cfg.mode!r} is not ported yet (ROADMAP.md, queue item 3: MOL)"
+            f"WaveRNN mode {cfg.mode!r} is not ported yet (ROADMAP.md, queue item 5: MOL)"
         )
     if num_mels != NUM_MELS or cfg.res_out_dims // 4 != AUX:
         raise NotImplementedError(
             f"the sample-loop kernel takes 80 mels and aux 32, got {num_mels} mels and "
-            f"aux {cfg.res_out_dims // 4} (ROADMAP.md, queue item 6: the kernel redesign)"
+            f"aux {cfg.res_out_dims // 4} (ROADMAP.md, queue item 1: the kernel redesign)"
         )
     if cfg.rnn_dims % 4 or cfg.fc_dims % 4:
         raise NotImplementedError("the sample-loop kernel needs rnn_dims and fc_dims divisible by 4")

@@ -1,4 +1,4 @@
-"""Small shared helpers: shape bucketing and device resolution."""
+"""Small shared helpers: shape bucketing, device resolution, params trees."""
 
 from __future__ import annotations
 
@@ -26,3 +26,22 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but CUDA is not available")
     return dev
+
+
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` leaf-wise over nested dicts/lists/tuples of tensors
+    (the params trees of this package); ``rest`` trees share the structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict/list tree, in insertion order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]

@@ -1,4 +1,5 @@
-"""The weight bridge: flat npz files <-> nested dicts of torch tensors.
+"""The weight bridge (flat npz files <-> nested dicts of torch tensors) and
+training checkpoints.
 
 The JAX package exports its parameters as nested dicts/lists of arrays in a
 flat ``.npz`` (``save_params_npz`` below writes the same format, key
@@ -9,17 +10,23 @@ tensors on the chosen device.
 ``init_tacotron`` / ``init_wavernn`` build trees with the shapes of the JAX
 inits (same initializer families, numpy draws from an explicit seed) so
 full-width random weights can be made without JAX.
+
+``CheckpointManager`` keeps step-keyed training checkpoints (step, params
+and Adam state in one ``torch.save`` file each), in place of the JAX
+package's Orbax manager.
 """
 
 from __future__ import annotations
 
 import os
+import re
 from typing import Any
 
 import numpy as np
 import torch
 
 from ..config import TacotronModelConfig, WaveRNNModelConfig
+from . import tree_map
 
 Params = dict
 
@@ -70,6 +77,65 @@ def load_params_npz(path: str) -> dict:
         return node
 
     return listify(tree)
+
+
+# ---------------------------------------------------------------------------
+# training checkpoints
+# ---------------------------------------------------------------------------
+
+
+class CheckpointManager:
+    """One file per saved step, ``ckpt-<step>.pt`` under ``directory``,
+    holding {"step", "params", "opt_state"} with CPU tensors.  A save is
+    written to a temporary name and renamed, so a file that exists is
+    whole; the newest ``max_to_keep`` are kept (reference
+    tf.train.Saver(max_to_keep=20), tacotron/train.py:127)."""
+
+    _NAME = re.compile(r"^ckpt-(\d+)\.pt$")
+
+    def __init__(self, directory: str, max_to_keep: int = 20):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, f"ckpt-{step}.pt")
+
+    def all_steps(self) -> list[int]:
+        steps = []
+        for name in os.listdir(self.directory):
+            m = self._NAME.match(name)
+            if m:
+                steps.append(int(m.group(1)))
+        return sorted(steps)
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, params: Any, opt_state: Any) -> None:
+        cpu = lambda t: _tree_to(t, torch.device("cpu"))
+        blob = {"step": int(step), "params": cpu(params), "opt_state": cpu(opt_state)}
+        tmp = self._path(step) + ".tmp"
+        torch.save(blob, tmp)
+        os.replace(tmp, self._path(step))
+        for old in self.all_steps()[:-self.max_to_keep]:
+            os.remove(self._path(old))
+
+    def restore(self, device, step: int | None = None) -> dict | None:
+        """The checkpoint at ``step`` (default: the latest) with its tensors
+        on ``device``, or None when there is none."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return None
+        blob = torch.load(self._path(step), map_location="cpu", weights_only=True)
+        dev = torch.device(device)
+        return {"step": int(blob["step"]), "params": _tree_to(blob["params"], dev),
+                "opt_state": _tree_to(blob["opt_state"], dev)}
+
+
+def _tree_to(tree, device):
+    return tree_map(lambda t: t.detach().to(device) if isinstance(t, torch.Tensor) else t, tree)
 
 
 # ---------------------------------------------------------------------------
@@ -201,7 +267,7 @@ def init_tacotron(seed: int, cfg: TacotronModelConfig, device="cpu") -> Params:
     if cfg.attention_mode != "forward":
         raise NotImplementedError(
             f"attention_mode={cfg.attention_mode!r} is not ported yet "
-            "(ROADMAP.md, queue item 1: the decoder kernel's remaining branches)"
+            "(ROADMAP.md, queue item 3: the decoder kernel's remaining branches)"
         )
     if cfg.predict_linear:
         raise NotImplementedError("the CBHG mel->linear head is not ported yet (ROADMAP.md)")

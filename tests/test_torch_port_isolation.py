@@ -29,11 +29,13 @@ print(",".join(bad))
 from {PORT}.config import default_config
 from {PORT}.infer.synthesizer import Synthesizer
 from {PORT}.serving.export import load_exported
+from {PORT}.train.tacotron_train import run_training
 from {PORT}.utils.checkpoints import init_tacotron
 cfg = default_config()
 errors = 0
 for call in (lambda: Synthesizer(cfg, init_tacotron(0, cfg.tacotron)),
-             lambda: load_exported("does-not-matter")):
+             lambda: load_exported("does-not-matter"),
+             lambda: run_training(cfg, "train.txt", "mels", "logs-never-written")):
     try:
         call()
     except RuntimeError as e:
@@ -53,7 +55,7 @@ def probe():
 
 def test_port_imports_no_jax(probe):
     n, bad = int(probe[0]), probe[1]
-    assert n >= 20  # every module of the slice was imported
+    assert n >= 28  # every module of both slices was imported
     assert bad == "", f"the port loaded {bad}"
 
 
@@ -67,7 +69,9 @@ def test_frontend_data_is_byte_identical(name):
 
 
 def test_entry_points_raise_without_gpu(probe):
-    assert probe[2] == "2"
+    """The synthesizer, the artifact loader and the trainer each raise
+    instead of dropping to the CPU."""
+    assert probe[2] == "3"
 
 
 def test_chip_smoke_fails_without_card():
