@@ -7,9 +7,11 @@ Phases, each printing its lines before the next starts:
 
   device   the card's name and power limit (nvidia-smi)
   build    nvcc builds every kernel source under csrc/ (sm_90a), in parallel
-  wavernn  the sample-loop kernel (K1) against its plain version, full width,
-           8 folds x 2200 samples, greedy and sampled (shared generator),
-           and 3 folds (a partly filled block)
+  wavernn  the sample-loop kernel (K1, one cooperative grid) against its
+           plain version, full width, 16 folds x 2200 samples, greedy and
+           sampled (shared generator), and 3 folds (a partly filled fold
+           tile); then fold scaling: 16, 64 and 256 folds x 1000 samples,
+           greedy, kernel ms and us/step
   decoder  the decode kernel (K2) against its plain version, full width,
            B=3, T_in=64, dropout 0.5: a 200-step run with the stop bias at
            -30 (per-step error growth printed), a run with normal weights,
@@ -197,11 +199,16 @@ def compare_labels(lk, lp, gaps, n_classes: int, tag: str) -> dict:
             "near_ties": int((gaps[sel] < 1e-4).sum())}
 
 
-def run_k1(params, wcfg, mels, seed: int, greedy: bool, tag: str, warmup: bool = True):
+def run_k1(params, wcfg, mels, seed: int, greedy: bool, tag: str, warmup: bool = True, steps: int | None = None):
+    """K1 against its plain version on the conditioning of ``mels`` (its
+    first ``steps`` samples when given): labels compared, times by CUDA
+    events."""
     from tacotronv2_wavernn_chinese_tpu_torch.models import wavernn as W
     from tacotronv2_wavernn_chinese_tpu_torch.ops import wavernn_kernel as WK
 
     cond = W.precompute_conditioning(params, wcfg, mels)
+    if steps is not None:
+        cond = cond[:steps].contiguous()
     w = WK.pack_weights(params, wcfg)
     out = {}
     out["ms"] = cuda_ms(lambda: out.__setitem__("lk", WK.sample_labels(cond, w, seed, greedy)),
@@ -585,12 +592,20 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
     wcfg = cfg.wavernn
     wp = init_wavernn(1, wcfg, device=dev)
     rng = np.random.default_rng(11)
-    mels = torch.as_tensor(rng.uniform(0.0, 1.0, (8, 8 + 2 * wcfg.pad, 80)), dtype=torch.float32, device=dev)
+    mels = torch.as_tensor(rng.uniform(0.0, 1.0, (16, 8 + 2 * wcfg.pad, 80)), dtype=torch.float32, device=dev)
     for greedy in (True, False):
         run_k1(wp, wcfg, mels, 1234, greedy, "greedy" if greedy else "sampled")
-    # a fold count that does not fill the last block of 4 folds
+    # a fold count that is not a multiple of 4: the kernel stages a zero fold
     mels_r = torch.as_tensor(rng.uniform(0.0, 1.0, (3, 3 + 2 * wcfg.pad, 80)), dtype=torch.float32, device=dev)
     run_k1(wp, wcfg, mels_r, 99, False, "ragged 3 folds")
+    # fold scaling: every block reads every fold's activations, so a step
+    # grows with the fold count
+    scaling = []
+    for n_f in (16, 64, 256):
+        mels_f = torch.as_tensor(rng.uniform(0.0, 1.0, (n_f, 4 + 2 * wcfg.pad, 80)), dtype=torch.float32, device=dev)
+        r = run_k1(wp, wcfg, mels_f, 7, True, f"scaling {n_f} folds", steps=1000)
+        scaling.append(f"{n_f} folds {r['ms']:.1f} ms ({r['ms'] / r['T'] * 1e3:.1f} us/step)")
+    phase("wavernn", "fold scaling, T=1000, greedy: " + ", ".join(scaling))
 
     # ---------------- decoder ----------------
     tcfg = cfg.tacotron  # dropout 0.5, zoneout 0.1: the serving defaults
@@ -708,6 +723,10 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
     # the serve phase already ran this kernel at this shape: no extra warmup
     k1 = run_k1(synth.vocoder_params, wcfg, mels_s, 5, False, f"serve shape {n_folds} folds", warmup=False)
 
+    from tacotronv2_wavernn_chinese_tpu_torch.ops import wavernn_kernel as WK
+
+    k1_plan = WK.choose_k1_plan(wcfg.rnn_dims, wcfg.fc_dims, synth.vocoder_params["fc3"]["w"].shape[1],
+                                torch.cuda.get_device_properties(dev).multi_processor_count)
     f1, b1 = wavernn_work(wcfg, k1["T"], k1["B"])
     bms1, by1 = bound(f1, b1)
     f2, b2 = decoder_work(tcfg, mem_s.shape[0], mem_s.shape[1], mem_s.shape[2], k2["steps"], serve_frames)
@@ -725,7 +744,7 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
          "launches": launches["wavernn_sample"], "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": bms1, "bound_by": by1,
          "library_ms": None, "compared_steps": k1["compared"], "uncompared_steps": k1["uncompared"],
-         "diverged_folds": k1["diverged"]},
+         "diverged_folds": k1["diverged"], "grid_blocks": k1_plan.blocks, "fold_tile": k1_plan.fold_tile},
         {"name": "tacotron_decode", "route": "cuda",
          "source": "tacotronv2_wavernn_chinese_tpu_torch/csrc/tacotron_decode.cu",
          "replaces": "tacotronv2_wavernn_chinese_tpu/ops/tacotron_decoder_kernel.py:627",

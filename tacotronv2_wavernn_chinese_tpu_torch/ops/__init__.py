@@ -117,7 +117,9 @@ def build_all() -> dict:
 
 
 _ARGTYPES = {
-    "wavernn_sample_launch": [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [ctypes.c_uint32, ctypes.c_void_p],
+    "wavernn_sample_launch": [ctypes.c_void_p] * 20 + [ctypes.c_int] * 8 + [ctypes.c_uint32, ctypes.c_void_p],
+    "wavernn_sample_smem_bytes": [ctypes.c_int] * 5,
+    "wavernn_sample_scratch_floats": [ctypes.c_int] * 4,
     "tacotron_decode_launch": [ctypes.c_void_p] * 23 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
     + [ctypes.c_uint32, ctypes.c_void_p],
     "tacotron_decode_scratch_floats": [ctypes.c_int] * 6,

@@ -12,7 +12,7 @@ launches the kernel or raises; only a CPU tensor goes to the plain version.
 
 Scope: forward attention, r = 1, no anti-repeat, no smoothing, two prenet
 layers.  Everything else raises NotImplementedError (ROADMAP.md, queue
-item 1).
+item 4).
 
 Randomness: the prenet dropout of row b at step t draws
 ``hash_bits(seeds[b], 0, t, lane)`` with lanes [0, p1) for the first layer
@@ -60,7 +60,7 @@ def check_supported(cfg: TacotronModelConfig) -> None:
     if cfg.outputs_per_step != 1:
         raise NotImplementedError(
             f"outputs_per_step={cfg.outputs_per_step}: only r=1 is ported "
-            "(ROADMAP.md, queue item 3: r up to 6)"
+            "(ROADMAP.md, queue item 4: r up to 6)"
         )
     if len(cfg.prenet_layers) != 2:
         raise NotImplementedError("the decoder kernel takes exactly two prenet layers")

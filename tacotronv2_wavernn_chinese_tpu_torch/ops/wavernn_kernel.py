@@ -1,18 +1,33 @@
 """The WaveRNN RAW sample loop: CUDA kernel wrapper and its plain version.
 
 ``sample_labels`` runs the whole serial loop (csrc/wavernn_sample.cu, one
-launch) for a batch of folds; ``sample_labels_plain`` is the same function
-in plain PyTorch with the same arguments and the same random generator.
-For a CUDA tensor the wrapper launches the kernel or raises; only a CPU
-tensor goes to the plain version.
+cooperative launch) for a batch of folds; ``sample_labels_plain`` is the
+same function in plain PyTorch with the same arguments and the same random
+generator.  For a CUDA tensor the wrapper launches the kernel or raises;
+only a CPU tensor goes to the plain version.
 
 Inputs are the packed conditioning ``cond`` [T, B, 208] (time-major:
 upsampled mel 80 | a1 | a2 | a3 | a4, 32 each) and the weights of
 ``pack_weights`` (f32, transposed to [out, in], inputs padded to a multiple
 of 4).  The output is int32 mu-law labels [T, B].
+
+The kernel is one grid of ``K1Plan.blocks`` blocks, about one per SM, all
+resident at once.  Block k owns ceil-division slices of every layer's
+output columns (hidden units of GRU1, GRU2 and the I projection, fc1/fc2
+columns, logits) and keeps those weight rows in its shared memory for the
+whole loop.  A step is five phases, each ended by a grid barrier: GRU1
+(after merging the previous step's per-block argmax partials into the
+fed-back sample), GRU2, fc1, fc2, and fc3 with the argmax partials and the
+next step's conditioning part of the I projection.  Every phase stages its
+input vectors for a tile of ``fold_tile`` folds in shared memory and loops
+over tiles.  ``k1_plan`` computes that layout term for term as the ``.cu``
+does; the wrapper sizes the launch from it and checks it against the
+library's own numbers.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -27,7 +42,12 @@ NUM_MELS = 80
 AUX = 32
 COND_W = NUM_MELS + 4 * AUX  # 208
 XI_W = 116  # [x, mel, a1] = 113, padded to a multiple of 4
+COND_I = NUM_MELS + AUX  # 112: the I projection's conditioning inputs
 _A2, _A3, _A4 = NUM_MELS + AUX, NUM_MELS + 2 * AUX, NUM_MELS + 3 * AUX
+
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
+FOLD_TILES = (16, 8, 4)  # tried in this order; the first that fits is taken
+BARRIERS_PER_STEP = 5
 
 WEIGHT_ORDER = (
     "w_i", "b_i", "wi1", "bi1", "wh1", "bh1", "wi2", "bi2", "wh2", "bh2",
@@ -40,15 +60,86 @@ def check_supported(cfg: WaveRNNModelConfig, num_mels: int = 80) -> None:
     aux 32, widths that are multiples of 4)."""
     if cfg.mode != "RAW":
         raise NotImplementedError(
-            f"WaveRNN mode {cfg.mode!r} is not ported yet (ROADMAP.md, queue item 5: MOL)"
+            f"WaveRNN mode {cfg.mode!r} is not ported yet (ROADMAP.md, queue item 6: MOL)"
         )
     if num_mels != NUM_MELS or cfg.res_out_dims // 4 != AUX:
         raise NotImplementedError(
             f"the sample-loop kernel takes 80 mels and aux 32, got {num_mels} mels and "
-            f"aux {cfg.res_out_dims // 4} (ROADMAP.md, queue item 1: the kernel redesign)"
+            f"aux {cfg.res_out_dims // 4} (ROADMAP.md, queue item 3: the kernel's next steps)"
         )
     if cfg.rnn_dims % 4 or cfg.fc_dims % 4:
         raise NotImplementedError("the sample-loop kernel needs rnn_dims and fc_dims divisible by 4")
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _pad4(a: int) -> int:
+    return (a + 3) & ~3
+
+
+@dataclasses.dataclass(frozen=True)
+class K1Plan:
+    """The grid of the sample-loop kernel: ``blocks`` blocks; block k owns
+    hidden units (and I projection columns) [k*units, (k+1)*units), fc1/fc2
+    columns [k*fc_cols, ...) and logits [k*logits, ...), each range cut at
+    the layer's width."""
+
+    H: int
+    FC: int
+    NC: int
+    blocks: int
+    fold_tile: int
+    units: int
+    fc_cols: int
+    logits: int
+    smem_bytes: int
+
+    def ranges(self, layer: str) -> list[range]:
+        """Each block's output columns of ``layer`` (I, gru1, gru2, fc1,
+        fc2, fc3); a GRU's unit j stands for its rows j, H+j and 2H+j."""
+        width, per = {
+            "I": (self.H, self.units), "gru1": (self.H, self.units), "gru2": (self.H, self.units),
+            "fc1": (self.FC, self.fc_cols), "fc2": (self.FC, self.fc_cols), "fc3": (self.NC, self.logits),
+        }[layer]
+        return [range(min(k * per, width), min((k + 1) * per, width)) for k in range(self.blocks)]
+
+    def scratch_floats(self, B: int) -> int:
+        """Floats of the global exchange scratch: h1, h2 [2, B, H]; x1, x2,
+        xt_cond [B, H]; y1, y2 [B, FC]; argmax partials [B, blocks] x 2."""
+        return B * (7 * self.H + 2 * self.FC + 2 * self.blocks)
+
+
+def k1_plan(H: int, FC: int, NC: int, n_sm: int, fold_tile: int) -> K1Plan:
+    """The layout of the kernel on a card with ``n_sm`` SMs: blocks =
+    ceil(H / ceil(H / n_sm)), ceil-division column ranges, and the shared
+    memory of one block (csrc/wavernn_sample.cu ``make_layout``, term for
+    term).  Whether it fits is ``choose_k1_plan``'s question."""
+    units = _cdiv(H, n_sm)
+    G = _cdiv(H, units)
+    cH, cF, cN = units, _cdiv(FC, G), _cdiv(NC, G)
+    KA, KB = H + AUX, FC + AUX
+    weights = (cH * COND_I + H + 3 * cH * H + 3 * cH * H + 3 * cH * KA + 3 * cH * H
+               + cF * KA + cF * KB + cN * FC)
+    stage = fold_tile * max(2 * H, KA + H, KB, FC + COND_I)
+    out = fold_tile * max(6 * cH, cF, cN + cH)
+    floats = weights + stage + out + _pad4(13 * cH + 2 * cF + cN) + _pad4(fold_tile)
+    return K1Plan(H, FC, NC, G, fold_tile, cH, cF, cN, 4 * floats)
+
+
+def choose_k1_plan(H: int, FC: int, NC: int, n_sm: int) -> K1Plan:
+    """The plan with the largest fold tile of ``FOLD_TILES`` whose shared
+    memory fits one block; raises NotImplementedError when none does."""
+    for ft in FOLD_TILES:
+        plan = k1_plan(H, FC, NC, n_sm, ft)
+        if plan.smem_bytes <= SMEM_LIMIT:
+            return plan
+    raise NotImplementedError(
+        f"the sample-loop kernel's weight slices do not fit shared memory at rnn {H}, fc {FC}, "
+        f"{NC} classes on {n_sm} SMs ({plan.smem_bytes} bytes per block at fold tile {plan.fold_tile}, "
+        f"limit {SMEM_LIMIT}) (ROADMAP.md, queue item 3: bf16 weights)"
+    )
 
 
 def pack_weights(params: dict, cfg: WaveRNNModelConfig) -> dict:
@@ -69,8 +160,8 @@ def pack_weights(params: dict, cfg: WaveRNNModelConfig) -> dict:
 
 
 def sample_labels(cond: torch.Tensor, w: dict, seed: int, greedy: bool = False) -> torch.Tensor:
-    """The sample loop -> labels [T, B] int32.  CUDA: one kernel launch;
-    CPU: ``sample_labels_plain``."""
+    """The sample loop -> labels [T, B] int32.  CUDA: one cooperative
+    kernel launch; CPU: ``sample_labels_plain``."""
     if cond.device.type == "cpu":
         return sample_labels_plain(cond, w, seed, greedy)
     if cond.device.type != "cuda":
@@ -93,14 +184,23 @@ def sample_labels(cond: torch.Tensor, w: dict, seed: int, greedy: bool = False) 
         require_f32_contiguous(k, w[k], dev, shapes[k])
     if H % 4 or FC % 4:
         raise NotImplementedError("the sample-loop kernel needs rnn and fc widths divisible by 4")
+    plan = choose_k1_plan(H, FC, NC, torch.cuda.get_device_properties(dev).multi_processor_count)
+    if (BARRIERS_PER_STEP * T + 1) * plan.blocks >= 2**32:
+        raise ValueError(f"{T} steps overflow the kernel's 32-bit barrier counter")
     labels = torch.empty((T, B), dtype=torch.int32, device=dev)
     if T == 0 or B == 0:
         return labels
     lib = load("wavernn_sample.cu")
+    G, FT = plan.blocks, plan.fold_tile
+    if (lib.wavernn_sample_smem_bytes(G, H, FC, NC, FT) != plan.smem_bytes
+            or lib.wavernn_sample_scratch_floats(B, G, H, FC) != plan.scratch_floats(B)):
+        raise RuntimeError("k1_plan and csrc/wavernn_sample.cu disagree on the kernel's layout")
+    scratch = torch.zeros(plan.scratch_floats(B), dtype=torch.float32, device=dev)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.wavernn_sample_launch(
-            ptr(cond), *[ptr(w[k]) for k in WEIGHT_ORDER], ptr(labels),
-            T, B, H, FC, NC, int(bool(greedy)), int(seed) & 0xFFFFFFFF, stream_ptr(dev),
+            ptr(cond), *[ptr(w[k]) for k in WEIGHT_ORDER], ptr(labels), ptr(scratch), ptr(counter),
+            T, B, H, FC, NC, G, FT, int(bool(greedy)), int(seed) & 0xFFFFFFFF, stream_ptr(dev),
         )
     LAUNCHES["wavernn_sample"] += 1
     check_launch(err, "wavernn_sample")
