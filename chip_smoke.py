@@ -20,10 +20,12 @@ Phases, each printing its lines before the next starts:
            on localhost: three /generate_tts requests and one
            /generate_tts_batch, WAV headers and lengths checked, both
            kernels' launch counters read around the requests
-  train    the trainer kernels (K3 forward, K4 backward) against the eager
-           loop differentiated by autograd, full width, B=32, T_in=128
-           (ragged lengths), 400 steps, zoneout masks: max|d| of every
-           output and gradient; then run_training at the default config,
+  train    the trainer kernels (K3 forward, K4 backward, one cluster grid
+           each) against the eager loop differentiated by autograd, full
+           width, B=32, T_in=128 (ragged lengths), 400 steps, zoneout
+           masks: max|d| of every output and gradient; the same at B=1, 10
+           and 64 (100 steps); a batch-scaling line (K3/K4 us/step at B=1,
+           8, 32, 64); then run_training at the default config,
            batch 32, on a synthetic corpus (64 utterances, 40-150
            symbols, 200-600 frames): 6 steps with a checkpoint every 3 and
            the eval render, the K3/K4 launch counters read around it, and a
@@ -137,24 +139,31 @@ def decoder_work(tcfg, B: int, T_in: int, V: int, steps: int, max_iters: int):
     return flops, nbytes
 
 
-def trainer_work(tcfg, B: int, T: int, T_in: int, backward: bool, masks: bool = True):
+def trainer_work(tcfg, B: int, T: int, T_in: int, backward: bool, blocks: int, masks: bool = True):
     """(flops, bytes) of the trainer core kernel, forward (K3) or backward
-    (K4), over T steps and B rows (ops/tacotron_trainer_kernel.py)."""
+    (K4), over T steps and B rows on a grid of ``blocks`` blocks
+    (ops/tacotron_trainer_kernel.py).  K3 saves the gate pre-activations
+    g1, g2 and the query projection pq, and K4 reads them instead of
+    recomputing them: their bytes count in both, their products in K3's
+    work only."""
     from tacotronv2_wavernn_chinese_tpu_torch.ops import tacotron_trainer_kernel as TK
 
     P, U, V, A, F, taps = TK.widths(tcfg)
-    gates = (P + V + U) * 4 * U + 2 * U * 4 * U
-    small = U * A + taps * F + F * A + 2 * A + V + U + 1  # wq, location, ball, v, mu
-    inputs = T * B * (P + (4 * U if masks else 0)) + B * T_in * (A + V + 1)
-    saves = T * B * (3 * T_in + 6 * U + 2 * V + 1)  # out2, ctx, align + FWD_OUTS saves
+    small = taps * F + F * A + 2 * A + V + U + 1  # location, ball, v, mu
+    keep = 4 * U if masks else 0
+    memory = B * T_in * (A + V)  # keys, values
     if not backward:
+        gates = (P + V + U) * 4 * U + 2 * U * 4 * U
         macs = gates + U * A + T_in * (taps * F + F * A + A + V) + V + U
-        nbytes = inputs + gates + 8 * U + small + saves
+        saves = T * B * (3 * T_in + 6 * U + 2 * V + 1 + 8 * U + A)  # out2, ctx, align + FWD_OUTS saves
+        nbytes = T * B * (P + keep) + memory + B * T_in + gates + 8 * U + U * A + small + saves
     else:
-        macs = (gates + 2 * U * 4 * U + (V + U) * 4 * U + 2 * U * A + V + U
-                + T_in * (V + 3 * taps * F + 3 * F * A + 2 * A))
-        nbytes = (inputs + B * T_in + T * B * (U + V + T_in) + 2 * gates + 8 * U + small + F * A
-                  + saves + T * B * (8 * U + A + 1 + V) + B * T_in * A + B * (taps * F + F * A + 2 * A))
+        gates = (V + U) * 4 * U + 2 * U * 4 * U  # l1's [ctx | h] rows, l2
+        macs = gates + U * A + V + U + T_in * (V + 3 * taps * F + 3 * F * A + 2 * A)
+        saves = T * B * (3 * U + V + 3 * T_in + 1 + 8 * U + A)  # out2, ctx, align(_sm), c1p, c2p, alphap, mup, g1, g2, pq
+        outs = T * B * (8 * U + A + 1 + V) + B * T_in * A + blocks * (taps * F + F * A + 2 * A)
+        nbytes = (T * B * keep + memory + B * T_in + T * B * (U + V + T_in) + gates + U * A + small
+                  + saves + outs)
     return 2.0 * macs * T * B, 4.0 * nbytes
 
 
@@ -385,10 +394,32 @@ def run_k34(params, tcfg, x, tag: str) -> dict:
     outs = TK.fused_core_plain(params, tcfg, xs["pre"], x["masks"], xs["keys"], xs["values"], x["mask"])
     loss = sum((o * c).sum() for o, c in zip(outs, x["cots"]))
     out["k4_plain_ms"] = cuda_ms(lambda: torch.autograd.grad(loss, list(xs.values())))
+    plan = TK.k34_plan(B, T_in, TK.widths(tcfg), TK.card_clusters(x["pre"].device))
+    out["blocks"], out["clusters"] = plan.blocks, plan.clusters
     phase("train", f"{tag}: K3 {out['k3_ms']:.2f} ms ({out['k3_ms'] / T * 1e3:.1f} us/step), plain "
           f"{out['k3_plain_ms']:.1f} ms; K4 {out['k4_ms']:.2f} ms ({out['k4_ms'] / T * 1e3:.1f} us/step), "
-          f"plain backward {out['k4_plain_ms']:.1f} ms")
+          f"plain backward {out['k4_plain_ms']:.1f} ms; grid {plan.clusters} clusters x {TK.CLUSTER} blocks, "
+          f"{plan.blocks_per_row} blocks per row, {plan.positions} positions per block, shared memory "
+          f"{plan.smem_bytes('fwd')} / {plan.smem_bytes('bwd')} bytes")
     return out
+
+
+def batch_scaling(params, tcfg, dev, batches, T: int, T_in: int) -> str:
+    """K3 and K4 us/step at each batch size (kernels alone, CUDA events):
+    every block holds its weight slices for all rows, so the products grow
+    with B while the attention spreads over fewer blocks per row."""
+    from tacotronv2_wavernn_chinese_tpu_torch.ops import tacotron_trainer_kernel as TK
+
+    w = TK.pack_core_weights(params, tcfg)
+    parts = []
+    for B in batches:
+        x = core_inputs(params, tcfg, B, T, T_in, dev, 40 + B)
+        args = (w, x["pre"], x["masks"], x["keys"], x["values"], x["mask"], float(tcfg.zoneout_rate))
+        box = {}
+        k3 = cuda_ms(lambda: box.__setitem__("f", TK.train_fwd(*args)), warmup=True)
+        k4 = cuda_ms(lambda: TK.train_bwd(*args, box["f"], list(x["cots"])), warmup=True)
+        parts.append(f"B={B} K3 {k3 / T * 1e3:.1f} K4 {k4 / T * 1e3:.1f} us/step")
+    return ", ".join(parts)
 
 
 class EventHooks:
@@ -461,7 +492,8 @@ def step_split(cfg, state, batch, dev) -> dict:
     return res
 
 
-def run_train_phase(cfg, dev, core_shape, corpus: dict, steps: int, ckpt_every: int) -> dict:
+def run_train_phase(cfg, dev, core_shape, corpus: dict, steps: int, ckpt_every: int,
+                    extra_batches=(1, 10, 64), scaling_batches=(1, 8, 32, 64)) -> dict:
     """(1) K3/K4 against the plain version at ``core_shape``; (2) the real
     trainer on a synthetic corpus, with launch counters, restore and one
     step's split.  Returns what the kernels line needs."""
@@ -481,6 +513,13 @@ def run_train_phase(cfg, dev, core_shape, corpus: dict, steps: int, ckpt_every: 
     tp = init_tacotron(4, tcfg, device=dev)
     r1 = run_k34(tp, tcfg, core_inputs(tp, tcfg, B, T, T_in, dev, 21),
                  f"core B={B} T_in={T_in} T={T} train masks")
+    # other batch sizes: one row (an eval render), a ragged grid, the most
+    # rows per cluster; T bounded to keep the plain versions short
+    for b_extra in extra_batches:
+        run_k34(tp, tcfg, core_inputs(tp, tcfg, b_extra, min(T, 100), T_in, dev, 22 + b_extra),
+                f"core B={b_extra} T_in={T_in} T={min(T, 100)} train masks")
+    phase("train", f"batch scaling (T_in={SCALING_SHAPE[0]}, T={SCALING_SHAPE[1]}): "
+          + batch_scaling(tp, tcfg, dev, scaling_batches, SCALING_SHAPE[1], SCALING_SHAPE[0]))
 
     tcfg_run = cfg.override(f"tacotron_train.checkpoint_interval={ckpt_every},tacotron_train.summary_interval=1")
     corpus_dir = os.path.join(HERE, "build", "chip_smoke_corpus")
@@ -560,6 +599,7 @@ def main() -> int:
 
 
 TRAIN_CORE_SHAPE = (32, 128, 400)  # B, T_in, T of the K3/K4 check
+SCALING_SHAPE = (160, 200)  # T_in, T of the batch-scaling line
 TRAIN_CORPUS = {"utts": 64, "symbols": (40, 150), "frames": (200, 600)}
 TRAIN_STEPS, TRAIN_CKPT_EVERY = 6, 3
 
@@ -735,8 +775,10 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
     Bm, Tm, Tim = tr["main_shape"]
     k34 = run_k34(tr["params"], tcfg, core_inputs(tr["params"], tcfg, Bm, Tm, Tim, dev, 33),
                   f"train shape B={Bm} T_in={Tim} T={Tm}")
-    bms3, by3 = bound(*trainer_work(tcfg, Bm, Tm, Tim, backward=False))
-    bms4, by4 = bound(*trainer_work(tcfg, Bm, Tm, Tim, backward=True))
+    bms3, by3 = bound(*trainer_work(tcfg, Bm, Tm, Tim, backward=False, blocks=k34["blocks"]))
+    bms4, by4 = bound(*trainer_work(tcfg, Bm, Tm, Tim, backward=True, blocks=k34["blocks"]))
+    phase("kernels", f"K3 + K4 at the train shape: {k34['k3_ms'] + k34['k4_ms']:.2f} ms, bound "
+          f"{bms3 + bms4:.3f} ms")
     kernels = {"kernels": [
         {"name": "wavernn_sample", "route": "cuda",
          "source": "tacotronv2_wavernn_chinese_tpu_torch/csrc/wavernn_sample.cu",
@@ -756,14 +798,14 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
          "replaces": "tacotronv2_wavernn_chinese_tpu/ops/tacotron_trainer_kernel.py:689",
          "launches": tr["launches"]["tacotron_train_fwd"], "max_abs_err": k34["k3_err"],
          "ms": k34["k3_ms"], "plain_ms": k34["k3_plain_ms"], "bound_ms": bms3, "bound_by": by3,
-         "library_ms": None},
+         "library_ms": None, "grid_blocks": k34["blocks"], "clusters": k34["clusters"]},
         {"name": "tacotron_train_bwd", "route": "cuda",
          "source": "tacotronv2_wavernn_chinese_tpu_torch/csrc/tacotron_train_bwd.cu",
          "replaces": "tacotronv2_wavernn_chinese_tpu/ops/tacotron_trainer_kernel.py:761",
          "launches": tr["launches"]["tacotron_train_bwd"], "max_abs_err": k34["k4_err"],
          "max_rel_err": k34["k4_rel"],
          "ms": k34["k4_ms"], "plain_ms": k34["k4_plain_ms"], "bound_ms": bms4, "bound_by": by4,
-         "library_ms": None},
+         "library_ms": None, "grid_blocks": k34["blocks"], "clusters": k34["clusters"]},
     ]}
     phase("kernels", f"shapes: K1 T={k1['T']} folds={k1['B']}; K2 B={mem_s.shape[0]} "
           f"T_in={mem_s.shape[1]} steps={k2['steps']}; K3/K4 B={Bm} T_in={Tim} T={Tm}; "

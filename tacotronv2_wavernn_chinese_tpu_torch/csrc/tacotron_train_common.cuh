@@ -1,153 +1,157 @@
 // What the two teacher-forced trainer kernels share (tacotron_train_fwd.cu,
-// tacotron_train_bwd.cu): the block size, the shared-memory layouts, block
-// reductions, the LSTM gate recompute and the location features.
+// tacotron_train_bwd.cu): the grid plan, the grid barrier, the cluster
+// exchange and the products over a block's weight slice.
 //
-// Both kernels give each batch row its own block (rows are independent)
-// and run every step of the sequence inside one launch; per-row state sits
-// in shared memory, the gate matrices are streamed from L2 every step by
-// matvec_rows (common.cuh).  The layouts below are mirrored term for term
-// by ops/tacotron_trainer_kernel.py smem_floats; the T_in-length vectors
-// are the only part that grows with the encoder length.
+// Both kernels are one grid of NC thread-block clusters of TR_CLUSTER
+// blocks (about one block per SM; NC is what the card keeps resident,
+// cudaOccupancyMaxActiveClusters), and run every step of the sequence in
+// one launch.  The plan (tr_plan; mirrored term for term by
+// ops/tacotron_trainer_kernel.py k34_plan, which the wrapper compares with
+// the library before every launch):
+//
+//   * K-units.  Rank q of every cluster holds the gate-matrix entries of the
+//     decoder units [q*Ku, (q+1)*Ku) on the reduction side of each product
+//     (all four gates of those units in the backward, the units' inputs in
+//     the forward), so the eight ranks of a cluster together cover the whole
+//     reduction dimension once.  The LSTM epilogues that make a product's
+//     input run for the rank's K-units and every batch row, in every
+//     cluster (the same arithmetic in the same order, so the copies agree
+//     bit for bit): the product's input never crosses the grid.
+//   * Output units.  Cluster c owns the product outputs of the units
+//     [c*uc, (c+1)*uc) (and context rows [c*vc, ...)); after the products,
+//     the eight partial sums of an output are merged inside the cluster
+//     through distributed shared memory, rank q taking the units
+//     [c*uc + q*ub, ...).  Only these merged outputs cross the grid, through
+//     global memory (L2) and one grid barrier.
+//   * Rows.  The attention of batch row b runs on the bpr blocks
+//     (rank/bpr == b - c*rpc) of cluster c = b / rpc, each on nT encoder
+//     positions; the row-wide sums cross those blocks inside the cluster.
+//
+// Every block keeps its weight slices in shared memory for the whole loop:
+// no gate weight is read from L2 after the prologue, and each product
+// serves all B rows at once.
 #pragma once
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "common.cuh"
 
-constexpr int TR_THREADS = 1024;
+namespace cg = cooperative_groups;
+
+constexpr int TR_THREADS = 512;
 constexpr int TR_WARPS = TR_THREADS / 32;
+constexpr int TR_CLUSTER = 8;         // blocks of a cluster
+constexpr int TR_TC = TR_WARPS;       // positions of one attention chunk (one per warp)
 constexpr int TR_SMEM_LIMIT = 232448;
+constexpr int TR_SMEM_ONE_PER_SM = 160 * 1024;  // more than half an SM's: one block per SM
 
 struct TrDims {
   int B, T, T_in, P, U, V, A, F, taps;
 };
 
 __host__ __device__ inline int tr_up4(int x) { return (x + 3) & ~3; }
+__host__ __device__ inline int tr_cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int tr_min(int a, int b) { return a < b ? a : b; }
+__host__ __device__ inline int tr_max(int a, int b) { return a > b ? a : b; }
+// Row stride of K4's per-position location features: a multiple of 8, so
+// that a thread reads eight filters as two float4s.
+__host__ __device__ inline int tr_fs(int F) { return (F + 7) & ~7; }
 
-// K3: offsets (floats) into dynamic shared memory.
-struct FwdLayout {
-  int x1;     // [P + V + U]  LSTM1 input [p_t | ctx | h1]
-  int x2;     // [2U]         LSTM2 input [out1 | h2]
-  int c1, c2; // [U] each     cell states
-  int o2;     // [U]          out2 of this step
-  int g;      // [4U]         gate pre-activations
-  int pq;     // [A]          query projection
-  int wconv;  // [taps, F]    location conv
-  int wloc;   // [F, A]       location dense
-  int fbuf;   // [warps, F]   one position's location features per warp
-  int red;    // [64]         reduction scratch
-  int alpha, cum, en, al;  // [T_in] each
-  int total;
+struct TrPlan {
+  int NC, G;         // clusters, blocks
+  int Ku;            // K-units of a rank
+  int uc, ub;        // output units of a cluster, of a block
+  int vc, vb;        // context rows of a cluster, of a block (K4's a_ctx)
+  int Kp, Kv;        // K3: prenet and context inputs of a rank
+  int rpc, bpr, nT;  // rows of a cluster, blocks of a row, positions of a block
 };
 
-__host__ __device__ inline FwdLayout fwd_layout(const TrDims& d) {
-  FwdLayout L;
-  int o = 0;
-  const int T4 = tr_up4(d.T_in);
-  L.x1 = o;    o += tr_up4(d.P + d.V + d.U);
-  L.x2 = o;    o += 2 * d.U;
-  L.c1 = o;    o += d.U;
-  L.c2 = o;    o += d.U;
-  L.o2 = o;    o += d.U;
-  L.g = o;     o += 4 * d.U;
-  L.pq = o;    o += tr_up4(d.A);
-  L.wconv = o; o += tr_up4(d.taps * d.F);
-  L.wloc = o;  o += tr_up4(d.F * d.A);
-  L.fbuf = o;  o += TR_WARPS * tr_up4(d.F);
-  L.red = o;   o += 64;
-  L.alpha = o; o += T4;
-  L.cum = o;   o += T4;
-  L.en = o;    o += T4;
-  L.al = o;    o += T4;
-  L.total = o;
-  return L;
+// rpc is the smallest power of two with rpc * NC >= B; bpr = TR_CLUSTER /
+// rpc is 0 when the rows do not fit (B > NC * TR_CLUSTER).
+__host__ __device__ inline TrPlan tr_plan(const TrDims& d, int NC) {
+  TrPlan p;
+  p.NC = NC;
+  p.G = NC * TR_CLUSTER;
+  p.Ku = tr_cdiv(d.U, TR_CLUSTER);
+  p.uc = tr_cdiv(d.U, NC);
+  p.ub = tr_cdiv(p.uc, TR_CLUSTER);
+  p.vc = tr_cdiv(d.V, NC);
+  p.vb = tr_cdiv(p.vc, TR_CLUSTER);
+  p.Kp = tr_cdiv(d.P, TR_CLUSTER);
+  p.Kv = tr_cdiv(d.V, TR_CLUSTER);
+  int rpc = 1;
+  while (rpc * NC < d.B) rpc *= 2;
+  p.rpc = rpc;
+  p.bpr = rpc <= TR_CLUSTER ? TR_CLUSTER / rpc : 0;
+  p.nT = p.bpr ? tr_cdiv(d.T_in, p.bpr) : 0;
+  return p;
 }
 
-// K4: offsets (floats) into dynamic shared memory.
-struct BwdLayout {
-  int x1;          // [P + V + U]  [p_t | ctxp | h1p] (gate recompute)
-  int x2;          // [2U]         [out1 | h2p]
-  int o2;          // [U]          out2 of this step
-  int g, dg;       // [4U] each    recomputed gates, gate adjoint
-  int ac1, ah1, ac2, ah2;  // [U] each  carried state adjoints
-  int actx, dctx;  // [V] each     carried context adjoint, d_ctx_tot
-  int dout2;       // [U]
-  int y1;          // [V + U]      l1 [ctx | h] rows times d_g1
-  int y2;          // [2U]         l2 rows times d_g2
-  int y3;          // [U]          wq rows times d_q
-  int pq, dq, dv, dball;  // [A] each
-  int wconv;       // [taps, F]
-  int wloc;        // [F, A]
-  int wlocT;       // [A, F]
-  int fbuf;        // [warps, F]
-  int dthbuf;      // [warps, A]   one position's d_th per warp
-  int partq;       // [warps, A]   per-warp sums of d_th
-  int partv;       // [warps, A]   per-warp sums of th * d_e
-  int red;         // [64]
-  int cum, aalpha, acum, bufA, bufE;  // [T_in] each
-  int total;
+// The slice [lo, hi) of a ceil-division split: piece i of size ``per`` of
+// [0, n), cut at n (empty past the end).
+struct Range {
+  int lo, hi;
+  __device__ int n() const { return hi - lo; }
+};
+__device__ inline Range tr_range(int i, int per, int n) {
+  const int lo = tr_min(i * per, n);
+  return Range{lo, tr_min(lo + per, n)};
+}
+
+// What one block does under the plan.
+struct TrRole {
+  int c, q;       // cluster, rank
+  Range ku;       // K-units (every cluster alike)
+  Range cu, ou;   // the cluster's output units; this block's share of them
+  Range cv, ov;   // K4: the cluster's context rows; this block's share
+  int row, sl;    // attention row (-1: none) and slice of the row
+  Range pos;      // attention positions (empty without a row)
 };
 
-__host__ __device__ inline BwdLayout bwd_layout(const TrDims& d) {
-  BwdLayout L;
-  int o = 0;
-  const int T4 = tr_up4(d.T_in), A4 = tr_up4(d.A);
-  L.x1 = o;     o += tr_up4(d.P + d.V + d.U);
-  L.x2 = o;     o += 2 * d.U;
-  L.o2 = o;     o += d.U;
-  L.g = o;      o += 4 * d.U;
-  L.dg = o;     o += 4 * d.U;
-  L.ac1 = o;    o += d.U;
-  L.ah1 = o;    o += d.U;
-  L.ac2 = o;    o += d.U;
-  L.ah2 = o;    o += d.U;
-  L.actx = o;   o += d.V;
-  L.dctx = o;   o += d.V;
-  L.dout2 = o;  o += d.U;
-  L.y1 = o;     o += tr_up4(d.V + d.U);
-  L.y2 = o;     o += 2 * d.U;
-  L.y3 = o;     o += d.U;
-  L.pq = o;     o += A4;
-  L.dq = o;     o += A4;
-  L.dv = o;     o += A4;
-  L.dball = o;  o += A4;
-  L.wconv = o;  o += tr_up4(d.taps * d.F);
-  L.wloc = o;   o += tr_up4(d.F * d.A);
-  L.wlocT = o;  o += tr_up4(d.F * d.A);
-  L.fbuf = o;   o += TR_WARPS * tr_up4(d.F);
-  L.dthbuf = o; o += TR_WARPS * A4;
-  L.partq = o;  o += TR_WARPS * A4;
-  L.partv = o;  o += TR_WARPS * A4;
-  L.red = o;    o += 64;
-  L.cum = o;    o += T4;
-  L.aalpha = o; o += T4;
-  L.acum = o;   o += T4;
-  L.bufA = o;   o += T4;
-  L.bufE = o;   o += T4;
-  L.total = o;
-  return L;
-}
-
-// Sum of v over the block; every thread gets the result.  ``red`` is 64
-// floats of shared scratch.  Contains two __syncthreads().
-__device__ inline float tr_block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float s = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.0f;
-    s = warp_sum(s);
-    if (lane == 0) red[32] = s;
-  }
-  __syncthreads();
-  const float r = red[32];
-  __syncthreads();  // red may be reused right away
+__device__ inline TrRole tr_role(const TrDims& d, const TrPlan& p) {
+  TrRole r;
+  r.c = blockIdx.x / TR_CLUSTER;
+  r.q = blockIdx.x % TR_CLUSTER;
+  r.ku = tr_range(r.q, p.Ku, d.U);
+  r.cu = tr_range(r.c, p.uc, d.U);
+  const Range ou = tr_range(r.q, p.ub, r.cu.n());
+  r.ou = Range{r.cu.lo + ou.lo, r.cu.lo + ou.hi};
+  r.cv = tr_range(r.c, p.vc, d.V);
+  const Range ov = tr_range(r.q, p.vb, r.cv.n());
+  r.ov = Range{r.cv.lo + ov.lo, r.cv.lo + ov.hi};
+  const int b = r.c * p.rpc + r.q / p.bpr;
+  r.row = b < d.B ? b : -1;
+  r.sl = r.q % p.bpr;
+  r.pos = r.row >= 0 ? tr_range(r.sl, p.nT, d.T_in) : Range{0, 0};
   return r;
 }
 
-// Two sums at once (one pass of barriers).
+// Every block arrives once; the n-th barrier of the launch returns when the
+// counter (zeroed by the wrapper) reads n * G.  The fence before the
+// arrival publishes this block's global writes; the acquire load orders
+// the reads after it.  Data written by other blocks during the launch is
+// read with __ldcg (L2), never through L1.  (wavernn_sample.cu's barrier,
+// plus a bound: a wait of more than ~2^35 SM cycles, some 17 s, traps, so
+// a grid that can never meet fails its launch instead of hanging the card.)
+__device__ __forceinline__ void grid_barrier(unsigned* counter, unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(counter, 1u);
+    const long long start = clock64();
+    unsigned v;
+    do {
+      asm volatile("ld.acquire.gpu.u32 %0, [%1];" : "=r"(v) : "l"(counter) : "memory");
+      if (clock64() - start > (1LL << 35)) __trap();
+    } while (v < target);
+  }
+  __syncthreads();
+}
+
+// Sum of v over the block; every thread gets the result.  ``red`` is 64
+// floats of shared scratch.
 __device__ inline float2 tr_block_sum2(float a, float b, float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   a = warp_sum(a);
@@ -158,7 +162,7 @@ __device__ inline float2 tr_block_sum2(float a, float b, float* red) {
   }
   __syncthreads();
   if (warp == 0) {
-    const bool ok = lane < (int)(blockDim.x >> 5);
+    const bool ok = lane < TR_WARPS;
     float s = warp_sum(ok ? red[lane] : 0.0f);
     float t = warp_sum(ok ? red[32 + lane] : 0.0f);
     __syncwarp();
@@ -173,43 +177,87 @@ __device__ inline float2 tr_block_sum2(float a, float b, float* red) {
   return r;
 }
 
-// Gate activations of one unit from pre-activations g [i | j | f | o]
-// (TF order, forget bias +1).
+// The row-wide sum of two values: each of the row's bpr blocks has put its
+// partials in slot[0..1] of its shared memory before the cluster barrier
+// that precedes this call; they are added in rank order, so every block of
+// the row gets the same sums.
+__device__ inline float2 tr_row_sum2(cg::cluster_group& cl, float* slot, int rank0, int bpr) {
+  float2 s = make_float2(0.0f, 0.0f);
+  for (int j = 0; j < bpr; ++j) {
+    const float* o = cl.map_shared_rank(slot, rank0 + j);
+    s.x += o[0];
+    s.y += o[1];
+  }
+  return s;
+}
+
+// Partial product of one block: out[b * ldo + o] = sum_k x[b * ldx + k] *
+// W[o * ldw + k] for b < nb, o < no, over the block's K slice (k < K, a
+// multiple of 4; ldx and ldw are K + 4, so the rows fall on other banks).
+// Each thread takes 4 rows x 2 outputs: the threads of a warp share their
+// rows (broadcast reads of x), and each weight read serves four rows.
+__device__ inline void tr_partial(const float* x, int ldx, int nb, const float* W, int ldw, int no, int K,
+                                  float* out, int ldo) {
+  const int nob = (no + 1) >> 1, nbb = (nb + 3) >> 2, K4 = K >> 2;
+  for (int t = threadIdx.x; t < nob * nbb; t += TR_THREADS) {
+    const int o0 = 2 * (t % nob), b0 = 4 * (t / nob);
+    const float4* w0 = reinterpret_cast<const float4*>(W + (size_t)o0 * ldw);
+    const float4* w1 = reinterpret_cast<const float4*>(W + (size_t)tr_min(o0 + 1, no - 1) * ldw);
+    const float4* xr[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) xr[r] = reinterpret_cast<const float4*>(x + (size_t)tr_min(b0 + r, nb - 1) * ldx);
+    float a0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, a1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 2
+    for (int k = 0; k < K4; ++k) {
+      const float4 u0 = w0[k], u1 = w1[k];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float4 v = xr[r][k];
+        a0[r] = fmaf(v.x, u0.x, fmaf(v.y, u0.y, fmaf(v.z, u0.z, fmaf(v.w, u0.w, a0[r]))));
+        a1[r] = fmaf(v.x, u1.x, fmaf(v.y, u1.y, fmaf(v.z, u1.z, fmaf(v.w, u1.w, a1[r]))));
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (b0 + r < nb) {
+        out[(size_t)(b0 + r) * ldo + o0] = a0[r];
+        if (o0 + 1 < no) out[(size_t)(b0 + r) * ldo + o0 + 1] = a1[r];
+      }
+    }
+  }
+}
+
+// The merged output (b, o) of a cluster's product: the eight ranks'
+// partials in rank order.
+__device__ __forceinline__ float tr_merge(cg::cluster_group& cl, float* part, int idx) {
+  float s = 0.0f;
+#pragma unroll
+  for (int j = 0; j < TR_CLUSTER; ++j) s += cl.map_shared_rank(part, j)[idx];
+  return s;
+}
+
+// Gate activations of one unit from its pre-activations (TF order i, j, f,
+// o; forget bias +1).
 struct Gates {
   float si, tj, sf, so;
 };
 
-__device__ inline Gates tr_gates(const float* g, int U, int j) {
+__device__ inline Gates tr_gates4(float gi, float gj, float gf, float go) {
   Gates q;
-  q.si = sigmoidf_(g[j]);
-  q.tj = tanhf(g[U + j]);
-  q.sf = sigmoidf_(g[2 * U + j] + 1.0f);
-  q.so = sigmoidf_(g[3 * U + j]);
+  q.si = sigmoidf_(gi);
+  q.tj = tanhf(gj);
+  q.sf = sigmoidf_(gf + 1.0f);
+  q.so = sigmoidf_(go);
   return q;
 }
 
-// Location features of position t: f[k] = sum_j cum[t + j - padl] * wconv[j, k]
-// for the lanes' filters k, into fb (one warp's buffer).
-__device__ inline void tr_loc_features(const float* cum, const float* wconv, int t, int T_in,
-                                       int taps, int F, float* fb) {
-  const int lane = threadIdx.x & 31;
-  const int padl = (taps - 1) / 2;
-  for (int f = lane; f < F; f += 32) {
-    float acc = 0.0f;
-    for (int j = 0; j < taps; ++j) {
-      const int tt = t + j - padl;
-      if (tt >= 0 && tt < T_in) acc = fmaf(cum[tt], wconv[j * F + f], acc);
-    }
-    fb[f] = acc;
+// Fills a [rows, ld] shared slice from a global [*, ncol] matrix: entry
+// (o, k) is src[row(o) * ncol + col(k)], zero where row or col is < 0.
+template <class RowF, class ColF>
+__device__ void tr_load_slice(float* dst, int rows, int ld, const float* src, int ncol, RowF row, ColF col) {
+  for (int i = threadIdx.x; i < rows * ld; i += TR_THREADS) {
+    const int o = i / ld, k = i - o * ld;
+    const int r = row(o), cc = col(k);
+    dst[i] = (r >= 0 && cc >= 0) ? __ldg(src + (size_t)r * ncol + cc) : 0.0f;
   }
-  __syncwarp();
-}
-
-// The argument of the energy tanh at (t, a): keys + query + F->A dense of
-// the location features + merged bias.
-__device__ inline float tr_energy_arg(const float* fb, const float* wloc, int F, int A, int a,
-                                      float key, float pq, float ball) {
-  float loc = 0.0f;
-  for (int f = 0; f < F; ++f) loc = fmaf(fb[f], wloc[f * A + a], loc);
-  return key + pq + loc + ball;
 }

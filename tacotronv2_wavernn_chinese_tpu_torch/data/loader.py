@@ -1,7 +1,7 @@
 """Length-bucketed batch loader for acoustic-model training (a copy of the
 JAX package's ``data/loader.py`` Tacotron part, which uses only numpy,
 without ``batch_shapes`` (its compile prewarm has no counterpart here) and
-``sequential_batches`` (GTA, ROADMAP.md queue item 9); plus
+``sequential_batches`` (GTA, ROADMAP.md queue item 11); plus
 ``read_metadata`` from its ``data/preprocess.py``).
 
 Replaces the reference's feeder-thread + tf.FIFOQueue(8)

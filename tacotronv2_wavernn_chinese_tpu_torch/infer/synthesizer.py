@@ -128,7 +128,7 @@ class Synthesizer:
     def _require_vocoder(self) -> None:
         if self.vocoder_params is None:
             raise NotImplementedError(
-                "Griffin-Lim vocoding is not ported yet (ROADMAP.md, queue item 5); "
+                "Griffin-Lim vocoding is not ported yet (ROADMAP.md, queue item 7); "
                 "load WaveRNN weights"
             )
 

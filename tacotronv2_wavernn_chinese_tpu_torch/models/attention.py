@@ -5,7 +5,7 @@ The forward + location-sensitive hybrid of the reference
 alignments, energies against the precomputed keys, a masked softmax, and
 the forward recursion with transition probability mu.  The other modes
 (LSA, GMM, Graves), anti-repeat and smoothing are not ported yet
-(ROADMAP.md, queue item 4).
+(ROADMAP.md, queue item 6).
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ def check_supported(cfg: TacotronModelConfig) -> None:
         raise NotImplementedError(
             f"attention_mode={cfg.attention_mode!r}, anti_repeat={cfg.anti_repeat}, "
             f"smoothing={cfg.smoothing}: only forward attention without anti-repeat "
-            "or smoothing is ported (ROADMAP.md, queue item 4)"
+            "or smoothing is ported (ROADMAP.md, queue item 6)"
         )
 
 

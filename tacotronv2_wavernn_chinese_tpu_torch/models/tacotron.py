@@ -225,17 +225,18 @@ def _decoder_core(params, cfg, pre_all, masks, keys, memory, mem_mask, fused_dec
         if fused_decoder == "off":
             raise NotImplementedError(
                 "fused_decoder='off' is the eager loop, the kernels' plain version: on the card "
-                "the teacher-forced core runs only through K3/K4 (ROADMAP.md, queue item 4)"
+                "the teacher-forced core runs only through K3/K4 (ROADMAP.md, queue item 6)"
             )
         if not TK.train_supported(cfg):
             raise NotImplementedError(
                 f"attention_mode={cfg.attention_mode!r}, smoothing={cfg.smoothing}: the trainer "
-                "kernels run forward attention without smoothing (ROADMAP.md, queue item 4)"
+                "kernels run forward attention without smoothing (ROADMAP.md, queue item 6)"
             )
-        if not TK.train_supported_shape(B, T_in, cfg):
+        clusters = TK.card_clusters(memory.device)
+        if not TK.train_supported_shape(B, T_in, cfg, clusters):
             raise NotImplementedError(
-                f"T_in={T_in} is beyond the trainer kernels' envelope of "
-                f"{TK.max_t_in(TK.widths(cfg))} (ROADMAP.md, queue item 2)"
+                f"B={B}, T_in={T_in} is beyond the trainer kernels' envelope (T_in <= "
+                f"{TK.max_t_in(B, TK.widths(cfg), clusters)} at this batch) (ROADMAP.md, queue item 5)"
             )
     if memory.device.type == "cpu" and fused_decoder == "off":
         return TK.fused_core_plain(params, cfg, pre_all, masks, keys, memory, mem_mask)
@@ -261,7 +262,7 @@ def decode_teacher_forced(
     if not (isinstance(teacher_forcing_ratio, (int, float)) and teacher_forcing_ratio >= 1.0):
         raise NotImplementedError(
             f"teacher_forcing_ratio={teacher_forcing_ratio}: scheduled sampling is not ported yet "
-            "(ROADMAP.md, queue item 4)"
+            "(ROADMAP.md, queue item 6)"
         )
     B, T_out, M = mel_targets.shape
     r = cfg.outputs_per_step
@@ -300,7 +301,7 @@ def forward_teacher_forced(
     updated BN statistics; eval mode returns them unchanged).  The masks come
     from ``rand``, else are drawn from ``generator`` (required then)."""
     if cfg.predict_linear:
-        raise NotImplementedError("the CBHG mel->linear head is not ported yet (ROADMAP.md, queue item 10)")
+        raise NotImplementedError("the CBHG mel->linear head is not ported yet (ROADMAP.md, queue item 12)")
     if rand is None:
         if generator is None:
             raise ValueError("forward_teacher_forced needs rand or a torch.Generator")

@@ -123,10 +123,15 @@ _ARGTYPES = {
     "tacotron_decode_launch": [ctypes.c_void_p] * 23 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
     + [ctypes.c_uint32, ctypes.c_void_p],
     "tacotron_decode_scratch_floats": [ctypes.c_int] * 6,
-    # the trainer kernels take their device pointers as one host array
-    "tacotron_train_fwd_launch": [ctypes.c_void_p] + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p],
-    "tacotron_train_bwd_launch": [ctypes.c_void_p] + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p],
-    "tacotron_train_smem_bytes": [ctypes.c_int] * 8,
+    # the trainer kernels take their device pointers as one host array, then
+    # the barrier counter
+    "tacotron_train_fwd_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p],
+    "tacotron_train_bwd_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p],
+    "tacotron_train_fwd_smem_bytes": [ctypes.c_int] * 9,
+    "tacotron_train_bwd_smem_bytes": [ctypes.c_int] * 9,
+    "tacotron_train_bwd_scratch_floats": [ctypes.c_int] * 8,
+    "tacotron_train_fwd_clusters": [],
+    "tacotron_train_bwd_clusters": [],
 }
 
 

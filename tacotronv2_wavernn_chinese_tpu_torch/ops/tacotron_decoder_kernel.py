@@ -60,7 +60,7 @@ def check_supported(cfg: TacotronModelConfig) -> None:
     if cfg.outputs_per_step != 1:
         raise NotImplementedError(
             f"outputs_per_step={cfg.outputs_per_step}: only r=1 is ported "
-            "(ROADMAP.md, queue item 4: r up to 6)"
+            "(ROADMAP.md, queue item 6: r up to 6)"
         )
     if len(cfg.prenet_layers) != 2:
         raise NotImplementedError("the decoder kernel takes exactly two prenet layers")

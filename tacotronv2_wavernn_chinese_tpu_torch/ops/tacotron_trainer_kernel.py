@@ -10,14 +10,21 @@ projections batched after it (models/tacotron.py).
 
 * ``train_fwd`` (K3, csrc/tacotron_train_fwd.cu) runs every step in one
   launch and writes out2, ctx and align plus the residual saves of
-  ``FWD_OUTS``.
+  ``FWD_OUTS`` (the gate pre-activations and the query projection among
+  them).
 * ``train_bwd`` (K4, csrc/tacotron_train_bwd.cu) runs the reverse-time
   adjoint in one launch.  It streams the per-step adjoints ``d_g1``,
   ``d_g2``, ``d_q``, ``d_mulin`` and ``d_ctx_tot`` out (the "stream"
-  layout), and keeps ``d_keys`` and per-row partials of ``d_conv``,
+  layout), and keeps ``d_keys`` and per-block partials of ``d_conv``,
   ``d_wloc``, ``d_v`` and ``d_ball``.  The weight gradients, the prenet
   cotangent and ``d_values`` are then large matrix products over all steps
   and rows (``weight_grads``).
+
+Both kernels are one grid of thread-block clusters, about one block per SM,
+that holds the gate weights once on chip for all batch rows
+(csrc/tacotron_train_common.cuh).  ``k34_plan`` is that grid's plan, term
+for term as the .cu files compute it; the wrappers compare it with the
+library's own numbers before every launch.
 * ``FusedCore`` is the autograd Function over the two; ``fused_core_apply``
   is the entry point.  ``fused_core_plain`` is the same function as an eager
   loop over steps, differentiated by autograd.
@@ -29,15 +36,16 @@ only CPU tensors go to their plain versions (``train_fwd_plain``, and
 Replaces the JAX package's ops/tacotron_trainer_kernel.py (``_fwd_call``,
 ``_bwd_call``, ``_core``).  Scope (``train_supported``): forward attention
 without smoothing, two prenet layers, widths that are multiples of 4; the
-T_in envelope is the kernels' shared-memory budget
-(``train_supported_shape``).  Both values of the config's ``fused_wgrads``
-run the stream layout; the in-kernel "accum" layout and bf16 weights are
-ROADMAP.md queue item 2.
+batch and T_in envelope is the plan's (``train_supported_shape``: at most
+eight rows per cluster, and a block's shared memory).  Both values of the
+config's ``fused_wgrads`` run the stream layout; the in-kernel "accum"
+layout, bf16 weights and a wider envelope are ROADMAP.md queue item 5.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -57,19 +65,23 @@ CORE_WEIGHTS = (
 )
 
 # forward outputs: primals, then the residual saves the backward reads
+# (the gate pre-activations g1, g2 and the query projection pq among them,
+# so that the backward recomputes no product)
 FWD_OUTS = (
     "out2", "ctx", "align",
-    "align_sm", "out1", "c1p", "h1p", "c2p", "h2p", "ctxp", "alphap", "mup",
+    "align_sm", "out1", "c1p", "h1p", "c2p", "h2p", "ctxp", "alphap", "mup", "g1", "g2", "pq",
 )
 
 # backward outputs (stream layout): per-step adjoints, then the attention
-# gradients kept in the kernel (d_conv, d_wloc, d_v, d_ball per row)
+# gradients kept in the kernel (d_conv, d_wloc, d_v, d_ball as partials)
 BWD_OUTS = (
     "d_g1", "d_g2", "d_q", "d_mulin", "d_ctx_tot",
     "d_keys", "d_conv", "d_wloc", "d_v", "d_ball",
 )
 
-THREADS = 1024  # block size of both kernels (csrc/tacotron_train_common.cuh)
+THREADS = 512  # block size of both kernels (csrc/tacotron_train_common.cuh)
+CLUSTER = 8  # blocks of a thread-block cluster
+CHUNK = THREADS // 32  # K4's attention positions per chunk (one per warp)
 SMEM_LIMIT = 232448  # opt-in dynamic shared memory of one block on sm_90
 
 
@@ -88,6 +100,10 @@ def _up4(n: int) -> int:
     return (n + 3) & ~3
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
 def widths(cfg: TacotronModelConfig) -> tuple:
     """(P, U, V, A, F, taps): prenet out, decoder LSTM, encoder (values),
     attention, location filters and location conv taps."""
@@ -95,34 +111,163 @@ def widths(cfg: TacotronModelConfig) -> tuple:
             cfg.attention_dim, cfg.attention_filters, cfg.attention_kernel)
 
 
-def smem_floats(kind: str, t_in: int, dims: tuple) -> int:
-    """Shared-memory floats of one block of K3 ("fwd") or K4 ("bwd") at
-    encoder length ``t_in`` for ``dims`` = ``widths(cfg)``: the layouts of
-    ``fwd_layout``/``bwd_layout`` in csrc/tacotron_train_common.cuh, term
-    for term (chip_smoke checks the two agree)."""
+def _cut(i: int, per: int, n: int) -> range:
+    lo = min(i * per, n)
+    return range(lo, min(lo + per, n))
+
+
+@dataclasses.dataclass(frozen=True)
+class K34Plan:
+    """The grid of both trainer kernels (csrc/tacotron_train_common.cuh
+    ``tr_plan``): ``clusters`` clusters of CLUSTER blocks.  Rank q of every
+    cluster holds the K-units [q*k_units, ...) on the reduction side of the
+    products; cluster c owns the outputs of the units [c*units_c, ...)
+    (rank q merging [q*units_b, ...) of them) and K4's context rows
+    [c*ctx_c, ...); row b's attention runs on blocks_per_row blocks of
+    cluster b // rows_per_cluster, ``positions`` encoder positions each."""
+
+    B: int
+    T_in: int
+    dims: tuple
+    clusters: int
+    blocks: int
+    k_units: int
+    units_c: int
+    units_b: int
+    ctx_c: int
+    ctx_b: int
+    prenet_k: int
+    ctx_k: int
+    rows_per_cluster: int
+    blocks_per_row: int
+    positions: int
+
+    def k_unit_range(self, q: int) -> range:
+        return _cut(q, self.k_units, self.dims[1])
+
+    def out_units(self, c: int, q: int) -> range:
+        cu = _cut(c, self.units_c, self.dims[1])
+        own = _cut(q, self.units_b, len(cu))
+        return range(cu.start + own.start, cu.start + own.stop)
+
+    def ctx_rows(self, c: int, q: int) -> range:
+        cv = _cut(c, self.ctx_c, self.dims[2])
+        own = _cut(q, self.ctx_b, len(cv))
+        return range(cv.start + own.start, cv.start + own.stop)
+
+    def row(self, k: int):
+        """(row, slice) of block k's attention, row None when it has none."""
+        c, q = divmod(k, CLUSTER)
+        b = c * self.rows_per_cluster + q // self.blocks_per_row
+        return (b if b < self.B else None), q % self.blocks_per_row
+
+    def position_range(self, k: int) -> range:
+        b, sl = self.row(k)
+        return _cut(sl, self.positions, self.T_in) if b is not None else range(0)
+
+    def smem_floats(self, kind: str) -> int:
+        """Shared-memory floats of one block: ``fwd_layout``/``bwd_layout``
+        in the .cu files, term for term."""
+        P, U, V, A, Fw, taps = self.dims
+        B, Ku, uc, vc, nT4 = self.B, self.k_units, self.units_c, self.ctx_c, _up4(self.positions)
+        halo = _up4(self.positions + taps - 1)
+        if kind == "fwd":
+            LK1 = _up4(self.prenet_k + self.ctx_k + Ku) + 4
+            LK2 = _up4(2 * Ku) + 4
+            ng = 4 * uc
+            return (ng * LK1 + ng * LK2 + Ku * A + _up4(taps * Fw) + Fw * A + _up4(4 * B * Ku)
+                    + B * LK1 + _up4(B * ng) + self.rows_per_cluster * A + 2 * A
+                    + 2 * (THREADS // 32) * _up4(Fw) + halo + 2 * nT4 + V + 16 + 64)
+        if kind == "bwd":
+            L4 = 4 * Ku + 4
+            n2, n1 = 2 * uc, vc + uc
+            products = B * L4 + _up4(B * n2) + _up4(B * n1)
+            chunk = max(CHUNK * ((Fw + 7) & ~7) + _up4(CHUNK * (Fw + 1)) + _up4(CHUNK * (A + 1))
+                        + 4 * CHUNK * 32, 2 * (THREADS // 32) * A)
+            return (n2 * L4 + n1 * L4 + Ku * A + _up4(taps * Fw) + _up4(Fw * (A + 1))
+                    + _up4(4 * B * Ku) + max(products, chunk) + halo + 4 * nT4 + V + 2 * A
+                    + self.rows_per_cluster * A + 3 * A + Fw * A + _up4(taps * Fw) + 16 + 64)
+        raise ValueError(kind)
+
+    def smem_bytes(self, kind: str) -> int:
+        return 4 * self.smem_floats(kind)
+
+    def scratch_floats(self) -> int:
+        """K4's global exchange: a_ctx [B, V], y3 [B, U], [d_out1 | d_h2]
+        [B, 2U], d_h1 [2, B, U], the conv transpose's terms [B, T_in, taps]."""
+        P, U, V, A, Fw, taps = self.dims
+        return self.B * (V + 5 * U + self.T_in * taps)
+
+    def fits(self) -> bool:
+        """Whether both kernels launch: at most eight rows per cluster, the
+        widths K4's per-position warp takes (A <= 128 columns, F and taps
+        <= 32 lanes), and one block's shared memory."""
+        P, U, V, A, Fw, taps = self.dims
+        return (self.blocks_per_row > 0 and A <= 128 and Fw <= 32 and taps <= 32
+                and max(self.smem_bytes("fwd"), self.smem_bytes("bwd")) <= SMEM_LIMIT)
+
+
+def k34_plan(batch: int, t_in: int, dims: tuple, clusters: int) -> K34Plan:
+    """The plan of both kernels for ``clusters`` resident clusters
+    (``tr_plan``, term for term); ``fits`` says whether it launches."""
     P, U, V, A, Fw, taps = dims
-    W = THREADS // 32
-    T4 = _up4(t_in)
-    if kind == "fwd":
-        return (_up4(P + V + U) + 2 * U + 3 * U + 4 * U + _up4(A) + _up4(taps * Fw) + _up4(Fw * A)
-                + W * _up4(Fw) + 64 + 4 * T4)
-    if kind == "bwd":
-        return (_up4(P + V + U) + 2 * U + U + 4 * U + 4 * U + 4 * U + 2 * V + U + _up4(V + U)
-                + 2 * U + U + 4 * _up4(A) + _up4(taps * Fw) + 2 * _up4(Fw * A) + W * _up4(Fw)
-                + 3 * W * _up4(A) + 64 + 5 * T4)
-    raise ValueError(kind)
+    rpc = 1
+    while rpc * clusters < batch:
+        rpc *= 2
+    bpr = CLUSTER // rpc if rpc <= CLUSTER else 0
+    uc, vc = _cdiv(U, clusters), _cdiv(V, clusters)
+    return K34Plan(batch, t_in, tuple(dims), clusters, clusters * CLUSTER, _cdiv(U, CLUSTER),
+                   uc, _cdiv(uc, CLUSTER), vc, _cdiv(vc, CLUSTER), _cdiv(P, CLUSTER), _cdiv(V, CLUSTER),
+                   rpc, bpr, _cdiv(t_in, bpr) if bpr else 0)
 
 
-def max_t_in(dims: tuple) -> int:
-    """The longest encoder sequence both kernels take: the backward's
-    shared memory (a fixed part plus 5 T_in-length vectors) is the larger."""
-    return ((SMEM_LIMIT // 4 - smem_floats("bwd", 0, dims)) // 5) & ~3
+def max_t_in(batch: int, dims: tuple, clusters: int) -> int:
+    """The longest encoder sequence both kernels take at this batch size
+    (their shared memory grows with the positions of a block); 0 when the
+    batch itself does not fit."""
+    lo, hi = 0, 1 << 16
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if k34_plan(batch, mid, dims, clusters).fits():
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
 
 
-def train_supported_shape(batch: int, t_in: int, cfg: TacotronModelConfig) -> bool:
-    """True when both kernels' shared memory fits at this encoder length;
-    any batch size runs (one block per row)."""
-    return batch >= 1 and 1 <= t_in <= max_t_in(widths(cfg))
+def launch_plan(batch: int, t_in: int, dims: tuple, clusters: int) -> K34Plan:
+    """The plan of a launch; NotImplementedError beyond the envelope."""
+    plan = k34_plan(batch, t_in, dims, clusters)
+    if not plan.fits():
+        raise NotImplementedError(
+            f"B={batch}, T_in={t_in} is beyond the trainer kernels' envelope on a card with {clusters} "
+            f"resident clusters of {CLUSTER} blocks (at most {clusters * CLUSTER} rows; "
+            f"T_in <= {max_t_in(batch, dims, clusters)} at B={batch}) (ROADMAP.md, queue item 5)"
+        )
+    return plan
+
+
+def train_supported_shape(batch: int, t_in: int, cfg: TacotronModelConfig, clusters: int) -> bool:
+    """True when both kernels' plan fits at this batch size and encoder
+    length on a card that keeps ``clusters`` clusters resident."""
+    return batch >= 1 and t_in >= 1 and k34_plan(batch, t_in, widths(cfg), clusters).fits()
+
+
+_CLUSTERS: dict = {}
+
+
+def card_clusters(device: torch.device) -> int:
+    """Clusters of CLUSTER blocks that both kernels keep resident at once on
+    ``device`` (one block per SM), asked of the card once per device."""
+    key = torch.device(device).index or 0
+    if key not in _CLUSTERS:
+        with torch.cuda.device(key):
+            n = min(load("tacotron_train_fwd.cu").tacotron_train_fwd_clusters(),
+                    load("tacotron_train_bwd.cu").tacotron_train_bwd_clusters())
+        if n <= 0:
+            raise RuntimeError(f"the trainer kernels cannot keep a cluster resident (cudaError {-n})")
+        _CLUSTERS[key] = n
+    return _CLUSTERS[key]
 
 
 def pack_core_weights(params: dict, cfg: TacotronModelConfig) -> tuple:
@@ -220,6 +365,9 @@ def _fwd_loop(w, pre_seq, masks, keys, values, mem_mask, zoneout: float, keep_sa
         h2 = keep * new_h2 + zone * h2
         out2 = new_h2
         pq = out2 @ wq
+        if keep_saves:
+            for k, val in (("g1", g1), ("g2", g2), ("pq", pq)):
+                outs[k].append(val)
         feats = _im2col(cum, taps) @ w_conv  # [B, T_in, F]
         th = torch.tanh(keys + pq[:, None, :] + feats @ w_loc + ball)
         energy = torch.sum(th * v, dim=-1)
@@ -242,7 +390,8 @@ def _fwd_loop(w, pre_seq, masks, keys, values, mem_mask, zoneout: float, keep_sa
 
 def train_fwd_plain(w, pre_seq, masks, keys, values, mem_mask, zoneout: float) -> dict:
     """Plain version of K3: the forward loop, returning every ``FWD_OUTS``
-    tensor ([T, B, ...]; ``mup`` is [T, B])."""
+    tensor ([T, B, ...]; ``mup`` is [T, B]; g1 and g2 are the gate
+    pre-activations with their bias, before the forget bias +1)."""
     with torch.no_grad():
         return _fwd_loop(w, pre_seq, masks, keys, values, mem_mask, zoneout, True)
 
@@ -250,9 +399,11 @@ def train_fwd_plain(w, pre_seq, masks, keys, values, mem_mask, zoneout: float) -
 def train_bwd_plain(w, pre_seq, masks, keys, values, mem_mask, zoneout: float, saves: dict,
                     cots) -> dict:
     """Plain version of K4: the reverse-time adjoint of the forward loop in
-    the stream layout, batched over rows.  ``cots`` are the cotangents of
-    (out2, ctx, align).  Returns every ``BWD_OUTS`` tensor; d_conv, d_wloc,
-    d_v and d_ball are per row ([B, ...])."""
+    the stream layout, batched over rows, on the forward's saves (gate
+    pre-activations and query projection included).  ``cots`` are the
+    cotangents of (out2, ctx, align).  Returns every ``BWD_OUTS`` tensor;
+    d_conv, d_wloc, d_v and d_ball are partials per row ([B, ...]; the
+    kernel's are per block), which ``weight_grads`` sums."""
     (l1_pre, l1_ctx, l1_h, l1_b, l2_x, l2_h, l2_b, wq, w_conv, w_loc, ball, v,
      mu_c, mu_q, mu_b) = w
     T, B, _ = pre_seq.shape
@@ -273,9 +424,9 @@ def train_bwd_plain(w, pre_seq, masks, keys, values, mem_mask, zoneout: float, s
     for s in reversed(range(T)):
         align_sm = S["align_sm"][s]
         cum = cum - align_sm  # the conv input of step s
-        out1, out2, ctx_t, align_t = S["out1"][s], S["out2"][s], S["ctx"][s], S["align"][s]
-        c1p, h1p, c2p, h2p = S["c1p"][s], S["h1p"][s], S["c2p"][s], S["h2p"][s]
-        ctxp, alphap, mup = S["ctxp"][s], S["alphap"][s], S["mup"][s][:, None]
+        out2, ctx_t, align_t = S["out2"][s], S["ctx"][s], S["align"][s]
+        c1p, c2p = S["c1p"][s], S["c2p"][s]
+        alphap, mup = S["alphap"][s], S["mup"][s][:, None]
         d_out2 = g_out2[s]
         d_ctx_tot = g_ctx[s] + a_ctx
         d_align_tot = g_align[s] + a_alpha
@@ -301,7 +452,7 @@ def train_bwd_plain(w, pre_seq, masks, keys, values, mem_mask, zoneout: float, s
         d_e = align_sm * (d_align_sm - torch.sum(d_align_sm * align_sm, dim=-1, keepdim=True))
         # energies: recompute, then adjoints through tanh, the F->A dense
         # and the location conv
-        pq = out2 @ wq
+        pq = S["pq"][s]
         win = _im2col(cum, taps)
         feats = win @ w_conv
         th = torch.tanh(keys + pq[:, None, :] + feats @ w_loc + ball)
@@ -317,8 +468,7 @@ def train_bwd_plain(w, pre_seq, masks, keys, values, mem_mask, zoneout: float, s
         d_out2 = d_out2 + d_q @ wq.t()
         out["d_q"][s] = d_q
         # LSTM2 (gates recomputed)
-        g2 = out1 @ l2_x + h2p @ l2_h + l2_b
-        si, tj, sf, so, new_c2, _ = _gates(g2, c2p)
+        si, tj, sf, so, new_c2, _ = _gates(S["g2"][s], c2p)
         th_c = torch.tanh(new_c2)
         m_c, z_c = _keep_zone(masks, 2, s, zoneout)
         m_h, z_h = _keep_zone(masks, 3, s, zoneout)
@@ -331,8 +481,7 @@ def train_bwd_plain(w, pre_seq, masks, keys, values, mem_mask, zoneout: float, s
         d_out1 = d_g2 @ l2_x.t()
         a_h2 = a_h2 * z_h + d_g2 @ l2_h.t()
         # LSTM1
-        g1 = pre_seq[s] @ l1_pre + ctxp @ l1_ctx + h1p @ l1_h + l1_b
-        si, tj, sf, so, new_c1, _ = _gates(g1, c1p)
+        si, tj, sf, so, new_c1, _ = _gates(S["g1"][s], c1p)
         th_c = torch.tanh(new_c1)
         m_c, z_c = _keep_zone(masks, 0, s, zoneout)
         m_h, z_h = _keep_zone(masks, 1, s, zoneout)
@@ -361,19 +510,17 @@ def _dims(w, pre_seq, keys, values):
     return T, B, T_in, P, U, V, A, Fw, taps
 
 
-def _check_cuda_args(w, pre_seq, masks, keys, values, mem_mask, dev):
+def _cuda_plan(w, pre_seq, masks, keys, values, mem_mask, dev) -> K34Plan:
+    """Checks the arguments of a launch and returns its plan; raises
+    NotImplementedError for shapes the kernels do not take."""
     T, B, T_in, P, U, V, A, Fw, taps = _dims(w, pre_seq, keys, values)
     for name, n in (("prenet width", P), ("decoder_lstm_units", U), ("encoder width", V),
                     ("attention_dim", A)):
         if n % 4:
             raise NotImplementedError(
-                f"the trainer kernels need {name} divisible by 4, got {n} (ROADMAP.md, queue item 2)"
+                f"the trainer kernels need {name} divisible by 4, got {n} (ROADMAP.md, queue item 5)"
             )
-    if T_in > max_t_in((P, U, V, A, Fw, taps)):
-        raise NotImplementedError(
-            f"T_in={T_in} exceeds the trainer kernels' shared-memory envelope of "
-            f"{max_t_in((P, U, V, A, Fw, taps))} (ROADMAP.md, queue item 2)"
-        )
+    plan = launch_plan(B, T_in, (P, U, V, A, Fw, taps), card_clusters(dev))
     require_f32_contiguous("pre_seq", pre_seq, dev)
     require_f32_contiguous("keys", keys, dev, (B, T_in, A))
     require_f32_contiguous("values", values, dev, (B, T_in, V))
@@ -381,28 +528,40 @@ def _check_cuda_args(w, pre_seq, masks, keys, values, mem_mask, dev):
     if masks is not None:
         for i, m in enumerate(masks):
             require_f32_contiguous(f"zoneout mask {i}", m, dev, (T, B, U))
+    return plan
+
+
+def _check_plan(lib, kind: str, plan: K34Plan) -> None:
+    """The library's own layout against the plan, before every launch."""
+    P, U, V, A, Fw, taps = plan.dims
+    args = (plan.B, plan.T_in, P, U, V, A, Fw, taps)
+    ok = getattr(lib, f"tacotron_train_{kind}_smem_bytes")(*args, plan.clusters) == plan.smem_bytes(kind)
+    if kind == "bwd":
+        ok = ok and lib.tacotron_train_bwd_scratch_floats(*args) == plan.scratch_floats()
+    if not ok:
+        raise RuntimeError(f"k34_plan and csrc/tacotron_train_{kind}.cu disagree on the kernel's layout")
 
 
 def _ptr_array(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*[0 if t is None else t.data_ptr() for t in tensors])
 
 
-def _pack_fwd(w):
-    """K3's weight layout: every gate matrix transposed to [out, in] (the
-    three LSTM1 input segments joined), the small vectors flattened."""
+def _pack(w):
+    """The kernels' weight layout: the gate matrices [in, out] with the
+    LSTM1 input segments joined, the small vectors flattened."""
     (l1_pre, l1_ctx, l1_h, l1_b, l2_x, l2_h, l2_b, wq, w_conv, w_loc, ball, v,
      mu_c, mu_q, mu_b) = (t.detach() for t in w)
     c = lambda t: t.contiguous()
-    return [
-        c(torch.cat([l1_pre, l1_ctx, l1_h]).t()), c(l1_b.reshape(-1)),
-        c(torch.cat([l2_x, l2_h]).t()), c(l2_b.reshape(-1)), c(wq.t()),
-        c(w_conv), c(w_loc), c(ball.reshape(-1)), c(v.reshape(-1)),
-        c(mu_c.reshape(-1)), c(mu_q.reshape(-1)), c(mu_b.reshape(-1)),
-    ]
+    return {
+        "l1": c(torch.cat([l1_pre, l1_ctx, l1_h])), "l1_b": c(l1_b.reshape(-1)),
+        "l2": c(torch.cat([l2_x, l2_h])), "l2_b": c(l2_b.reshape(-1)), "wq": c(wq),
+        "w_conv": c(w_conv), "w_loc": c(w_loc), "ball": c(ball.reshape(-1)), "v": c(v.reshape(-1)),
+        "mu_c": c(mu_c.reshape(-1)), "mu_q": c(mu_q.reshape(-1)), "mu_b": c(mu_b.reshape(-1)),
+    }
 
 
 def train_fwd(w, pre_seq, masks, keys, values, mem_mask, zoneout: float) -> dict:
-    """K3: the forward loop.  CUDA: one kernel launch; CPU: the plain
+    """K3: the forward loop.  CUDA: one cluster-grid launch; CPU: the plain
     version.  ``masks`` is (mc1, mh1, mc2, mh2) f32 [T, B, U] keep-masks
     (train mode) or None (eval-mode EMA at rate ``zoneout``)."""
     if pre_seq.device.type == "cpu":
@@ -410,23 +569,28 @@ def train_fwd(w, pre_seq, masks, keys, values, mem_mask, zoneout: float) -> dict
     if pre_seq.device.type != "cuda":
         raise NotImplementedError(f"no trainer kernel for device {pre_seq.device}")
     dev = pre_seq.device
-    _check_cuda_args(w, pre_seq, masks, keys, values, mem_mask, dev)
+    plan = _cuda_plan(w, pre_seq, masks, keys, values, mem_mask, dev)
     T, B, T_in, P, U, V, A, Fw, taps = _dims(w, pre_seq, keys, values)
     e = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     outs = {"out2": e(T, B, U), "ctx": e(T, B, V), "align": e(T, B, T_in),
             "align_sm": e(T, B, T_in), "out1": e(T, B, U), "c1p": e(T, B, U), "h1p": e(T, B, U),
             "c2p": e(T, B, U), "h2p": e(T, B, U), "ctxp": e(T, B, V), "alphap": e(T, B, T_in),
-            "mup": e(T, B)}
+            "mup": e(T, B), "g1": e(T, B, 4 * U), "g2": e(T, B, 4 * U), "pq": e(T, B, A)}
     if T == 0 or B == 0:
         return outs
-    wk = _pack_fwd(w)
+    wk = _pack(w)
     m = list(masks) if masks is not None else [None] * 4
-    ptrs = _ptr_array([pre_seq, *m, keys, values, mem_mask, *wk, *[outs[k] for k in FWD_OUTS]])
+    ptrs = _ptr_array([pre_seq, *m, keys, values, mem_mask,
+                       *[wk[k] for k in ("l1", "l1_b", "l2", "l2_b", "wq", "w_conv", "w_loc", "ball", "v",
+                                         "mu_c", "mu_q", "mu_b")],
+                       *[outs[k] for k in FWD_OUTS]])
     lib = load("tacotron_train_fwd.cu")
+    _check_plan(lib, "fwd", plan)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.tacotron_train_fwd_launch(
-            ptrs, B, T, T_in, P, U, V, A, Fw, taps, int(masks is not None), float(zoneout),
-            stream_ptr(dev),
+            ptrs, counter.data_ptr(), B, T, T_in, P, U, V, A, Fw, taps, plan.clusters,
+            int(masks is not None), float(zoneout), stream_ptr(dev),
         )
     LAUNCHES["tacotron_train_fwd"] += 1
     check_launch(err, "tacotron_train_fwd")
@@ -442,21 +606,23 @@ def _cum_T(align_sm: torch.Tensor) -> torch.Tensor:
 
 
 def train_bwd(w, pre_seq, masks, keys, values, mem_mask, zoneout: float, saves: dict, cots) -> dict:
-    """K4: the reverse-time adjoint.  CUDA: one kernel launch; CPU: the
-    plain version.  Returns every ``BWD_OUTS`` tensor."""
+    """K4: the reverse-time adjoint.  CUDA: one cluster-grid launch; CPU:
+    the plain version.  Returns every ``BWD_OUTS`` tensor (on the card,
+    d_conv, d_wloc, d_v and d_ball are per-block partials [G, ...])."""
     if pre_seq.device.type == "cpu":
         return train_bwd_plain(w, pre_seq, masks, keys, values, mem_mask, zoneout, saves, cots)
     if pre_seq.device.type != "cuda":
         raise NotImplementedError(f"no trainer kernel for device {pre_seq.device}")
     dev = pre_seq.device
-    _check_cuda_args(w, pre_seq, masks, keys, values, mem_mask, dev)
+    plan = _cuda_plan(w, pre_seq, masks, keys, values, mem_mask, dev)
     T, B, T_in, P, U, V, A, Fw, taps = _dims(w, pre_seq, keys, values)
     e = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    G = plan.blocks
     outs = {"d_g1": e(T, B, 4 * U), "d_g2": e(T, B, 4 * U), "d_q": e(T, B, A), "d_mulin": e(T, B),
-            "d_ctx_tot": e(T, B, V), "d_keys": e(B, T_in, A), "d_conv": e(B, taps, Fw),
-            "d_wloc": e(B, Fw, A), "d_v": e(B, A), "d_ball": e(B, A)}
+            "d_ctx_tot": e(T, B, V), "d_keys": torch.zeros((B, T_in, A), dtype=torch.float32, device=dev),
+            "d_conv": e(G, taps, Fw), "d_wloc": e(G, Fw, A), "d_v": e(G, A), "d_ball": e(G, A)}
     if T == 0 or B == 0:
-        for k in ("d_keys", "d_conv", "d_wloc", "d_v", "d_ball"):
+        for k in ("d_conv", "d_wloc", "d_v", "d_ball"):
             outs[k].zero_()
         return outs
     cots = [c.contiguous() for c in cots]
@@ -465,25 +631,24 @@ def train_bwd(w, pre_seq, masks, keys, values, mem_mask, zoneout: float, saves: 
         require_f32_contiguous(name, c, dev, shape)
     for k in FWD_OUTS:
         require_f32_contiguous(k, saves[k], dev)
-    wk = _pack_fwd(w)
-    wd = [t.detach() for t in w]
-    # the adjoint products W^T d read the [in, out] layout row by row
-    l1_io = torch.cat([wd[0], wd[1], wd[2]]).contiguous()
-    l2_io = torch.cat([wd[4], wd[5]]).contiguous()
-    wq_io = wd[7].contiguous()
-    w_locT = wd[9].t().contiguous()
-    scratch = e(B, T_in * (2 * Fw + A))
+    wk = _pack(w)
+    cum_T = _cum_T(saves["align_sm"])  # held until the launch: the kernel reads it
+    scratch = torch.zeros(plan.scratch_floats(), dtype=torch.float32, device=dev)
     m = list(masks) if masks is not None else [None] * 4
     ptrs = _ptr_array([
-        pre_seq, *m, keys, values, mem_mask, _cum_T(saves["align_sm"]), *cots,
-        *wk, l1_io, l2_io, wq_io, w_locT,
-        *[saves[k] for k in FWD_OUTS], *[outs[k] for k in BWD_OUTS], scratch,
+        *m, keys, values, cum_T, *cots,
+        *[wk[k] for k in ("w_conv", "w_loc", "ball", "v", "mu_c", "mu_q", "mu_b", "l1", "l2", "wq")],
+        *[saves[k] for k in ("out2", "ctx", "align", "align_sm", "c1p", "c2p", "alphap", "mup",
+                             "g1", "g2", "pq")],
+        *[outs[k] for k in BWD_OUTS], scratch,
     ])
     lib = load("tacotron_train_bwd.cu")
+    _check_plan(lib, "bwd", plan)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.tacotron_train_bwd_launch(
-            ptrs, B, T, T_in, P, U, V, A, Fw, taps, int(masks is not None), float(zoneout),
-            stream_ptr(dev),
+            ptrs, counter.data_ptr(), B, T, T_in, P, U, V, A, Fw, taps, plan.clusters,
+            int(masks is not None), float(zoneout), stream_ptr(dev),
         )
     LAUNCHES["tacotron_train_bwd"] += 1
     check_launch(err, "tacotron_train_bwd")
@@ -559,7 +724,7 @@ def fused_core_apply(params: dict, cfg: TacotronModelConfig, pre_seq, masks, key
     zoneout keep-masks [T, B, U] (train mode) or None (eval-mode EMA).
     The weight gradients always take the stream layout, whatever
     ``tacotron_train.fused_wgrads`` says (the in-kernel "accum" layout is
-    ROADMAP.md queue item 2).  CUDA tensors run K3/K4, CPU tensors their
+    ROADMAP.md queue item 5).  CUDA tensors run K3/K4, CPU tensors their
     plain versions."""
     w = pack_core_weights(params, cfg)
     return FusedCore.apply(

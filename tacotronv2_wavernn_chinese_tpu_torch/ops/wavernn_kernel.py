@@ -60,12 +60,12 @@ def check_supported(cfg: WaveRNNModelConfig, num_mels: int = 80) -> None:
     aux 32, widths that are multiples of 4)."""
     if cfg.mode != "RAW":
         raise NotImplementedError(
-            f"WaveRNN mode {cfg.mode!r} is not ported yet (ROADMAP.md, queue item 6: MOL)"
+            f"WaveRNN mode {cfg.mode!r} is not ported yet (ROADMAP.md, queue item 8: MOL)"
         )
     if num_mels != NUM_MELS or cfg.res_out_dims // 4 != AUX:
         raise NotImplementedError(
             f"the sample-loop kernel takes 80 mels and aux 32, got {num_mels} mels and "
-            f"aux {cfg.res_out_dims // 4} (ROADMAP.md, queue item 3: the kernel's next steps)"
+            f"aux {cfg.res_out_dims // 4} (ROADMAP.md, queue item 4: the kernel's next steps)"
         )
     if cfg.rnn_dims % 4 or cfg.fc_dims % 4:
         raise NotImplementedError("the sample-loop kernel needs rnn_dims and fc_dims divisible by 4")
@@ -138,7 +138,7 @@ def choose_k1_plan(H: int, FC: int, NC: int, n_sm: int) -> K1Plan:
     raise NotImplementedError(
         f"the sample-loop kernel's weight slices do not fit shared memory at rnn {H}, fc {FC}, "
         f"{NC} classes on {n_sm} SMs ({plan.smem_bytes} bytes per block at fold tile {plan.fold_tile}, "
-        f"limit {SMEM_LIMIT}) (ROADMAP.md, queue item 3: bf16 weights)"
+        f"limit {SMEM_LIMIT}) (ROADMAP.md, queue item 4: bf16 weights)"
     )
 
 

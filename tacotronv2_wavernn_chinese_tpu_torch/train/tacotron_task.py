@@ -123,7 +123,7 @@ def loss_fn(params, cfg: Config, batch: dict, generator: torch.Generator, train:
     tc = cfg.tacotron_train
     if tc.mixed_precision:
         raise NotImplementedError(
-            "mixed_precision=True needs utils/precision.py, not ported yet (ROADMAP.md, queue item 10)"
+            "mixed_precision=True needs utils/precision.py, not ported yet (ROADMAP.md, queue item 12)"
         )
     out, new_params = T.forward_teacher_forced(
         params, cfg.tacotron, batch["inputs"], batch["input_lengths"], batch["mel_targets"], train,

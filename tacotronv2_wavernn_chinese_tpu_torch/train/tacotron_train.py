@@ -5,12 +5,12 @@ Keeps the JAX training loop's operational guards (reference tacotron/train.py:
 checkpoint, rolling time/loss windows, a checkpoint every
 ``checkpoint_interval`` steps with eval artifacts (alignment and mel PNGs
 of training sample 0).  The Griffin-Lim eval wav waits for Griffin-Lim
-(ROADMAP.md, queue item 5) and is logged as not yet ported.
+(ROADMAP.md, queue item 7) and is logged as not yet ported.
 
 The JAX training loop's ``_prewarm_bucket_shapes`` compiles every bucketed batch
 shape before the first step; eager PyTorch has nothing to compile, so it has
 no counterpart here and ``tacotron_train.precompile_buckets`` is not read.
-The data-parallel mesh is not ported (ROADMAP.md, queue item 10): training
+The data-parallel mesh is not ported (ROADMAP.md, queue item 12): training
 runs on one device, the card unless ``--device cpu`` is asked for.
 
 Usage:
@@ -188,7 +188,7 @@ def _render_eval(cfg, params, batch, arrays, eval_dir, step, log, device):
         wrote &= plot_spectrogram(mel, os.path.join(eval_dir, f"step-{step}-mel.png"), title=f"step {step}")
         log(f"eval render at step {step}: eval loss {float(aux['loss']):.5f}, "
             + ("alignment and mel PNGs written" if wrote else "no PNGs (matplotlib is missing)")
-            + "; the Griffin-Lim wav is not ported yet (ROADMAP.md, queue item 5)")
+            + "; the Griffin-Lim wav is not ported yet (ROADMAP.md, queue item 7)")
     except Exception as e:  # eval artifacts must never kill training
         log(f"eval render failed: {type(e).__name__}: {e}")
 

@@ -267,7 +267,7 @@ def init_tacotron(seed: int, cfg: TacotronModelConfig, device="cpu") -> Params:
     if cfg.attention_mode != "forward":
         raise NotImplementedError(
             f"attention_mode={cfg.attention_mode!r} is not ported yet "
-            "(ROADMAP.md, queue item 4: the decoder kernel's remaining branches)"
+            "(ROADMAP.md, queue item 6: the decoder kernel's remaining branches)"
         )
     if cfg.predict_linear:
         raise NotImplementedError("the CBHG mel->linear head is not ported yet (ROADMAP.md)")

@@ -53,7 +53,7 @@ def test_fewer_sms_take_a_smaller_fold_tile():
 
 @pytest.mark.parametrize("args", [(4096, 512, 1024, 132), (512, 512, 1024, 8), (512, 4096, 1024, 132)])
 def test_a_layout_that_does_not_fit_raises(args):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue item 3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue item 4"):
         WK.choose_k1_plan(*args)
 
 

@@ -168,13 +168,21 @@ def test_plain_adjoint_matches_autograd_per_output(params):
 
 
 def test_envelope_and_scope():
+    """The kernels' plan sets the envelope: at the default widths and the
+    H100's 15 resident clusters (16 on a full die), every batch up to 64
+    rows takes T_in of 1024 and more; one position or one row more than
+    the plan holds is refused."""
     cfg = default_config().tacotron
     dims = TK.widths(cfg)
-    n = TK.max_t_in(dims)
-    assert n % 4 == 0 and n >= 2000
-    assert TK.train_supported_shape(32, n, cfg) and not TK.train_supported_shape(32, n + 4, cfg)
-    assert 4 * TK.smem_floats("bwd", n, dims) <= TK.SMEM_LIMIT
-    assert TK.smem_floats("fwd", n, dims) < TK.smem_floats("bwd", n, dims)
+    for clusters in (16, 15):
+        for batch in (1, 10, 32, 64):
+            n = TK.max_t_in(batch, dims, clusters)
+            assert n >= 1024
+            assert TK.train_supported_shape(batch, n, cfg, clusters)
+            assert not TK.train_supported_shape(batch, n + 1, cfg, clusters)
+            plan = TK.k34_plan(batch, n, dims, clusters)
+            assert max(plan.smem_bytes("fwd"), plan.smem_bytes("bwd")) <= TK.SMEM_LIMIT
+    assert not TK.train_supported_shape(15 * TK.CLUSTER + 1, 16, cfg, 15)
     assert TK.train_supported(cfg)
     assert not TK.train_supported(dataclasses.replace(cfg, attention_mode="lsa"))
     assert not TK.train_supported(dataclasses.replace(cfg, smoothing=True))

@@ -1,0 +1,183 @@
+"""Where a step of the PyTorch port's trainer kernels goes, by phase, on one
+CUDA card: K3 (csrc/tacotron_train_fwd.cu) and K4 (csrc/tacotron_train_bwd.cu).
+
+    python3 tools/torch_k34_phase_split.py [--tree DIR] [--shape B,T_in,T]
+
+Builds a clock64()-stamped copy of each kernel into build/k34_phase_split/
+with nvcc and runs it through the package's own wrappers (``train_fwd``,
+``train_bwd``) on random full-width weights (default config) at
+B=32, T_in=160, T=608 (the train path's first batch), zoneout masks on.
+``--tree`` takes the package and its ``csrc/`` from another checkout (an
+unpacked older commit), so two versions of the kernels can be split by the
+same script on the same card.
+
+A phase is a comment at the step loop's body indentation, or one level
+deeper (4 or 6 spaces, ``// text``), in the kernel: a stamp goes before the
+first line of each, and thread 0 of every block adds the SM cycles since
+the previous stamp to the running phase's slot.  So the time of a grid barrier falls into the phase that holds it,
+unless a comment of its own marks it.  Cycles become microseconds by each
+block's total cycles over the kernel time by CUDA events.  Prints, for each
+kernel, the kernel time, and us per step of each phase (mean over blocks
+and the largest block's); the stamps add a few instructions and one global
+store per phase.  The last line is one JSON object with the same numbers.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import re
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OUT_DIR = os.path.join(HERE, "build", "k34_phase_split")
+MAX_BLOCKS, SLOTS = 256, 64
+
+STAMP = f"""
+__device__ long long k34_prof[{MAX_BLOCKS} * {SLOTS}];
+__shared__ long long k34_last;
+__shared__ int k34_cur;
+__device__ __forceinline__ void k34_stamp(int slot) {{
+  if (threadIdx.x == 0) {{
+    const long long n = clock64();
+    k34_prof[blockIdx.x * {SLOTS} + k34_cur] += n - k34_last;
+    k34_last = n;
+    k34_cur = slot;
+  }}
+}}
+"""
+
+HOST = f"""
+extern "C" int k34_prof_get(long long* out) {{
+  return (int)cudaMemcpyFromSymbol(out, k34_prof, sizeof(long long) * {MAX_BLOCKS} * {SLOTS});
+}}
+extern "C" int k34_prof_zero() {{
+  void* p = nullptr;
+  cudaError_t e = cudaGetSymbolAddress(&p, k34_prof);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaMemset(p, 0, sizeof(long long) * {MAX_BLOCKS} * {SLOTS});
+}}
+"""
+
+
+def stamped(src: str) -> tuple[str, list[str]]:
+    """The source with a stamp before every phase comment of the step loop,
+    and the phases' labels (the last slot is the prologue)."""
+    lines = src.split("\n")
+    start = next(i for i, l in enumerate(lines) if re.match(r"^  for \(int s = ", l))
+    end = next(i for i in range(start + 1, len(lines)) if lines[i] == "  }")
+    labels, out = [], []
+    for i, line in enumerate(lines):
+        m = re.match(r"^    (?:  )?// (\S.*)$", line)
+        follows = lines[i - 1].lstrip().startswith("//")  # a comment's second line starts no phase
+        if start < i < end and m and not follows:
+            out.append(f"    k34_stamp({len(labels)});")
+            labels.append(m.group(1)[:70])
+        out.append(line)
+        if "extern __shared__ float4 smem4[];" in line:
+            out.append(f"  if (threadIdx.x == 0) {{ k34_last = clock64(); k34_cur = {SLOTS - 1}; }}")
+    if not labels or len(labels) >= SLOTS - 1:
+        raise RuntimeError(f"found {len(labels)} phase comments in the step loop")
+    text = "\n".join(out)
+    text = text.replace("namespace {", STAMP + "\nnamespace {", 1) + HOST
+    return text, labels
+
+
+def build(ops, source: str):
+    with open(os.path.join(ops.CSRC_DIR, source)) as f:
+        src, labels = stamped(f.read())
+    d = os.path.join(OUT_DIR, source.replace(".cu", ""))
+    os.makedirs(d, exist_ok=True)
+    for f in os.listdir(ops.CSRC_DIR):
+        if f.endswith(".cuh"):
+            with open(os.path.join(ops.CSRC_DIR, f)) as fi, open(os.path.join(d, f), "w") as fo:
+                fo.write(fi.read())
+    with open(os.path.join(d, "k.cu"), "w") as f:
+        f.write(src)
+    so = os.path.join(d, "k.so")
+    out = subprocess.run([ops._nvcc(), *ops.NVCC_FLAGS, "-o", so, os.path.join(d, "k.cu")],
+                         capture_output=True, text=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the stamped {source}:\n{out.stdout}{out.stderr}")
+    lib = ctypes.CDLL(so)
+    for fn, argtypes in ops._ARGTYPES.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+    lib.k34_prof_get.argtypes = [ctypes.c_void_p]
+    lib.k34_prof_get.restype = ctypes.c_int
+    lib.k34_prof_zero.restype = ctypes.c_int
+    ops._libs[source] = lib  # the wrappers' load() now returns the stamped build
+    return lib, labels
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=HERE, help="checkout whose package and csrc/ are split")
+    ap.add_argument("--shape", default="32,160,608", help="B,T_in,T")
+    args = ap.parse_args()
+    sys.path.insert(0, HERE)
+    import chip_smoke as CS  # noqa: E402  (the repo's own: inputs, bounds, timing)
+
+    sys.path.insert(0, os.path.abspath(args.tree))
+    for k in [k for k in sys.modules if k.startswith("tacotronv2_wavernn_chinese_tpu_torch")]:
+        del sys.modules[k]
+    import numpy as np
+    import torch
+
+    from tacotronv2_wavernn_chinese_tpu_torch import ops
+    from tacotronv2_wavernn_chinese_tpu_torch.config import default_config
+    from tacotronv2_wavernn_chinese_tpu_torch.ops import tacotron_trainer_kernel as TK
+    from tacotronv2_wavernn_chinese_tpu_torch.utils.checkpoints import init_tacotron
+
+    if not torch.cuda.is_available():
+        print("torch_k34_phase_split: no CUDA device is available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = CS.smi_line()
+    print(smi, flush=True)
+    print(f"package from {os.path.dirname(ops.CSRC_DIR)}", flush=True)
+    ops.build_all()
+    libs = {name: build(ops, f"tacotron_train_{name}.cu") for name in ("fwd", "bwd")}
+    B, T_in, T = (int(v) for v in args.shape.split(","))
+    tcfg = default_config().tacotron
+    params = init_tacotron(4, tcfg, device="cuda")
+    x = CS.core_inputs(params, tcfg, B, T, T_in, torch.device("cuda"), 33)
+    w = TK.pack_core_weights(params, tcfg)
+    call = (w, x["pre"], x["masks"], x["keys"], x["values"], x["mask"], float(tcfg.zoneout_rate))
+    box = {"fwd": TK.train_fwd(*call)}
+    runs = {"fwd": lambda: TK.train_fwd(*call),
+            "bwd": lambda: TK.train_bwd(*call, box["fwd"], list(x["cots"]))}
+    record = {"device": smi, "tree": os.path.abspath(args.tree), "B": B, "T_in": T_in, "T": T, "kernels": []}
+    for name, (lib, labels) in libs.items():
+        runs[name]()  # warm
+        ops.check_launch(lib.k34_prof_zero(), "k34_prof_zero")
+        ms = CS.cuda_ms(runs[name])
+        prof = np.zeros(MAX_BLOCKS * SLOTS, np.int64)
+        ops.check_launch(lib.k34_prof_get(prof.ctypes.data), "k34_prof_get")
+        prof = prof.reshape(MAX_BLOCKS, SLOTS).astype(np.float64)
+        used = prof.sum(1) > 0
+        blocks = prof[used]
+        clock = blocks.sum(1) / (ms * 1e-3)  # cycles per second of each block
+        per = blocks / clock[:, None] / T * 1e6  # us per step
+        print(f"K{3 if name == 'fwd' else 4} {name}: {ms:.2f} ms, {ms / T * 1e3:.2f} us/step, "
+              f"{int(used.sum())} blocks, SM clock {clock.mean() / 1e9:.3f} GHz", flush=True)
+        phases = []
+        for i, lab in enumerate(labels + ["prologue"]):
+            col = per[:, i if i < len(labels) else SLOTS - 1]
+            if lab == "prologue":
+                col = col * T  # once per launch: us
+            phases.append({"phase": lab, "us_per_step": float(col.mean()), "max": float(col.max())})
+            unit = "us" if lab == "prologue" else "us/step"
+            print(f"   {i:2d} {lab[:60]:60s} {col.mean():8.2f} (max {col.max():8.2f}) {unit}", flush=True)
+        record["kernels"].append({"name": name, "ms": ms, "us_per_step": ms / T * 1e3,
+                                  "blocks": int(used.sum()), "phases": phases})
+    print(json.dumps(record), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
