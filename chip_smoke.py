@@ -12,10 +12,15 @@ Phases, each printing its lines before the next starts:
            sampled (shared generator), and 3 folds (a partly filled fold
            tile); then fold scaling: 16, 64 and 256 folds x 1000 samples,
            greedy, kernel ms and us/step
-  decoder  the decode kernel (K2) against its plain version, full width,
-           B=3, T_in=64, dropout 0.5: a 200-step run with the stop bias at
-           -30 (per-step error growth printed), a run with normal weights,
-           and a ragged B=5, T_in=37 run
+  decoder  the decode kernel (K2, one cluster grid) against its plain
+           version, full width, dropout 0.5: B=3, T_in=64, a 200-step run
+           with the stop bias at -30 (per-step error growth printed) and a
+           run with normal weights; the serve buckets B=1, 2, 4, 8, 16 at
+           T_in=64, 150 steps, stop bias -30; a ragged B=5, T_in=37 run; a
+           batch beyond one grid's rows (8 x clusters + 3, row groups, 40
+           steps); a long input (B=2, T_in=2048, the longest a 500-character
+           text gives, 100 steps); then a scaling line, K2 us/step at B=1,
+           4, 16 x T_in=32, 256, 1024
   serve    full-width random weights written as an export artifact, served
            on localhost: three /generate_tts requests and one
            /generate_tts_batch, WAV headers and lengths checked, both
@@ -289,6 +294,50 @@ def encode_batch(params, tcfg, ids_list, device):
     lens_t = torch.as_tensor(lens, device=device)
     memory = T.encode(params, tcfg, inputs, lens_t)
     return memory, T.input_mask(lens_t, T_in)
+
+
+def k2_case(params, tcfg, dev, rng, B: int, T_in: int, steps: int, tag: str) -> dict:
+    """K2 against its plain version on encoded random ids with ragged
+    lengths (the longest row fills T_in): stop lengths equal, frames and
+    alignments within 1e-3 up to the shortest stop."""
+    import torch
+
+    from tacotronv2_wavernn_chinese_tpu_torch.models import tacotron as T
+
+    ids = torch.as_tensor(rng.integers(1, tcfg.vocab_size, (B, T_in)), device=dev)
+    lens = torch.as_tensor(np.linspace(T_in, max(1, T_in // 3), B).astype(int), device=dev)
+    memory = T.encode(params, tcfg, ids, lens)
+    r = run_k2(params, tcfg, memory, T.input_mask(lens, T_in), [int(v) for v in rng.integers(0, 2**31, B)],
+               steps, tag, per_step=False)
+    check(r["max_abs_err"] <= 1e-3, f"decoder {tag}: max|d| {r['max_abs_err']:.3e} > 1e-3")
+    return r
+
+
+def k2_cases(params, tcfg, dev, rng) -> None:
+    """The serve buckets, one batch beyond the grid's rows (row groups), a
+    long input; then K2's us/step by batch and input length."""
+    import torch
+
+    from tacotronv2_wavernn_chinese_tpu_torch.ops import tacotron_decoder_kernel as DK
+
+    V = 2 * tcfg.encoder_lstm_units
+    clusters = DK.card_clusters(dev)
+    for B in (1, 2, 4, 8, 16):
+        k2_case(params, tcfg, dev, rng, B, 64, 150, f"serve bucket B={B} T_in=64")
+    B = DK.CLUSTER * clusters + 3
+    group = DK.rows_per_launch(64, DK.widths(tcfg, V), clusters)
+    k2_case(params, tcfg, dev, rng, B, 64, 40, f"beyond the grid's rows B={B} T_in=64 ({len(DK.row_groups(B, group))} "
+            f"launches of at most {group} rows)")
+    k2_case(params, tcfg, dev, rng, 2, 2048, 100, "long input B=2 T_in=2048")
+    parts = []
+    for B in (1, 4, 16):
+        for T_in in (32, 256, 1024):
+            memory = torch.as_tensor(rng.uniform(-1, 1, (B, T_in, V)), dtype=torch.float32, device=dev)
+            mask = torch.ones(B, T_in, device=dev)
+            ms = cuda_ms(lambda: DK.decode_autoregressive_kernel(params, tcfg, memory, mask, list(range(B)), 150),
+                         warmup=True)
+            parts.append(f"B={B} T_in={T_in} {ms / 150 * 1e3:.1f}")
+    phase("decoder", "K2 scaling (150 steps, stop bias -30, us/step): " + ", ".join(parts))
 
 
 # ---------------------------------------------------------------------------
@@ -669,6 +718,9 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
     r = run_k2(tp_long, tcfg, mem_r, T.input_mask(lens_r, 37), [1, 2, 3, 4, 5], 40,
                "ragged B=5 T_in=37", per_step=False)
     check(r["max_abs_err"] <= 1e-3, f"decoder ragged: max|d| {r['max_abs_err']:.3e} > 1e-3")
+    t_k2 = time.time()
+    k2_cases(tp_long, tcfg, dev, rng)
+    phase("decoder", f"K2 cases and scaling took {time.time() - t_k2:.1f} s")
 
     # ---------------- serve ----------------
     art = os.path.join(HERE, "build", "chip_smoke_artifact")
@@ -728,10 +780,20 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
         # where one request's time goes: the acoustic decode vs the vocoder
         ids0 = synth.symbols.encode(get_pyin(SENTENCES[0])[0])
         box = {}
-        t_mel = cuda_ms(lambda: box.__setitem__("m", synth.mel_from_ids([ids0], seed=[0])))
+        from tacotronv2_wavernn_chinese_tpu_torch.ops import tacotron_decoder_kernel as DK
+
+        hooks = EventHooks()
+        for module, name in ((T, "encode"), (DK, "decode_autoregressive_kernel"), (T, "apply_postnet")):
+            hooks.wrap(module, name)
+        try:
+            t_mel = cuda_ms(lambda: box.__setitem__("m", synth.mel_from_ids([ids0], seed=[0])))
+            parts = {k: v[0][0].elapsed_time(v[0][1]) for k, v in hooks.marks.items()}
+        finally:
+            hooks.restore()
         t_voc = cuda_ms(lambda: synth.mels_to_wavs([box["m"][0][0]], seed=0))
-        phase("serve", f"one request split (CUDA events): text->mel {t_mel:.1f} ms, "
-              f"mel->wav {t_voc:.1f} ms")
+        phase("serve", f"one request split (CUDA events): text->mel {t_mel:.1f} ms (encoder "
+              f"{parts['encode']:.1f}, decode K2 {parts['decode_autoregressive_kernel']:.1f}, postnet "
+              f"{parts['apply_postnet']:.1f}), mel->wav {t_voc:.1f} ms")
         for k, v in launches.items():
             check(v > 0, f"serve: kernel {k} was never launched on the serve path")
     finally:
@@ -769,6 +831,7 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
                                 torch.cuda.get_device_properties(dev).multi_processor_count)
     f1, b1 = wavernn_work(wcfg, k1["T"], k1["B"])
     bms1, by1 = bound(f1, b1)
+    k2_plan = DK.k2_plan(mem_s.shape[0], mem_s.shape[1], DK.widths(tcfg, mem_s.shape[2]), DK.card_clusters(dev))
     f2, b2 = decoder_work(tcfg, mem_s.shape[0], mem_s.shape[1], mem_s.shape[2], k2["steps"], serve_frames)
     bms2, by2 = bound(f2, b2)
     # K3/K4 at the train path's batch shape, on the trained weights
@@ -792,7 +855,7 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
          "replaces": "tacotronv2_wavernn_chinese_tpu/ops/tacotron_decoder_kernel.py:627",
          "launches": launches["tacotron_decode"], "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": bms2, "bound_by": by2,
-         "library_ms": None},
+         "library_ms": None, "grid_blocks": k2_plan.blocks, "clusters": k2_plan.clusters},
         {"name": "tacotron_train_fwd", "route": "cuda",
          "source": "tacotronv2_wavernn_chinese_tpu_torch/csrc/tacotron_train_fwd.cu",
          "replaces": "tacotronv2_wavernn_chinese_tpu/ops/tacotron_trainer_kernel.py:689",

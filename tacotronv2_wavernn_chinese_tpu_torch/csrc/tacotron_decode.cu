@@ -1,309 +1,772 @@
-// Tacotron-2 autoregressive decode: one launch runs every decoder step up
-// to max_iters, with the batch-wide early exit.
+// Tacotron-2 autoregressive decode (K2): one launch runs every decoder step
+// up to max_iters, with the batch-wide early exit, as one grid of
+// thread-block clusters (tacotron_train_common.cuh).
 //
 // Replaces the TPU kernel
 // tacotronv2_wavernn_chinese_tpu/ops/tacotron_decoder_kernel.py
 // (decode_autoregressive_pallas, _kernel), default branch: forward
 // attention, r = 1, no anti-repeat, no smoothing.  Per step and row:
-// prenet with always-on dropout (per-row seed, rng.cuh) -> LSTM1 on
-// [prenet, context, h1] -> LSTM2 on [out1, h2] (TF gate order, forget bias
-// +1, eval-mode zoneout on the carried state) -> forward attention (SAME
-// location conv over the cumulated alignments, tanh energy against the
-// keys, masked softmax, forward recursion with mu, renormalize) -> context
-// -> frame, stop and mu projections.
+// prenet with always-on dropout (per-row seed, rng.cuh: lanes [0, P1) for
+// layer 1, [P1, P1 + P2) for layer 2) -> LSTM1 on [prenet, context, h1] ->
+// LSTM2 on [out1, h2] (TF gate order, forget bias +1, eval-mode zoneout
+// (1-z)*new + z*prev on the carried state, out = the raw new_h) -> forward
+// attention (SAME location conv over the cumulated alignments with the
+// combined [taps, A] filter, tanh energy against the keys, softmax masked
+// at -1e9, forward recursion ((1-mu)*alpha + mu*shift(alpha) + 1e-10) *
+// softmax with a zero-filled shift, renormalised) -> context -> frame,
+// stop and mu projections.
 //
 // Semantics kept exactly: finished rows keep advancing with real outputs
 // until every row is done; after that each step writes frames 0, stops 1e4
-// and aligns 0.  The initial alpha/cumulated state is one-hot at position 0
-// with mu = 0.5; the right shift in the recursion is zero-filled and the
-// 1e-10 sits inside the product.
+// and aligns 0.  alpha and the cumulated alignments start one-hot at
+// position 0, mu at 0.5.
 //
-// What bounds it on the card: every step is a serial chain of small
-// matrix-vector products over ~1.7 M f32 weights (~7 MB, resident in L2)
-// plus the attention over T_in encoder positions; at serving batch sizes
-// (1-16 rows) the step is bound by how fast one SM can stream the weights
-// from L2 and by the ~15 block barriers per step, not by arithmetic.
+// What bounds it: every step is a serial chain of small products over ~1.76
+// M f32 weights (l1 1,048,576, l2 524,288, prenet 86,016, proj 82 x 768, wq
+// 32,768: ~7.0 MB) and the attention over T_in positions; at serving batch
+// sizes (1-16 rows) the step is bound by latency (barriers, the chain of
+// dependent products), not by bytes or operations.  The first design ran
+// all rows on one block that streamed the weights from L2 every step (~35
+// GB/s through one SM, 195 us per step at B=4).
 //
-// Design: ONE block runs all rows.  Whole-batch done needs agreement
-// across rows at every step; with one block that is a __syncthreads() and
-// a flag in shared memory, with no grid barrier or cluster.  Each weight
-// read from L2 is used for up to 4 rows in registers: up to 4 rows read the
-// weights once per step, each further 4 rows once more.  All per-row state (LSTM c/h,
-// context, alpha, cumulated, mu, done) lives in a global scratch buffer the
-// wrapper allocates; it stays in L1/L2.  The combined location-conv weights
-// sit in shared memory.  Spreading the rows or the weight columns over a
-// cluster of blocks is left to later work.
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "common.cuh"
+// Design: the grid of the trainer kernels (NC clusters of TR_CLUSTER blocks,
+// one block per SM, the count the card keeps resident), with every weight
+// held once on chip for the whole decode: no decoder weight is read from L2
+// after the prologue, and each product serves all B rows at once.  The plan
+// (k2_plan; mirrored term for term by ops/tacotron_decoder_kernel.py
+// k2_plan, which the wrapper compares with the library before every
+// launch):
+//
+//   * K-units, as in K3.  Rank q of every cluster holds its K-slice of l1
+//     ([pre2 | ctx | h1] rows) and of l2 against the four gates of its
+//     cluster's output units, and the wq rows of its K-units; the LSTM
+//     epilogues run for the rank's K-units and every row in every cluster.
+//   * Frame feedback inside the cluster.  Rank q also holds the proj columns
+//     of its out2 K-units and its ctx K-slice, its output slice of the first
+//     prenet layer and the rows of the second that make its pre2 K-slice.
+//     Every cluster computes the projection and the prenet for all rows; the
+//     projection's partials merge through distributed shared memory in rank
+//     order, so every block of every cluster holds bit-identical frames,
+//     stop logits, mu and done flags, and every block leaves the step loop
+//     at the same step without a grid-wide vote.
+//   * Rows.  The attention of row b runs on bpr blocks of cluster b / rpc;
+//     bpr grows with T_in (about K2_POS positions a block) up to
+//     TR_CLUSTER / rpc, so a short input keeps its row in one block.
+//
+// A step: [prenet 1 -> cluster gather -> prenet 2 -> x1 partials -> merged
+// g1] barrier 1 [LSTM1 -> g2] barrier 2 [LSTM2 -> pq (the cluster holds all
+// of wq) -> the rows' attention -> ctx] barrier 3 [projection partials ->
+// merged frame, stop, mu, done flags].  Three grid barriers; what lies
+// between them crosses only the cluster.  Global memory carries g1, g2 and
+// ctx ([B, 4U], [B, 4U], [B, V]) and the outputs.
+//
+// K1 (wavernn_sample.cu) and this kernel are both persistent grids that fill
+// the card; the serve path launches them on one stream, one after the
+// other, never side by side.
+//
+// Numbers: the products' sums are taken in another order than the plain
+// version's (each K split over eight ranks and ks lanes), the softmax and
+// the context over a row's blocks; values differ by rounding, and the check
+// is every frame and alignment within 1e-3 of the plain loop.
 #include "rng.cuh"
+#include "tacotron_train_common.cuh"
 
 namespace {
 
-constexpr int THREADS = 1024;
 constexpr int NMEL = 80;
-constexpr int NPROJ = 82;  // frame (80) | stop (1) | mu (1)
-constexpr int RB = 4;      // rows per matvec pass
+constexpr int NPROJ = NMEL + 2;  // frame (80) | stop (1) | mu (1)
+constexpr int LDP = NPROJ + 2;   // row stride of the projection partials and merged outputs
+constexpr int K2_POS = 32;       // attention positions a row block aims for
 
-struct Weights {
-  const float *pre_w1, *pre_b1, *pre_w2, *pre_b2;
-  const float *l1, *l1_b, *l2, *l2_b;
-  const float *wq, *w_comb, *b_comb, *att_v, *att_b;
-  const float *proj, *proj_b;
+struct K2Dims {
+  int B, T_in, P1, P2, U, V, A, taps;
 };
 
-struct Dims {
-  int B, T_in, A, V, U, P1, P2, taps, max_iters;
+struct K2Plan {
+  int NC, G;         // clusters, blocks
+  int Ku, uc, ub;    // K-units of a rank; output units of a cluster, of a block
+  int K1p, Kp, Kv;   // a rank's prenet-1 outputs, prenet-2 outputs (its pre2 K-slice), ctx K-slice
+  int rpc, bpr, nT;  // rows of a cluster, blocks of a row, positions of a block
 };
 
-struct Layout {  // per-row float offsets into the scratch buffer
-  int prev, pre1, xin1, gates, c1, xin2, c2, xproj, pq, outp, misc, alpha, cum, en, stride;
+// rpc is the smallest power of two with rpc * NC >= B; bpr = 0 when the
+// rows do not fit (B > NC * TR_CLUSTER).
+__host__ __device__ inline K2Plan k2_plan(const K2Dims& d, int NC) {
+  K2Plan p;
+  p.NC = NC;
+  p.G = NC * TR_CLUSTER;
+  p.Ku = tr_cdiv(d.U, TR_CLUSTER);
+  p.uc = tr_cdiv(d.U, NC);
+  p.ub = tr_cdiv(p.uc, TR_CLUSTER);
+  p.K1p = tr_cdiv(d.P1, TR_CLUSTER);
+  p.Kp = tr_cdiv(d.P2, TR_CLUSTER);
+  p.Kv = tr_cdiv(d.V, TR_CLUSTER);
+  int rpc = 1;
+  while (rpc * NC < d.B) rpc *= 2;
+  p.rpc = rpc;
+  int bpr = 0;
+  if (rpc <= TR_CLUSTER) {
+    bpr = 1;
+    while (bpr < TR_CLUSTER / rpc && bpr * K2_POS < d.T_in) bpr *= 2;
+  }
+  p.bpr = bpr;
+  p.nT = bpr ? tr_cdiv(d.T_in, bpr) : 0;
+  return p;
+}
+
+// Offsets (floats) into dynamic shared memory; mirrored term for term by
+// ops/tacotron_decoder_kernel.py (K2Plan.smem_floats).
+struct K2Layout {
+  int w1;     // [4uc, LK1]  l1: the rank's [pre2 | ctx | h1] inputs x the cluster's gate rows
+  int w2;     // [4uc, LK2]  l2: the rank's [out1 | h2] inputs x the cluster's gate rows
+  int wq;     // [Ku, A]     wq columns of the rank's K-units
+  int wp;     // [NPROJ, LKP] proj: the rank's [out2 | ctx] inputs x frame, stop, mu
+  int wp1;    // [K1p, LKM]  prenet 1: the rank's outputs x the 80 mel inputs
+  int wp2;    // [Kp, LKG]   prenet 2: the rank's outputs (its pre2 K-slice) x all P1 inputs
+  int wc;     // [taps, A]   combined location conv
+  int b1, b2; // [K1p], [Kp] the prenet biases of the rank's outputs
+  int pb;     // [LDP]       projection bias
+  int v, eb;  // [A]         energy vector v; energy bias (location conv bias + attention bias)
+  int st;     // [4, B, Ku]  c1, h1, c2, h2 of the K-units
+  int xs;     // [B, LK1]    x1; x2 [B, LK2] during LSTM1's product
+  int gin;    // [B, LKG]    prenet-1 outputs gathered from the cluster; from LSTM2 on, the
+              //             projection's inputs [B, LKP] (out2 K-units | ctx K-slice)
+  int part;   // [B, max(4uc, LDP)] partial products read by the cluster
+  int fr;     // [B, LDP]    merged frame | stop | mu logits of the last step (the prenet's input)
+  int mu, done;  // [B]
+  int seed, key;  // [B]     each row's seed; this step's dropout key (rng_key of the seed, row 0, the step)
+  int pqp;    // [rpc, A]    partial query projections of the cluster's rows (read by the cluster)
+  int pq;     // [A]         the row's query projection + energy bias
+  int cum;    // [nT + taps - 1] cumulated alignments of the slice and its halo
+  int alpha, en, asm_;  // [nT] forward state; energies then the recursion; this step's softmax
+  int ctxp;   // [V]         this block's partial context (read by the row)
+  int red;    // [16]
+  int bred;   // [64]
+  int total;
 };
 
-__host__ __device__ inline int up4(int x) { return (x + 3) & ~3; }
+struct K2Ld {
+  int LK1, LK2, LKP, LKM, LKG;
+};
 
-__host__ __device__ inline Layout make_layout(const Dims& d) {
-  Layout L;
+__host__ __device__ inline K2Ld k2_ld(const K2Dims& d, const K2Plan& p) {
+  return K2Ld{tr_up4(p.Kp + p.Kv + p.Ku) + 4, tr_up4(2 * p.Ku) + 4, tr_up4(p.Ku + p.Kv) + 4,
+              tr_up4(NMEL) + 4, tr_up4(d.P1) + 4};
+}
+
+__host__ __device__ inline K2Layout k2_layout(const K2Dims& d, const K2Plan& p) {
+  K2Layout L;
+  const K2Ld ld = k2_ld(d, p);
+  const int ng = 4 * p.uc, A4 = tr_up4(d.A);
   int o = 0;
-  L.prev = o;  o += NMEL;
-  L.pre1 = o;  o += d.P1;
-  L.xin1 = o;  o += d.P2 + d.V + d.U;  // [pre2 | context | h1]
-  L.gates = o; o += 4 * d.U;
-  L.c1 = o;    o += d.U;
-  L.xin2 = o;  o += 2 * d.U;            // [out1 | h2]
-  L.c2 = o;    o += d.U;
-  L.xproj = o; o += d.U + d.V;          // [out2 | context]
-  L.pq = o;    o += d.A;
-  L.outp = o;  o += up4(NPROJ);
-  L.misc = o;  o += 4;                  // mu, done
-  L.alpha = o; o += up4(d.T_in);
-  L.cum = o;   o += up4(d.T_in);
-  L.en = o;    o += up4(d.T_in);
-  L.stride = o;
+  L.w1 = o;    o += ng * ld.LK1;
+  L.w2 = o;    o += ng * ld.LK2;
+  L.wq = o;    o += p.Ku * d.A;
+  L.wp = o;    o += NPROJ * ld.LKP;
+  L.wp1 = o;   o += p.K1p * ld.LKM;
+  L.wp2 = o;   o += p.Kp * ld.LKG;
+  L.wc = o;    o += tr_up4(d.taps * d.A);
+  L.b1 = o;    o += tr_up4(p.K1p);
+  L.b2 = o;    o += tr_up4(p.Kp);
+  L.pb = o;    o += LDP;
+  L.v = o;     o += A4;
+  L.eb = o;    o += A4;
+  L.st = o;    o += tr_up4(4 * d.B * p.Ku);
+  L.xs = o;    o += d.B * ld.LK1;
+  L.gin = o;   o += d.B * tr_max(ld.LKG, ld.LKP);
+  L.part = o;  o += d.B * tr_max(ng, LDP);
+  L.fr = o;    o += d.B * LDP;
+  L.mu = o;    o += tr_up4(d.B);
+  L.done = o;  o += tr_up4(d.B);
+  L.seed = o;  o += tr_up4(d.B);
+  L.key = o;   o += tr_up4(d.B);
+  L.pqp = o;   o += p.rpc * d.A;
+  L.pq = o;    o += A4;
+  L.cum = o;   o += tr_up4(p.nT + d.taps - 1);
+  L.alpha = o; o += tr_up4(p.nT);
+  L.en = o;    o += tr_up4(p.nT);
+  L.asm_ = o;  o += tr_up4(p.nT);
+  L.ctxp = o;  o += tr_up4(d.V);
+  L.red = o;   o += 16;
+  L.bred = o;  o += 64;
+  L.total = o;
   return L;
 }
 
-// y rows = act(W x rows + b) for all B rows, RB rows per pass.
-__device__ void matvec_all(const float* W, const float* b, int N, int Kp, float* scratch,
-                           int x_off, int y_off, int stride, int B, int act) {
-  for (int r0 = 0; r0 < B; r0 += RB) {
-    const int nr = B - r0 < RB ? B - r0 : RB;
-    matvec_rows<RB>(W, b, N, Kp, scratch + (size_t)r0 * stride + x_off, stride, nr,
-                    scratch + (size_t)r0 * stride + y_off, stride, act);
+// What one block does under the plan.
+struct K2Role {
+  int c, q;          // cluster, rank
+  Range ku, cu, ou;  // K-units; the cluster's output units; this block's share of them
+  Range r1, r2, rv;  // prenet-1 outputs, prenet-2 outputs (= pre2 K-slice), ctx K-slice
+  int row, sl, rank0;  // attention row (-1: none), slice of the row, the row's first rank
+  Range pos;         // attention positions (empty without a row)
+};
+
+__device__ inline K2Role k2_role(const K2Dims& d, const K2Plan& p) {
+  K2Role r;
+  r.c = blockIdx.x / TR_CLUSTER;
+  r.q = blockIdx.x % TR_CLUSTER;
+  r.ku = tr_range(r.q, p.Ku, d.U);
+  r.cu = tr_range(r.c, p.uc, d.U);
+  const Range ou = tr_range(r.q, p.ub, r.cu.n());
+  r.ou = Range{r.cu.lo + ou.lo, r.cu.lo + ou.hi};
+  r.r1 = tr_range(r.q, p.K1p, d.P1);
+  r.r2 = tr_range(r.q, p.Kp, d.P2);
+  r.rv = tr_range(r.q, p.Kv, d.V);
+  const int rr = r.q / p.bpr, b = r.c * p.rpc + rr;
+  r.row = (rr < p.rpc && b < d.B) ? b : -1;
+  r.sl = r.q % p.bpr;
+  r.rank0 = rr * p.bpr;
+  r.pos = r.row >= 0 ? tr_range(r.sl, p.nT, d.T_in) : Range{0, 0};
+  return r;
+}
+
+// Where a product's sums go: out[b * ldo + o] = sum (STORE); PRENET:
+// out[b * ldo + o] = relu(sum + bias[o]) with dropout (kept when
+// rng_bits_from_key(key[b], lane0 + o) < thresh, then / keep; keep 1: no
+// dropout), 0 for o >= valid.
+enum { EPI_STORE = 0, EPI_PRENET = 1 };
+
+struct K2Epi {
+  int mode;
+  float* out;
+  int ldo;
+  const float* bias;
+  int valid;
+  const uint32_t* key;
+  uint32_t lane0, thresh;
+  float keep;
+};
+
+// A block's product over its weight slice: epi(b, o, sum_k x[b * ldx + k] *
+// W[o * ldw + k]) for b < nb, o < no, k < K (a multiple of 4; x and W rows
+// 16-byte aligned).  A tile is 4 rows x 2 outputs, so each weight read
+// serves four rows; the K range of a tile is split over ks adjacent lanes
+// (a power of two, as many as the block's threads allow), whose sums meet
+// by shuffles.  The trip count is the same for every thread of a warp.
+__device__ __forceinline__ void k2_product(const float* x, int ldx, int nb, const float* W, int ldw, int no, int K,
+                                        K2Epi e) {
+  const int nob = (no + 1) >> 1, nbb = (nb + 3) >> 2, K4 = K >> 2, tiles = nob * nbb;
+  int ks = 1;
+  while (ks < 32 && 2 * ks <= K4 && 2 * ks * tiles <= TR_THREADS) ks *= 2;
+  const int span = tiles * ks;
+  for (int base = 0; base < span; base += TR_THREADS) {
+    const int t = base + threadIdx.x;
+    const bool live = t < span;
+    const int tile = live ? t / ks : 0, kk = t % ks;
+    const int o0 = 2 * (tile % nob), b0 = 4 * (tile / nob);
+    const float4* w0 = reinterpret_cast<const float4*>(W + (size_t)o0 * ldw);
+    const float4* w1 = reinterpret_cast<const float4*>(W + (size_t)tr_min(o0 + 1, no - 1) * ldw);
+    const float4* xr[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) xr[r] = reinterpret_cast<const float4*>(x + (size_t)tr_min(b0 + r, nb - 1) * ldx);
+    float a[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+    if (live) {
+      for (int k = kk; k < K4; k += ks) {
+        const float4 u0 = w0[k], u1 = w1[k];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float4 v = xr[r][k];
+          a[0][r] = fmaf(v.x, u0.x, fmaf(v.y, u0.y, fmaf(v.z, u0.z, fmaf(v.w, u0.w, a[0][r]))));
+          a[1][r] = fmaf(v.x, u1.x, fmaf(v.y, u1.y, fmaf(v.z, u1.z, fmaf(v.w, u1.w, a[1][r]))));
+        }
+      }
+    }
+    for (int off = ks >> 1; off > 0; off >>= 1) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        a[0][r] += __shfl_xor_sync(0xffffffffu, a[0][r], off);
+        a[1][r] += __shfl_xor_sync(0xffffffffu, a[1][r], off);
+      }
+    }
+    if (live && kk == 0) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int o = o0 + j;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int b = b0 + r;
+          if (b >= nb || o >= no) continue;
+          float* p = e.out + (size_t)b * e.ldo + o;
+          float v = a[j][r];
+          if (e.mode == EPI_PRENET) {
+            v = o < e.valid ? fmaxf(v + e.bias[o], 0.0f) : 0.0f;
+            if (e.keep < 1.0f) v = rng_bits_from_key(e.key[b], e.lane0 + (uint32_t)o) < e.thresh ? v / e.keep : 0.0f;
+          }
+          *p = v;
+        }
+      }
+    }
   }
 }
 
-__device__ void dropout(float* scratch, const Layout& L, int off, int width, int lane0, int B,
-                        const int* seeds, int step, float keep, uint32_t thresh) {
-  for (int i = threadIdx.x; i < B * width; i += blockDim.x) {
-    const int b = i / width, n = i - b * width;
-    float* p = scratch + (size_t)b * L.stride + off + n;
-    const uint32_t bits = rng_bits((uint32_t)seeds[b], 0u, (uint32_t)step, (uint32_t)(lane0 + n));
-    *p = bits < thresh ? *p / keep : 0.0f;
-  }
+// (max, sum of exp(x - max)) of two sets of energies, merged; an empty set
+// is (-inf, 0).
+__device__ __forceinline__ float2 k2_stats_merge(float2 a, float2 b) {
+  const float M = fmaxf(a.x, b.x);
+  if (M == -INFINITY) return make_float2(M, 0.0f);
+  return make_float2(M, a.y * expf(a.x - M) + b.y * expf(b.x - M));
 }
 
-// TF-order LSTM cell + eval-mode zoneout.  gates [i | j | f | o]; c and h
-// are the carried state (updated in place), out receives the raw new_h.
-__device__ void lstm_cell(float* scratch, const Layout& L, int c_off, int h_off, int out_off,
-                          int U, int B, float zo, float zo_keep) {
-  for (int i = threadIdx.x; i < B * U; i += blockDim.x) {
-    const int b = i / U, j = i - b * U;
-    float* row = scratch + (size_t)b * L.stride;
-    const float* g = row + L.gates;
-    const float c = row[c_off + j], h = row[h_off + j];
-    const float new_c = sigmoidf_(g[2 * U + j] + 1.0f) * c + sigmoidf_(g[j]) * tanhf(g[U + j]);
-    const float new_h = sigmoidf_(g[3 * U + j]) * tanhf(new_c);
-    row[c_off + j] = zo_keep * new_c + zo * c;
-    row[h_off + j] = zo_keep * new_h + zo * h;
-    row[out_off + j] = new_h;
+// The softmax statistics of the block's energies, one reduction; every
+// thread gets the result.  ``red`` is 64 floats of shared scratch.
+__device__ inline float2 k2_block_stats(float2 v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = k2_stats_merge(v, make_float2(__shfl_xor_sync(0xffffffffu, v.x, o), __shfl_xor_sync(0xffffffffu, v.y, o)));
+  if (lane == 0) {
+    red[warp] = v.x;
+    red[32 + warp] = v.y;
   }
+  __syncthreads();
+  if (warp == 0) {
+    float2 u = lane < TR_WARPS ? make_float2(red[lane], red[32 + lane]) : make_float2(-INFINITY, 0.0f);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      u = k2_stats_merge(u, make_float2(__shfl_xor_sync(0xffffffffu, u.x, o), __shfl_xor_sync(0xffffffffu, u.y, o)));
+    __syncwarp();
+    if (lane == 0) {
+      red[0] = u.x;
+      red[1] = u.y;
+    }
+  }
+  __syncthreads();
+  const float2 r = make_float2(red[0], red[1]);
+  __syncthreads();
+  return r;
 }
 
-__global__ void __launch_bounds__(THREADS)
-tacotron_decode_kernel(const float* __restrict__ keys, const float* __restrict__ values,
-                       const float* __restrict__ mask, const int* __restrict__ seeds, Weights w,
-                       float* __restrict__ frames, float* __restrict__ stops, float* __restrict__ aligns,
-                       float* scratch, Dims d, float zo, float zo_keep, float drop_keep,
-                       uint32_t drop_thresh) {
+struct K2Weights {  // all [out, in] (ops/tacotron_decoder_kernel.py pack_weights)
+  const float *pre_w1, *pre_b1, *pre_w2, *pre_b2;   // [P1, 80], [P1], [P2, P1], [P2]
+  const float *l1, *l1_b, *l2, *l2_b;               // [4U, P2 + V + U], [4U], [4U, 2U], [4U]
+  const float *wq, *w_comb, *b_comb, *att_v, *att_b;  // [A, U], [taps, A], [A], [A], [A]
+  const float *proj, *proj_b;                       // [82, U + V], [82]
+};
+
+struct K2Io {
+  const float *keys, *values, *mask;  // [B, T_in, A], [B, T_in, V], [B, T_in]
+  const int* seeds;                   // [B]
+  float *frames, *stops, *aligns;     // [max_iters, B, 80], [max_iters, B], [max_iters, B, T_in]
+  float *g1, *g2, *ctx;               // exchange: [B, 4U], [B, 4U], [B, V]
+};
+
+// The layout arrives as a kernel parameter, in the constant bank: computed in
+// the kernel and held in registers across the step loop, its offsets made
+// the kernel spill (512 threads leave 128 registers a thread).
+__global__ void __launch_bounds__(TR_THREADS, 1)
+tacotron_decode_kernel(K2Weights w, K2Io io, K2Dims d, K2Plan pl, K2Layout L, int max_iters, float zo,
+                       float zo_keep, float drop_keep, uint32_t drop_thresh, unsigned* counter) {
   extern __shared__ float4 smem4[];
-  float* s_wc = reinterpret_cast<float*>(smem4);  // [taps, A] combined location conv
-  __shared__ int s_all_done;
-  const Layout L = make_layout(d);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  const int B = d.B, T_in = d.T_in, A = d.A, V = d.V, U = d.U;
-  const int padl = (d.taps - 1) / 2;
+  float* sm = reinterpret_cast<float*>(smem4);
+  cg::cluster_group cl = cg::this_cluster();
+  const K2Ld ld = k2_ld(d, pl);
+  const K2Role R = k2_role(d, pl);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int B = d.B, T_in = d.T_in, P1 = d.P1, P2 = d.P2, U = d.U, V = d.V, A = d.A, taps = d.taps;
+  const int padl = (taps - 1) / 2, Ku = pl.Ku, Kp = pl.Kp, Kv = pl.Kv, K1p = pl.K1p, uc = pl.uc, ng = 4 * uc;
+  const int LK1 = ld.LK1, LK2 = ld.LK2, LKP = ld.LKP, LKM = ld.LKM, LKG = ld.LKG;
+  const int K1 = LK1 - 4, K2 = LK2 - 4, KP = LKP - 4;
+  const int nku = R.ku.n(), nou = R.ou.n(), nv = R.rv.n(), bpr = pl.bpr, rank0 = R.rank0;
+  const int b = R.row, t0 = R.pos.lo, n_own = R.pos.n(), nT = pl.nT;
+  const Range ku = R.ku, cu = R.cu, r1 = R.r1, r2 = R.r2, rv = R.rv;
+  const Range vs = b >= 0 ? tr_range(R.sl, tr_cdiv(V, bpr), V) : Range{0, 0};  // context entries this block merges
+  float *w1 = sm + L.w1, *w2 = sm + L.w2, *wq = sm + L.wq, *wp = sm + L.wp, *wp1 = sm + L.wp1, *wp2 = sm + L.wp2;
+  float *wc = sm + L.wc, *b1 = sm + L.b1, *b2 = sm + L.b2, *pb = sm + L.pb, *vsm = sm + L.v, *eb = sm + L.eb;
+  float *c1 = sm + L.st, *h1 = c1 + B * Ku, *c2 = h1 + B * Ku, *h2 = c2 + B * Ku;
+  float *xs = sm + L.xs, *gin = sm + L.gin, *part = sm + L.part, *fr = sm + L.fr, *mu = sm + L.mu;
+  float *done = sm + L.done, *pqp = sm + L.pqp, *pqv = sm + L.pq, *cum = sm + L.cum, *alpha = sm + L.alpha;
+  float *en = sm + L.en, *asm_ = sm + L.asm_, *ctxp = sm + L.ctxp, *red = sm + L.red, *bred = sm + L.bred;
+  uint32_t *seed = reinterpret_cast<uint32_t*>(sm + L.seed), *key = reinterpret_cast<uint32_t*>(sm + L.key);
 
-  for (int i = tid; i < d.taps * A; i += blockDim.x) s_wc[i] = w.w_comb[i];
-  for (int i = tid; i < B * L.stride; i += blockDim.x) {
-    const int b = i / L.stride, k = i - b * L.stride;
-    float v = 0.0f;
-    if ((k == L.alpha || k == L.cum)) v = 1.0f;  // one-hot at position 0
-    if (k == L.misc) v = 0.5f;                   // mu
-    scratch[(size_t)b * L.stride + k] = v;
+  // prologue: the weight slices, for the whole decode
+  auto gate_row = [=](int o) {  // output o: gate o / uc of the cluster's unit o % uc
+    const int g = o / uc, j = cu.lo + o - g * uc;
+    return j < cu.hi ? g * U + j : -1;
+  };
+  tr_load_slice(w1, ng, LK1, w.l1, P2 + V + U, gate_row, [=](int k) {
+    if (k < Kp) return r2.lo + k < r2.hi ? r2.lo + k : -1;
+    if (k < Kp + Kv) return rv.lo + k - Kp < rv.hi ? P2 + rv.lo + k - Kp : -1;
+    if (k < Kp + Kv + Ku) return k - Kp - Kv < nku ? P2 + V + ku.lo + k - Kp - Kv : -1;
+    return -1;
+  });
+  tr_load_slice(w2, ng, LK2, w.l2, 2 * U, gate_row, [=](int k) {
+    if (k < Ku) return k < nku ? ku.lo + k : -1;
+    if (k < 2 * Ku) return k - Ku < nku ? U + ku.lo + k - Ku : -1;
+    return -1;
+  });
+  for (int i = tid; i < Ku * A; i += TR_THREADS) {  // wq is [A, U]: the slice is its K-units' columns, [Ku, A]
+    const int u = i / A, a = i - u * A;
+    wq[i] = u < nku ? __ldg(w.wq + (size_t)a * U + ku.lo + u) : 0.0f;
   }
-  if (tid == 0) s_all_done = 0;
+  tr_load_slice(wp, NPROJ, LKP, w.proj, U + V, [](int o) { return o; }, [=](int k) {
+    if (k < Ku) return k < nku ? ku.lo + k : -1;
+    return rv.lo + k - Ku < rv.hi ? U + rv.lo + k - Ku : -1;
+  });
+  tr_load_slice(wp1, K1p, LKM, w.pre_w1, NMEL, [=](int o) { return r1.lo + o < r1.hi ? r1.lo + o : -1; },
+                [](int k) { return k < NMEL ? k : -1; });
+  tr_load_slice(wp2, Kp, LKG, w.pre_w2, P1, [=](int o) { return r2.lo + o < r2.hi ? r2.lo + o : -1; },
+                [=](int k) { return k < P1 ? k : -1; });
+  for (int i = tid; i < taps * A; i += TR_THREADS) wc[i] = __ldg(w.w_comb + i);
+  for (int i = tid; i < K1p; i += TR_THREADS) b1[i] = r1.lo + i < r1.hi ? __ldg(w.pre_b1 + r1.lo + i) : 0.0f;
+  for (int i = tid; i < Kp; i += TR_THREADS) b2[i] = r2.lo + i < r2.hi ? __ldg(w.pre_b2 + r2.lo + i) : 0.0f;
+  for (int i = tid; i < LDP; i += TR_THREADS) pb[i] = i < NPROJ ? __ldg(w.proj_b + i) : 0.0f;
+  for (int a = tid; a < A; a += TR_THREADS) {
+    vsm[a] = __ldg(w.att_v + a);
+    eb[a] = __ldg(w.b_comb + a) + __ldg(w.att_b + a);
+  }
+  // state: LSTMs at zero, the go frame, mu 0.5, nothing done; alpha and cum one-hot at position 0
+  for (int i = tid; i < 4 * B * Ku; i += TR_THREADS) c1[i] = 0.0f;
+  for (int i = tid; i < B * LK1; i += TR_THREADS) xs[i] = 0.0f;
+  for (int i = tid; i < B * LDP; i += TR_THREADS) fr[i] = 0.0f;
+  for (int i = tid; i < B; i += TR_THREADS) {
+    mu[i] = 0.5f;
+    done[i] = 0.0f;
+    seed[i] = (uint32_t)__ldg(io.seeds + i);
+    key[i] = rng_key(seed[i], 0u, 0u);
+  }
+  for (int i = tid; i < n_own; i += TR_THREADS) alpha[i] = t0 + i == 0 ? 1.0f : 0.0f;
+  for (int e = tid; e < n_own + taps - 1; e += TR_THREADS) cum[e] = t0 - padl + e == 0 ? 1.0f : 0.0f;
+  const K2Epi to_gates{EPI_STORE, part, ng}, to_proj{EPI_STORE, part, LDP};
+  unsigned target = 0;
+  int n_run = max_iters;  // steps run before every row was done
   __syncthreads();
 
-  int step = 0;
-  for (; step < d.max_iters; ++step) {
-    if (s_all_done) break;
-    // prenet, always-on dropout: lanes [0, P1) then [P1, P1 + P2)
-    matvec_all(w.pre_w1, w.pre_b1, d.P1, NMEL, scratch, L.prev, L.pre1, L.stride, B, ACT_RELU);
-    __syncthreads();
-    if (drop_keep < 1.0f) {
-      dropout(scratch, L, L.pre1, d.P1, 0, B, seeds, step, drop_keep, drop_thresh);
-      __syncthreads();
+  for (int s = 0; s < max_iters; ++s) {
+    // 1. prenet 1: the rank's outputs for all rows, from the last frame
+    k2_product(fr, LDP, B, wp1, LKM, K1p, NMEL,
+               K2Epi{EPI_PRENET, gin + r1.lo, LKG, b1, r1.n(), key, (uint32_t)r1.lo, drop_thresh, drop_keep});
+    cl.sync();
+    // 1b. gather the other ranks' prenet-1 outputs; prenet 2 of the rank's pre2 K-slice
+    for (int k = tid; k < B * P1; k += TR_THREADS) {
+      const int bb = k / P1, i = k - bb * P1, j = i / K1p;
+      if (j != R.q) gin[bb * LKG + i] = cl.map_shared_rank(gin, j)[bb * LKG + i];
     }
-    matvec_all(w.pre_w2, w.pre_b2, d.P2, d.P1, scratch, L.pre1, L.xin1, L.stride, B, ACT_RELU);
     __syncthreads();
-    if (drop_keep < 1.0f) {
-      dropout(scratch, L, L.xin1, d.P2, d.P1, B, seeds, step, drop_keep, drop_thresh);
-      __syncthreads();
+    k2_product(gin, LKG, B, wp2, LKG, Kp, P1,
+               K2Epi{EPI_PRENET, xs, LK1, b2, r2.n(), key, (uint32_t)(P1 + r2.lo), drop_thresh, drop_keep});
+    for (int k = tid; k < B * (LK1 - Kp - Kv); k += TR_THREADS) {  // h1 of the K-units, then zeros
+      const int bb = k / (LK1 - Kp - Kv), i = k - bb * (LK1 - Kp - Kv);
+      xs[bb * LK1 + Kp + Kv + i] = i < nku ? h1[bb * Ku + i] : 0.0f;
     }
-    // LSTM1 on [prenet, context, h1]; its raw output feeds LSTM2
-    matvec_all(w.l1, w.l1_b, 4 * U, d.P2 + V + U, scratch, L.xin1, L.gates, L.stride, B, ACT_NONE);
     __syncthreads();
-    lstm_cell(scratch, L, L.c1, L.xin1 + d.P2 + V, L.xin2, U, B, zo, zo_keep);
+    // 1c. g1 partials over x1 = [pre2 | ctx | h1] slices, merged in the cluster
+    k2_product(xs, LK1, B, w1, LK1, ng, K1, to_gates);
+    cl.sync();
+    for (int k = tid; k < B * nou * 4; k += TR_THREADS) {
+      const int bb = k / (nou * 4), rest = k - bb * nou * 4, g = rest / nou, j = R.ou.lo + rest % nou;
+      io.g1[(size_t)bb * 4 * U + g * U + j] = tr_merge(cl, part, bb * ng + g * uc + j - cu.lo) + __ldg(w.l1_b + g * U + j);
+    }
+    // barrier 1
+    grid_barrier(counter, target += pl.G);
+    // 2. LSTM1 of the K-units, all rows; x2 = [out1 | h2]; g2 partials, merged in the cluster
+    for (int k = tid; k < B * Ku; k += TR_THREADS) {
+      const int bb = k / Ku, i = k - bb * Ku;
+      float* x = xs + bb * LK2;
+      if (i >= nku) {
+        x[i] = x[Ku + i] = 0.0f;
+        continue;
+      }
+      const float* g1 = io.g1 + (size_t)bb * 4 * U + ku.lo + i;
+      const Gates q = tr_gates4(__ldcg(g1), __ldcg(g1 + U), __ldcg(g1 + 2 * U), __ldcg(g1 + 3 * U));
+      const float cp = c1[k], hp = h1[k];
+      const float nc = q.sf * cp + q.si * q.tj;
+      const float nh = q.so * tanhf(nc);
+      c1[k] = zo_keep * nc + zo * cp;
+      h1[k] = zo_keep * nh + zo * hp;
+      x[i] = nh;
+      x[Ku + i] = h2[k];
+    }
+    for (int k = tid; k < B * (LK2 - 2 * Ku); k += TR_THREADS) {
+      const int bb = k / (LK2 - 2 * Ku);
+      xs[bb * LK2 + 2 * Ku + k - bb * (LK2 - 2 * Ku)] = 0.0f;
+    }
     __syncthreads();
-    matvec_all(w.l2, w.l2_b, 4 * U, 2 * U, scratch, L.xin2, L.gates, L.stride, B, ACT_NONE);
+    k2_product(xs, LK2, B, w2, LK2, ng, K2, to_gates);
+    cl.sync();
+    for (int k = tid; k < B * nou * 4; k += TR_THREADS) {
+      const int bb = k / (nou * 4), rest = k - bb * nou * 4, g = rest / nou, j = R.ou.lo + rest % nou;
+      io.g2[(size_t)bb * 4 * U + g * U + j] = tr_merge(cl, part, bb * ng + g * uc + j - cu.lo) + __ldg(w.l2_b + g * U + j);
+    }
+    // barrier 2
+    grid_barrier(counter, target += pl.G);
+    // 3. LSTM2 of the K-units -> out2 (the projection's first inputs); partial pq of the cluster's rows
+    for (int k = tid; k < B * Ku; k += TR_THREADS) {
+      const int bb = k / Ku, i = k - bb * Ku;
+      if (i >= nku) {
+        gin[bb * LKP + i] = 0.0f;
+        continue;
+      }
+      const float* g2 = io.g2 + (size_t)bb * 4 * U + ku.lo + i;
+      const Gates q = tr_gates4(__ldcg(g2), __ldcg(g2 + U), __ldcg(g2 + 2 * U), __ldcg(g2 + 3 * U));
+      const float cp = c2[k], hp = h2[k];
+      const float nc = q.sf * cp + q.si * q.tj;
+      const float nh = q.so * tanhf(nc);
+      c2[k] = zo_keep * nc + zo * cp;
+      h2[k] = zo_keep * nh + zo * hp;
+      gin[bb * LKP + i] = nh;
+    }
     __syncthreads();
-    lstm_cell(scratch, L, L.c2, L.xin2 + U, L.xproj, U, B, zo, zo_keep);
-    __syncthreads();
-    // attention query projection
-    matvec_all(w.wq, nullptr, A, U, scratch, L.xproj, L.pq, L.stride, B, ACT_NONE);
-    __syncthreads();
-    // energies: one warp per (row, position), lanes over the attention dim
-    for (int p = warp; p < B * T_in; p += nwarps) {
-      const int b = p / T_in, t = p - b * T_in;
-      const float* row = scratch + (size_t)b * L.stride;
-      const float* cum = row + L.cum;
+    for (int k = tid; k < pl.rpc * A; k += TR_THREADS) {
+      const int rr = k / A, a = k - rr * A, bb = R.c * pl.rpc + rr;
       float acc = 0.0f;
-      for (int a = lane; a < A; a += 32) {
-        float conv = 0.0f;
-        for (int k = 0; k < d.taps; ++k) {
-          const int tt = t + k - padl;
-          if (tt >= 0 && tt < T_in) conv = fmaf(cum[tt], s_wc[k * A + a], conv);
+      if (bb < B)
+        for (int i = 0; i < nku; ++i) acc = fmaf(gin[bb * LKP + i], wq[i * A + a], acc);
+      pqp[k] = acc;
+    }
+    cl.sync();
+    // 4. attention of the rows: energies and softmax statistics of the slice
+    float2 st = make_float2(-INFINITY, 0.0f);
+    if (b >= 0) {
+      const int rr = R.q / bpr;
+      for (int a = tid; a < A; a += TR_THREADS) {
+        float acc = 0.0f;
+        for (int j = 0; j < TR_CLUSTER; ++j) acc += cl.map_shared_rank(pqp, j)[rr * A + a];
+        pqv[a] = acc + eb[a];
+      }
+      __syncthreads();
+      const float* keys = io.keys + (size_t)b * T_in * A;
+      const float* mask = io.mask + (size_t)b * T_in;
+      for (int i = warp; i < n_own; i += 2 * TR_WARPS) {  // two positions a warp: each filter read serves both
+        const int i2 = i + TR_WARPS < n_own ? i + TR_WARPS : i;
+        const int t = t0 + i, t2 = t0 + i2;
+        float e = 0.0f, e2 = 0.0f;
+        for (int a0 = lane; a0 < A; a0 += 128) {  // four columns per lane
+          float loc[4] = {0.0f, 0.0f, 0.0f, 0.0f}, loc2[4] = {0.0f, 0.0f, 0.0f, 0.0f}, kv[4], kv2[4];
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            const int a = tr_min(a0 + 32 * m, A - 1);
+            kv[m] = __ldg(keys + (size_t)t * A + a);
+            kv2[m] = __ldg(keys + (size_t)t2 * A + a);
+          }
+          for (int j = 0; j < taps; ++j) {
+            const float x = cum[i + j], x2 = cum[i2 + j];
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+              if (a0 + 32 * m < A) {
+                const float wv = wc[j * A + a0 + 32 * m];
+                loc[m] = fmaf(x, wv, loc[m]);
+                loc2[m] = fmaf(x2, wv, loc2[m]);
+              }
+            }
+          }
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            const int a = a0 + 32 * m;
+            if (a < A) {
+              e = fmaf(vsm[a], tanhf(kv[m] + pqv[a] + loc[m]), e);
+              e2 = fmaf(vsm[a], tanhf(kv2[m] + pqv[a] + loc2[m]), e2);
+            }
+          }
         }
-        const float loc = conv + __ldg(w.b_comb + a);
-        const float e = tanhf(__ldg(keys + ((size_t)b * T_in + t) * A + a) + row[L.pq + a] + loc
-                              + __ldg(w.att_b + a));
-        acc = fmaf(__ldg(w.att_v + a), e, acc);
+        e = warp_sum(e);
+        e2 = warp_sum(e2);
+        if (lane == 0) {
+          en[i] = __ldg(mask + t) > 0.0f ? e : -1e9f;
+          en[i2] = __ldg(mask + t2) > 0.0f ? e2 : -1e9f;  // i2 == i when the warp has one position left
+        }
       }
-      acc = warp_sum(acc);
-      if (lane == 0)
-        scratch[(size_t)b * L.stride + L.en + t] = mask[(size_t)b * T_in + t] > 0.0f ? acc : -1e9f;
+      __syncthreads();
+      float2 ms = make_float2(-INFINITY, 0.0f);
+      for (int i = tid; i < n_own; i += TR_THREADS) ms = k2_stats_merge(ms, make_float2(en[i], 1.0f));
+      st = k2_block_stats(ms, bred);
     }
-    __syncthreads();
-    // masked softmax, cumulate, forward recursion, renormalize: a warp per row
-    for (int b = warp; b < B; b += nwarps) {
-      float* row = scratch + (size_t)b * L.stride;
-      float* en = row + L.en;
-      float* alpha = row + L.alpha;
-      float* cum = row + L.cum;
-      float m = -INFINITY;
-      for (int t = lane; t < T_in; t += 32) m = fmaxf(m, en[t]);
-      m = warp_max(m);
-      float ssum = 0.0f;
-      for (int t = lane; t < T_in; t += 32) ssum += expf(en[t] - m);
-      ssum = warp_sum(ssum);
-      const float mu = row[L.misc];
-      float s2 = 0.0f;
-      for (int t = lane; t < T_in; t += 32) {
-        const float sm = expf(en[t] - m) / ssum;
-        cum[t] += sm;
-        const float shifted = t > 0 ? alpha[t - 1] : 0.0f;
-        const float al = ((1.0f - mu) * alpha[t] + mu * shifted + 1e-10f) * sm;
-        en[t] = al;
-        s2 += al;
-      }
-      s2 = warp_sum(s2);
-      __syncwarp();
-      for (int t = lane; t < T_in; t += 32) {
-        const float a = en[t] / s2;
-        alpha[t] = a;
-        aligns[((size_t)step * B + b) * T_in + t] = a;
-      }
-    }
-    __syncthreads();
-    // context = alignment . values; it is both a projection input and the
-    // next step's LSTM1 input
-    for (int i = tid; i < B * V; i += blockDim.x) {
-      const int b = i / V, v = i - b * V;
-      float* row = scratch + (size_t)b * L.stride;
-      const float* alpha = row + L.alpha;
-      const float* val = values + (size_t)b * T_in * V + v;
-      float acc = 0.0f;
-      for (int t = 0; t < T_in; ++t) acc = fmaf(alpha[t], __ldg(val + (size_t)t * V), acc);
-      row[L.xproj + U + v] = acc;
-      row[L.xin1 + d.P2 + v] = acc;
-    }
-    __syncthreads();
-    matvec_all(w.proj, w.proj_b, NPROJ, U + V, scratch, L.xproj, L.outp, L.stride, B, ACT_NONE);
-    __syncthreads();
-    for (int i = tid; i < B * NMEL; i += blockDim.x) {
-      const int b = i / NMEL, c = i - b * NMEL;
-      float* row = scratch + (size_t)b * L.stride;
-      const float f = row[L.outp + c];
-      frames[((size_t)step * B + b) * NMEL + c] = f;
-      row[L.prev + c] = f;
-    }
-    for (int b = tid; b < B; b += blockDim.x) {
-      float* row = scratch + (size_t)b * L.stride;
-      const float stop = row[L.outp + NMEL];
-      stops[(size_t)step * B + b] = stop;
-      row[L.misc] = sigmoidf_(row[L.outp + NMEL + 1]);
-      if (sigmoidf_(stop) > 0.5f) row[L.misc + 1] = 1.0f;
-    }
-    __syncthreads();
     if (tid == 0) {
-      int all = 1;
-      for (int b = 0; b < B; ++b) all &= scratch[(size_t)b * L.stride + L.misc + 1] > 0.5f;
-      s_all_done = all;
+      red[0] = st.x;
+      red[1] = st.y;
+    }
+    if (bpr > 1) cl.sync(); else __syncthreads();
+    // 4b. softmax, forward recursion and the unnormalised context of the slice
+    float s2 = 0.0f;
+    if (b >= 0) {
+      if (tid == 0) {
+        float2 M = make_float2(-INFINITY, 0.0f);
+        for (int j = 0; j < bpr; ++j) {
+          const float* o = cl.map_shared_rank(red, rank0 + j);
+          M = k2_stats_merge(M, make_float2(o[0], o[1]));
+        }
+        red[4] = M.x;
+        red[5] = M.y;
+        // alpha at the position before the slice: the last step's, held by the previous slice's block
+        red[6] = (t0 == 0 || n_own == 0) ? 0.0f : cl.map_shared_rank(alpha, rank0 + R.sl - 1)[nT - 1];
+      }
+      __syncthreads();
+      const float M = red[4], Zs = red[5], aprev = red[6], mb = mu[b];
+      float part_s = 0.0f;
+      for (int i = tid; i < n_own; i += TR_THREADS) {
+        const float a_sm = expf(en[i] - M) / Zs;
+        asm_[i] = a_sm;
+        const float shifted = i > 0 ? alpha[i - 1] : aprev;
+        const float pre = ((1.0f - mb) * alpha[i] + mb * shifted + 1e-10f) * a_sm;
+        en[i] = pre;
+        part_s += pre;
+      }
+      s2 = tr_block_sum2(part_s, 0.0f, bred).x;  // its barriers also publish en[] to the block
+      const float* values = io.values + ((size_t)b * T_in + t0) * V;
+      for (int v = tid; v < V; v += TR_THREADS) {  // the context before the row's normalisation
+        float acc = 0.0f;
+#pragma unroll 8
+        for (int i = 0; i < n_own; ++i) acc = fmaf(en[i], __ldg(values + (size_t)i * V + v), acc);
+        ctxp[v] = acc;
+      }
+    }
+    if (tid == 0) red[2] = s2;
+    if (bpr > 1) cl.sync(); else __syncthreads();
+    // 4c. normalise, cumulate, merge the context
+    if (b >= 0) {
+      if (tid == 0) {
+        float S2 = 0.0f;
+        for (int j = 0; j < bpr; ++j) S2 += cl.map_shared_rank(red, rank0 + j)[2];
+        red[7] = S2;
+      }
+      __syncthreads();
+      const float S2 = red[7];
+      float* al_out = io.aligns + ((size_t)s * B + b) * T_in + t0;
+      for (int i = tid; i < n_own; i += TR_THREADS) {
+        const float a = en[i] / S2;
+        alpha[i] = a;
+        al_out[i] = a;
+      }
+      for (int e = tid; e < n_own + taps - 1; e += TR_THREADS) {  // the slice and its halo
+        const int t = t0 - padl + e;
+        if (t >= 0 && t < T_in) {
+          const int owner = t / nT, li = t - owner * nT;
+          cum[e] += owner == R.sl ? asm_[li] : cl.map_shared_rank(asm_, rank0 + owner)[li];
+        }
+      }
+      for (int v = vs.lo + tid; v < vs.hi; v += TR_THREADS) {
+        float acc = 0.0f;
+        for (int j = 0; j < bpr; ++j) acc += cl.map_shared_rank(ctxp, rank0 + j)[v];
+        io.ctx[(size_t)b * V + v] = acc / S2;
+      }
+    }
+    // barrier 3
+    grid_barrier(counter, target += pl.G);
+    // 5. projection partials over [out2 | ctx] slices (the ctx slice is also x1's next input)
+    for (int k = tid; k < B * (LKP - Ku); k += TR_THREADS) {
+      const int bb = k / (LKP - Ku), i = k - bb * (LKP - Ku);
+      const float c = i < nv ? __ldcg(io.ctx + (size_t)bb * V + rv.lo + i) : 0.0f;
+      gin[bb * LKP + Ku + i] = c;
+      if (i < Kv) xs[bb * LK1 + Kp + i] = c;
     }
     __syncthreads();
+    k2_product(gin, LKP, B, wp, LKP, NPROJ, KP, to_proj);
+    cl.sync();
+    for (int k = tid; k < B * NPROJ; k += TR_THREADS) {
+      const int bb = k / NPROJ, o = k - bb * NPROJ;
+      fr[bb * LDP + o] = tr_merge(cl, part, bb * LDP + o) + pb[o];
+    }
+    __syncthreads();
+    // 6. outputs, mu and the done flags (every block alike)
+    if (R.c == 0) {
+      for (int k = R.q * TR_THREADS + tid; k < B * NMEL; k += TR_CLUSTER * TR_THREADS) {
+        const int bb = k / NMEL, m = k - bb * NMEL;
+        io.frames[((size_t)s * B + bb) * NMEL + m] = fr[bb * LDP + m];
+      }
+      if (R.q == 0)
+        for (int bb = tid; bb < B; bb += TR_THREADS) io.stops[(size_t)s * B + bb] = fr[bb * LDP + NMEL];
+    }
+    for (int bb = tid; bb < B; bb += TR_THREADS) {
+      mu[bb] = sigmoidf_(fr[bb * LDP + NMEL + 1]);
+      if (sigmoidf_(fr[bb * LDP + NMEL]) > 0.5f) done[bb] = 1.0f;
+      key[bb] = rng_key(seed[bb], 0u, (uint32_t)(s + 1));
+    }
+    __syncthreads();
+    bool all = true;
+    for (int bb = 0; bb < B; ++bb) all = all && done[bb] > 0.5f;
+    if (all) {
+      n_run = s + 1;
+      break;
+    }
   }
-  // every row is done: the remaining steps are frames 0, stops 1e4, aligns 0
-  const size_t s0 = (size_t)step;
-  const size_t n_left = (size_t)d.max_iters - s0;
-  for (size_t i = tid; i < n_left * B * NMEL; i += blockDim.x) frames[s0 * B * NMEL + i] = 0.0f;
-  for (size_t i = tid; i < n_left * B; i += blockDim.x) stops[s0 * B + i] = 1e4f;
-  for (size_t i = tid; i < n_left * B * T_in; i += blockDim.x) aligns[s0 * B * T_in + i] = 0.0f;
+  // every row is done: the remaining steps hold frames 0, stops 1e4 and aligns 0 (the whole grid writes them)
+  const size_t s0 = (size_t)n_run, n_left = (size_t)(max_iters - n_run);
+  const size_t gi = (size_t)blockIdx.x * TR_THREADS + tid, gs = (size_t)gridDim.x * TR_THREADS;
+  for (size_t i = gi; i < n_left * B * NMEL; i += gs) io.frames[s0 * B * NMEL + i] = 0.0f;
+  for (size_t i = gi; i < n_left * B; i += gs) io.stops[s0 * B + i] = 1e4f;
+  for (size_t i = gi; i < n_left * B * T_in; i += gs) io.aligns[s0 * B * T_in + i] = 0.0f;
+  cl.sync();  // no block leaves while a peer may still read its shared memory
 }
 
 }  // namespace
 
-// Floats of per-row scratch the wrapper must allocate (times B).
-extern "C" int tacotron_decode_scratch_floats(int T_in, int A, int V, int U, int P1, int P2) {
-  Dims d{1, T_in, A, V, U, P1, P2, 1, 1};
-  return make_layout(d).stride;
+// Bytes of shared memory per block (ops/tacotron_decoder_kernel.py k2_plan
+// computes the same; the wrapper checks before every launch).
+extern "C" int tacotron_decode_smem_bytes(int B, int T_in, int P1, int P2, int U, int V, int A, int taps, int NC) {
+  const K2Dims d{B, T_in, P1, P2, U, V, A, taps};
+  return k2_layout(d, k2_plan(d, NC)).total * (int)sizeof(float);
 }
 
-// Launches the whole decode on ``stream``.  keys [B, T_in, A], values
-// [B, T_in, V], mask [B, T_in] f32, seeds [B] int32; weights transposed to
-// [out, in] (ops/tacotron_decoder_kernel.py pack_weights); frames
-// [max_iters, B, 80], stops [max_iters, B], aligns [max_iters, B, T_in];
-// scratch [B * tacotron_decode_scratch_floats(...)].
-// Returns cudaGetLastError() after the launch.
-extern "C" int tacotron_decode_launch(
-    const float* keys, const float* values, const float* mask, const int* seeds,
-    const float* pre_w1, const float* pre_b1, const float* pre_w2, const float* pre_b2,
-    const float* l1, const float* l1_b, const float* l2, const float* l2_b,
-    const float* wq, const float* w_comb, const float* b_comb, const float* att_v, const float* att_b,
-    const float* proj, const float* proj_b,
-    float* frames, float* stops, float* aligns, float* scratch,
-    int B, int T_in, int A, int V, int U, int P1, int P2, int taps, int max_iters,
-    float zoneout, float zoneout_keep, float drop_keep, uint32_t drop_thresh, void* stream) {
-  Weights w{pre_w1, pre_b1, pre_w2, pre_b2, l1, l1_b, l2, l2_b, wq, w_comb, b_comb, att_v, att_b,
-            proj, proj_b};
-  Dims d{B, T_in, A, V, U, P1, P2, taps, max_iters};
-  const int smem = taps * A * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(tacotron_decode_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// Floats of the global exchange: g1 [B, 4U], g2 [B, 4U], ctx [B, V].
+extern "C" int tacotron_decode_scratch_floats(int B, int T_in, int P1, int P2, int U, int V, int A, int taps,
+                                              int NC) {
+  return B * (8 * U + V);
+}
+
+static cudaLaunchConfig_t decode_config(cudaLaunchAttribute* at, int G, int smem, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = TR_CLUSTER;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(G);
+  cfg.blockDim = dim3(TR_THREADS);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters of TR_CLUSTER blocks that the card keeps resident at once with
+// one block per SM (asked at TR_SMEM_ONE_PER_SM bytes of shared memory), or
+// a negative cudaError_t.
+extern "C" int tacotron_decode_clusters() {
+  cudaError_t err = cudaFuncSetAttribute(tacotron_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         TR_SMEM_ONE_PER_SM);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchAttribute at[1];
+  cudaLaunchConfig_t cfg = decode_config(at, TR_CLUSTER, TR_SMEM_ONE_PER_SM, 0);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, tacotron_decode_kernel, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// Launches the whole decode on ``stream`` as NC clusters of TR_CLUSTER
+// blocks.  ``ptrs`` holds 23 device pointers: keys [B, T_in, A], values
+// [B, T_in, V], mask [B, T_in] (f32), seeds [B] (int32); the weights in
+// WEIGHT_ORDER of ops/tacotron_decoder_kernel.py (pack_weights: [out, in]);
+// frames [max_iters, B, 80], stops [max_iters, B], aligns [max_iters, B,
+// T_in]; the exchange [tacotron_decode_scratch_floats(...)].  ``counter``
+// is one zeroed uint32.  Returns a cudaError_t:
+// cudaErrorCooperativeLaunchTooLarge when NC clusters cannot be resident
+// together or the rows do not fit, cudaErrorInvalidValue when the plan
+// exceeds a block's shared memory, else the launch's own.
+extern "C" int tacotron_decode_launch(void* const* ptrs, unsigned* counter, int B, int T_in, int P1, int P2,
+                                      int U, int V, int A, int taps, int max_iters, int NC, float zoneout,
+                                      float zoneout_keep, float drop_keep, uint32_t drop_thresh, void* stream) {
+  const float* const* f = reinterpret_cast<const float* const*>(ptrs);
+  const K2Weights w{f[4], f[5], f[6], f[7], f[8], f[9], f[10], f[11], f[12], f[13], f[14], f[15], f[16],
+                    f[17], f[18]};
+  float* scratch = static_cast<float*>(ptrs[22]);
+  const K2Io io{f[0], f[1], f[2], static_cast<const int*>(ptrs[3]),
+                static_cast<float*>(ptrs[19]), static_cast<float*>(ptrs[20]), static_cast<float*>(ptrs[21]),
+                scratch, scratch + (size_t)B * 4 * U, scratch + (size_t)B * 8 * U};
+  const K2Dims d{B, T_in, P1, P2, U, V, A, taps};
+  const K2Plan pl = k2_plan(d, NC);
+  if (pl.bpr == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int smem = k2_layout(d, pl).total * (int)sizeof(float);
+  if (smem > TR_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(tacotron_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  tacotron_decode_kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(
-      keys, values, mask, seeds, w, frames, stops, aligns, scratch, d, zoneout, zoneout_keep,
-      drop_keep, drop_thresh);
+  cudaLaunchAttribute at[1];
+  cudaLaunchConfig_t cfg = decode_config(at, pl.G, smem, (cudaStream_t)stream);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, tacotron_decode_kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (n < NC) return (int)cudaErrorCooperativeLaunchTooLarge;
+  err = cudaLaunchKernelEx(&cfg, tacotron_decode_kernel, w, io, d, pl, k2_layout(d, pl), max_iters, zoneout,
+                           zoneout_keep, drop_keep, drop_thresh, counter);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

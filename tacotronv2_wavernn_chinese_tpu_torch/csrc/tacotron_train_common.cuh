@@ -1,6 +1,8 @@
 // What the two teacher-forced trainer kernels share (tacotron_train_fwd.cu,
 // tacotron_train_bwd.cu): the grid plan, the grid barrier, the cluster
-// exchange and the products over a block's weight slice.
+// exchange and the products over a block's weight slice.  The decode kernel
+// (tacotron_decode.cu) runs on the same grid with a plan of its own and
+// uses the helpers below it.
 //
 // Both kernels are one grid of NC thread-block clusters of TR_CLUSTER
 // blocks (about one block per SM; NC is what the card keeps resident,
@@ -173,6 +175,23 @@ __device__ inline float2 tr_block_sum2(float a, float b, float* red) {
   }
   __syncthreads();
   const float2 r = make_float2(red[0], red[1]);
+  __syncthreads();
+  return r;
+}
+
+// Maximum of v over the block; every thread gets the result.  ``red`` is
+// 64 floats of shared scratch.
+__device__ inline float tr_block_max(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_max(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    float m = warp_max(lane < TR_WARPS ? red[lane] : -INFINITY);
+    if (lane == 0) red[32] = m;
+  }
+  __syncthreads();
+  const float r = red[32];
   __syncthreads();
   return r;
 }

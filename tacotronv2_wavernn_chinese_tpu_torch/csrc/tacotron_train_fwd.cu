@@ -125,21 +125,6 @@ __host__ __device__ inline FwdLayout fwd_layout(const TrDims& d, const TrPlan& p
   return L;
 }
 
-__device__ inline float tr_block_max(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_max(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float m = warp_max(lane < TR_WARPS ? red[lane] : -INFINITY);
-    if (lane == 0) red[32] = m;
-  }
-  __syncthreads();
-  const float r = red[32];
-  __syncthreads();
-  return r;
-}
-
 __global__ void __launch_bounds__(TR_THREADS, 1)
 tacotron_train_fwd_kernel(Ptrs p, TrDims d, TrPlan pl, int use_masks, float zoneout, unsigned* counter) {
   extern __shared__ float4 smem4[];

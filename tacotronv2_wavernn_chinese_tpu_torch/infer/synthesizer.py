@@ -112,10 +112,11 @@ class Synthesizer:
         mel_all = out.mel_outputs.cpu().numpy()
         align_all = out.alignments.cpu().numpy()
         mels, aligns, stops = [], [], []
+        r = self.cfg.tacotron.outputs_per_step
         for i in range(B):
             n = int(stop_len[i])
             mels.append(mel_all[i, :n])
-            aligns.append(align_all[i, :n, : lens[i]])
+            aligns.append(align_all[i, : -(-n // r), : lens[i]])  # decoder steps: r frames each
             stops.append(n)
         return mels, aligns, stops
 

@@ -201,7 +201,7 @@ def forward_inference(
     """Autoregressive inference.  ``seeds`` [B]: row b's prenet dropout
     depends only on seeds[b], so a row decodes the same alone or batched."""
     if cfg.predict_linear:
-        raise NotImplementedError("the CBHG mel->linear head is not ported yet (ROADMAP.md)")
+        raise NotImplementedError("the CBHG mel->linear head is not ported yet (ROADMAP.md, queue item 12)")
     memory = encode(params, cfg, inputs, input_lengths)
     mem_mask = input_mask(input_lengths, inputs.shape[1])
     frames, stops, aligns, stop_len = decode_autoregressive(params, cfg, memory, mem_mask, seeds, max_iters)

@@ -120,11 +120,13 @@ _ARGTYPES = {
     "wavernn_sample_launch": [ctypes.c_void_p] * 20 + [ctypes.c_int] * 8 + [ctypes.c_uint32, ctypes.c_void_p],
     "wavernn_sample_smem_bytes": [ctypes.c_int] * 5,
     "wavernn_sample_scratch_floats": [ctypes.c_int] * 4,
-    "tacotron_decode_launch": [ctypes.c_void_p] * 23 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
+    # the cluster-grid kernels take their device pointers as one host array,
+    # then the barrier counter
+    "tacotron_decode_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10 + [ctypes.c_float] * 3
     + [ctypes.c_uint32, ctypes.c_void_p],
-    "tacotron_decode_scratch_floats": [ctypes.c_int] * 6,
-    # the trainer kernels take their device pointers as one host array, then
-    # the barrier counter
+    "tacotron_decode_smem_bytes": [ctypes.c_int] * 9,
+    "tacotron_decode_scratch_floats": [ctypes.c_int] * 9,
+    "tacotron_decode_clusters": [],
     "tacotron_train_fwd_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p],
     "tacotron_train_bwd_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p],
     "tacotron_train_fwd_smem_bytes": [ctypes.c_int] * 9,

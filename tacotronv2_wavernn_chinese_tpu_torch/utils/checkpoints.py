@@ -263,14 +263,14 @@ class _Init:
 def init_tacotron(seed: int, cfg: TacotronModelConfig, device="cpu") -> Params:
     """Random Tacotron-2 params with the JAX init's tree and shapes
     (forward attention; the other attention modes and the CBHG head are
-    not ported yet, see ROADMAP.md)."""
+    not ported yet, see ROADMAP.md, queue items 6 and 12)."""
     if cfg.attention_mode != "forward":
         raise NotImplementedError(
             f"attention_mode={cfg.attention_mode!r} is not ported yet "
             "(ROADMAP.md, queue item 6: the decoder kernel's remaining branches)"
         )
     if cfg.predict_linear:
-        raise NotImplementedError("the CBHG mel->linear head is not ported yet (ROADMAP.md)")
+        raise NotImplementedError("the CBHG mel->linear head is not ported yet (ROADMAP.md, queue item 12)")
     g = _Init(seed, device)
     enc_out = 2 * cfg.encoder_lstm_units
     M, r = 80, cfg.outputs_per_step

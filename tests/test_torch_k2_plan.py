@@ -1,0 +1,354 @@
+"""The grid plan of the decode kernel (K2), on the CPU.
+
+``k2_plan`` mirrors csrc/tacotron_decode.cu ``k2_plan`` and ``k2_layout``
+term for term; on the card the wrapper compares it with the library before
+every launch.  Here: every gate column, projection column, prenet column,
+row and position has exactly one owner, and every weight lies in exactly
+one block's slices per cluster; the default widths fit one launch over the
+serve envelope (batches up to 16, the longest input a 500-character text
+gives), and a shape beyond it raises; a plain-torch emulation of the grid's
+split (K-sliced products merged in rank order, the projection and the
+prenet redundant in every cluster, per-cluster done flags, a row's
+attention over its blocks) equals ``decode_autoregressive_plain``, with
+every cluster leaving the step loop at the same step; and the row-group
+path equals one plain decode over all rows."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from tacotronv2_wavernn_chinese_tpu_torch import ops as OPS
+from tacotronv2_wavernn_chinese_tpu_torch.config import default_config
+from tacotronv2_wavernn_chinese_tpu_torch.frontend import default_symbols, get_pyin
+from tacotronv2_wavernn_chinese_tpu_torch.ops import tacotron_decoder_kernel as DK
+from tacotronv2_wavernn_chinese_tpu_torch.utils.checkpoints import init_tacotron
+
+CFG = default_config().tacotron
+DIMS = DK.widths(CFG, 2 * CFG.encoder_lstm_units)  # (256, 256, 256, 512, 128, 31)
+C = DK.CLUSTER
+
+
+def _clusters(n_sm: int) -> int:
+    """Stand-in for the card's count: whole clusters of one block per SM."""
+    return n_sm // C
+
+
+@pytest.mark.parametrize("n_sm", [132, 114, 8])
+@pytest.mark.parametrize("batch", [1, 4, 5, 16])
+def test_every_column_row_and_position_has_one_owner(batch, n_sm):
+    P1, P2, U, V, A, taps = DIMS
+    t_in = 160
+    clusters = _clusters(n_sm)
+    group = min(batch, clusters * C)  # the rows of one launch
+    plan = DK.k2_plan(group, t_in, DIMS, clusters)
+    assert plan.blocks == clusters * C <= n_sm
+    # reduction side, in every cluster: K-units, prenet outputs, context and
+    # projection inputs, each on one rank
+    assert [u for q in range(C) for u in plan.k_unit_range(q)] == list(range(U))
+    assert [i for q in range(C) for i in plan.pre1_range(q)] == list(range(P1))
+    assert [i for q in range(C) for i in plan.pre2_range(q)] == list(range(P2))
+    assert [v for q in range(C) for v in plan.ctx_range(q)] == list(range(V))
+    assert sorted(i for q in range(C) for i in plan.proj_inputs(q)) == list(range(U + V))
+    # output side: each unit's four gate columns merged by one block of the grid
+    owners = [u for c in range(clusters) for q in range(C) for u in plan.out_units(c, q)]
+    assert owners == list(range(U))
+    assert sorted(g * U + u for u in owners for g in range(4)) == list(range(4 * U))
+    # attention: every (row, position) on one block, a row's blocks in one cluster
+    seen = {}
+    for k in range(plan.blocks):
+        b, _ = plan.row(k)
+        for t in plan.position_range(k):
+            assert (b, t) not in seen
+            seen[b, t] = k
+    assert sorted(seen) == [(b, t) for b in range(group) for t in range(t_in)]
+    for b in range(group):
+        assert len({seen[b, t] // C for t in range(t_in)}) == 1
+
+
+def test_every_weight_is_held_once_per_cluster():
+    """The slices of a cluster's eight blocks hold every prenet, wq and
+    projection weight once, and the clusters together every l1 and l2
+    weight once (each cluster its units' gate rows): after the prologue no
+    decoder weight is read from L2."""
+    P1, P2, U, V, A, taps = DIMS
+    plan = DK.k2_plan(4, 32, DIMS, 15)
+    cu = [range(min(c * plan.units_c, U), min((c + 1) * plan.units_c, U)) for c in range(plan.clusters)]
+    l1 = sum(4 * len(cu[c]) * (len(plan.pre2_range(q)) + len(plan.ctx_range(q)) + len(plan.k_unit_range(q)))
+             for c in range(plan.clusters) for q in range(C))
+    l2 = sum(4 * len(cu[c]) * 2 * len(plan.k_unit_range(q)) for c in range(plan.clusters) for q in range(C))
+    assert (l1, l2) == (4 * U * (P2 + V + U), 4 * U * 2 * U)
+    assert sum(len(plan.k_unit_range(q)) * A for q in range(C)) == U * A
+    assert sum(DK.NPROJ * len(plan.proj_inputs(q)) for q in range(C)) == DK.NPROJ * (U + V)
+    assert sum(len(plan.pre1_range(q)) * 80 + len(plan.pre2_range(q)) * P1 for q in range(C)) == 80 * P1 + P2 * P1
+
+
+def test_the_serve_shape_plan():
+    """B=4, T_in=32 on the H100's 15 resident clusters: 120 blocks; a row's
+    attention on one block of 32 positions; each rank holding 32 K-units,
+    18 units' gate rows per cluster, 32 prenet outputs per layer and 64
+    context inputs; 183,408 bytes of shared memory a block."""
+    plan = DK.k2_plan(4, 32, DIMS, 15)
+    assert (plan.blocks, plan.k_units, plan.units_c, plan.units_b) == (120, 32, 18, 3)
+    assert (plan.pre1_k, plan.prenet_k, plan.ctx_k) == (32, 32, 64)
+    assert (plan.rows_per_cluster, plan.blocks_per_row, plan.positions) == (1, 1, 32)
+    assert plan.smem_bytes() == 183_408 and plan.fits()
+    assert plan.scratch_floats() == 4 * (8 * 256 + 512)
+    # longer inputs spread a row over more blocks, up to the cluster's
+    assert [DK.k2_plan(4, t, DIMS, 15).blocks_per_row for t in (33, 64, 65, 256, 2048)] == [2, 2, 4, 8, 8]
+    assert DK.k2_plan(16, 2048, DIMS, 15).blocks_per_row == 4
+
+
+def _worst_case_t_in() -> int:
+    """The longest symbol sequence a 500-character request gives (the
+    server's cap): 13-digit numbers read with their units, each followed by
+    a two-symbol hanzi, padded to a multiple of 16 as the synthesizer does."""
+    text = ("9999999999999你" * 40)[:500]
+    n = len(default_symbols().encode(get_pyin(text)[0]))
+    assert n > 2000
+    return n + (-n) % 16
+
+
+@pytest.mark.parametrize("clusters", [16, 15, 14])
+def test_default_widths_fit_over_the_serve_envelope(clusters):
+    """One launch takes every serve bucket (B <= 16) at every T_in up to the
+    worst 500-character text; a larger batch runs in row groups."""
+    t_max = _worst_case_t_in()
+    assert t_max <= 2048
+    for t_in in (1, 16, 32, 64, 256, 1024, t_max):
+        assert DK.rows_per_launch(t_in, DIMS, clusters) >= 16
+        for batch in (1, 2, 4, 8, 16):
+            plan = DK.k2_plan(batch, t_in, DIMS, clusters)
+            assert plan.fits() and plan.smem_bytes() <= DK.SMEM_LIMIT
+    assert DK.launch_group(64, DIMS, clusters) == DK.rows_per_launch(64, DIMS, clusters) < clusters * C
+
+
+@pytest.mark.parametrize("args", [(100_000, 15), (160, 1)])
+def test_shapes_beyond_the_envelope_raise(args):
+    """Not even one row fits: an input far beyond the text cap, or a card
+    whose single cluster cannot hold the weight slices."""
+    t_in, clusters = args
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue item 15"):
+        DK.launch_group(t_in, DIMS, clusters)
+
+
+def test_row_groups_are_equal_and_cover_the_batch():
+    assert DK.row_groups(5, 8) == [(0, 5, 5)]
+    assert DK.row_groups(30, 21) == [(0, 15, 15), (15, 30, 15)]
+    assert DK.row_groups(123, 21) == [(i * 21, min(123, (i + 1) * 21), 21) for i in range(6)]
+
+
+# ---------------------------------------------------------------------------
+# the grid's split, emulated in plain torch
+# ---------------------------------------------------------------------------
+
+
+def _tiny_cfg(dropout: float):
+    return dataclasses.replace(
+        CFG, embedding_dim=16, enc_conv_channels=16, enc_conv_layers=1, encoder_lstm_units=12,
+        attention_dim=8, attention_filters=4, attention_kernel=5, prenet_layers=(20, 12),
+        decoder_lstm_units=16, postnet_channels=16, postnet_layers=1, dropout_rate=dropout,
+    )
+
+
+def _inputs(cfg, B, T_in, seed, stop_bias=None):
+    params = init_tacotron(seed, cfg)
+    g = torch.Generator().manual_seed(seed)
+    for k in ("frame_projection", "stop_projection", "dec_lstm1", "dec_lstm2"):  # livelier dynamics
+        params[k] = {n: v * 3.0 for n, v in params[k].items()}
+    if stop_bias is not None:
+        params["stop_projection"] = dict(params["stop_projection"],
+                                         b=torch.full_like(params["stop_projection"]["b"], stop_bias))
+    V = 2 * cfg.encoder_lstm_units
+    lens = np.linspace(T_in, max(1, T_in // 3), B).astype(int)
+    mask = torch.as_tensor((np.arange(T_in)[None, :] < lens[:, None]).astype(np.float32))
+    memory = (torch.rand(B, T_in, V, generator=g) * 2 - 1) * mask[..., None]
+    return params, memory, mask
+
+
+def emulate_decode(plan, params, cfg, memory, mem_mask, seeds, max_iters):
+    """K2's split, one cluster at a time within each step: x1/x2 slices of
+    each rank against its gate rows, partials added in rank order and merged
+    by the cluster that owns the unit; LSTM epilogues, prenet and projection
+    computed in every cluster for all rows (projection partials over each
+    rank's [out2 | ctx] inputs, merged in rank order); per-cluster done
+    flags; a row's attention over its blocks (per-slice softmax statistics,
+    normaliser and context partials merged in the row's rank order).
+    Returns the kernel's outputs [T, B, ...] and each cluster's exit step."""
+    from tacotronv2_wavernn_chinese_tpu_torch.models.attention import precompute_keys
+
+    P1, P2, U, V, A, taps = plan.dims
+    B, T_in, _ = memory.shape
+    NC, padl, M = plan.clusters, (taps - 1) // 2, DK.NUM_MELS
+    w = DK.pack_weights(params, cfg)
+    keys = precompute_keys(params["attention"], memory)
+    rate = float(cfg.dropout_rate)
+    s64 = DK.row_seeds(seeds, B, "cpu").to(torch.int64)[:, None]
+    kr = [plan.k_unit_range(q) for q in range(C)]
+    r1 = [plan.pre1_range(q) for q in range(C)]
+    r2 = [plan.pre2_range(q) for q in range(C)]
+    rv = [plan.ctx_range(q) for q in range(C)]
+    cu = [range(min(c * plan.units_c, U), min((c + 1) * plan.units_c, U)) for c in range(NC)]
+    gate_rows = [torch.tensor([g * U + j for g in range(4) for j in cu[c]], dtype=torch.long) for c in range(NC)]
+    x1_cols = [list(r2[q]) + [P2 + v for v in rv[q]] + [P2 + V + u for u in kr[q]] for q in range(C)]
+    x2_cols = [list(kr[q]) + [U + u for u in kr[q]] for q in range(C)]
+    rows = {}
+    for k in range(plan.blocks):
+        b, _ = plan.row(k)
+        if b is not None:
+            rows.setdefault(b, []).append(plan.position_range(k))
+    z = lambda *s: torch.zeros(*s)
+    # per-cluster copies of everything a cluster computes for all rows
+    st = [[z(B, U) for _ in range(4)] for _ in range(NC)]  # c1, h1, c2, h2
+    fr = [z(B, DK.NPROJ) for _ in range(NC)]
+    mu = [torch.full((B,), 0.5) for _ in range(NC)]
+    done = [torch.zeros(B, dtype=torch.bool) for _ in range(NC)]
+    ctx, alpha = z(B, V), z(B, T_in)
+    alpha[:, 0] = 1.0
+    cum = alpha.clone()
+    frames, stops, aligns = z(max_iters, B, M), torch.full((max_iters, B), DK.STOP_FILL), z(max_iters, B, T_in)
+    exits = [None] * NC
+
+    def keep(step, lanes):
+        return DK.hash_bits(s64, 0, step, torch.as_tensor(lanes, dtype=torch.int64)[None, :]) < DK.keep_threshold(rate)
+
+    for s in range(max_iters):
+        g1, g2 = z(B, 4 * U), z(B, 4 * U)
+        x1 = []
+        for c in range(NC):
+            # prenet: each rank's outputs of layer 1, gathered, then its pre2 K-slice
+            pre1 = z(B, P1)
+            for q in range(C):
+                y = torch.relu(fr[c][:, :M] @ w["pre_w1"][r1[q]].t() + w["pre_b1"][r1[q]])
+                if rate > 0:
+                    y = torch.where(keep(s, list(r1[q])), y / (1.0 - rate), torch.zeros_like(y))
+                pre1[:, r1[q]] = y
+            pre2 = z(B, P2)
+            for q in range(C):
+                y = torch.relu(pre1 @ w["pre_w2"][r2[q]].t() + w["pre_b2"][r2[q]])
+                if rate > 0:
+                    y = torch.where(keep(s, [P1 + i for i in r2[q]]), y / (1.0 - rate), torch.zeros_like(y))
+                pre2[:, r2[q]] = y
+            x1.append(torch.cat([pre2, ctx, st[c][1]], -1))
+            rows_c = gate_rows[c]
+            g1[:, rows_c] = sum(x1[c][:, x1_cols[q]] @ w["l1"][rows_c][:, x1_cols[q]].t() for q in range(C))
+        g1 = g1 + w["l1_b"]
+        for c in range(NC):
+            c1, h1, c2, h2 = st[c]
+            si, tj = torch.sigmoid(g1[:, :U]), torch.tanh(g1[:, U:2 * U])
+            sf, so = torch.sigmoid(g1[:, 2 * U:3 * U] + 1.0), torch.sigmoid(g1[:, 3 * U:])
+            nc = sf * c1 + si * tj
+            out1 = so * torch.tanh(nc)
+            st[c][0], st[c][1] = (1 - cfg.zoneout_rate) * nc + cfg.zoneout_rate * c1, \
+                (1 - cfg.zoneout_rate) * out1 + cfg.zoneout_rate * h1
+            x2 = torch.cat([out1, h2], -1)
+            rows_c = gate_rows[c]
+            g2[:, rows_c] = sum(x2[:, x2_cols[q]] @ w["l2"][rows_c][:, x2_cols[q]].t() for q in range(C))
+        g2 = g2 + w["l2_b"]
+        out2 = []
+        for c in range(NC):
+            _, _, c2, h2 = st[c]
+            si, tj = torch.sigmoid(g2[:, :U]), torch.tanh(g2[:, U:2 * U])
+            sf, so = torch.sigmoid(g2[:, 2 * U:3 * U] + 1.0), torch.sigmoid(g2[:, 3 * U:])
+            nc = sf * c2 + si * tj
+            o2 = so * torch.tanh(nc)
+            st[c][2], st[c][3] = (1 - cfg.zoneout_rate) * nc + cfg.zoneout_rate * c2, \
+                (1 - cfg.zoneout_rate) * o2 + cfg.zoneout_rate * h2
+            out2.append(o2)
+        # attention of each row on its cluster's blocks
+        new_ctx, new_alpha, a_sm_all = z(B, V), z(B, T_in), z(B, T_in)
+        for b, slices in rows.items():
+            c = b // plan.rows_per_cluster
+            pq = sum(out2[c][b, kr[q]] @ w["wq"][:, kr[q]].t() for q in range(C))
+            win = F.pad(cum[b], (padl, taps - 1 - padl)).unfold(0, taps, 1)  # [T_in, taps]
+            en = torch.tanh(keys[b] + (pq + w["b_comb"] + w["att_b"]) + win @ w["w_comb"]) @ w["att_v"]
+            en = torch.where(mem_mask[b] > 0, en, torch.full_like(en, -1e9))
+            stats = [(en[r].max(), torch.exp(en[r] - en[r].max()).sum()) for r in slices if len(r)]
+            Mx = max(m for m, _ in stats)
+            Zs = sum(zz * torch.exp(m - Mx) for m, zz in stats)
+            a_sm = torch.exp(en - Mx) / Zs
+            shift = F.pad(alpha[b], (1, 0))[:-1]
+            pre = ((1 - mu[c][b]) * alpha[b] + mu[c][b] * shift + 1e-10) * a_sm
+            S2 = sum(pre[r].sum() for r in slices)
+            new_alpha[b] = pre / S2
+            new_ctx[b] = sum(new_alpha[b, r] @ memory[b, r] for r in slices)
+            a_sm_all[b] = a_sm
+        ctx, alpha, cum = new_ctx, new_alpha, cum + a_sm_all
+        aligns[s] = alpha
+        # projections, mu and the done flags: every cluster for all rows
+        pin_cols = [plan.proj_inputs(q) for q in range(C)]
+        for c in range(NC):
+            pin = torch.cat([out2[c], ctx], -1)
+            fr[c] = sum(pin[:, pin_cols[q]] @ w["proj"][:, pin_cols[q]].t() for q in range(C)) + w["proj_b"]
+            mu[c] = torch.sigmoid(fr[c][:, M + 1])
+            done[c] = done[c] | (torch.sigmoid(fr[c][:, M]) > 0.5)
+        frames[s], stops[s] = fr[0][:, :M], fr[0][:, M]
+        for c in range(NC):
+            if exits[c] is None and bool(done[c].all()):
+                exits[c] = s + 1
+        if all(e is not None for e in exits):
+            break
+    return frames, stops, aligns, exits
+
+
+@pytest.mark.parametrize("stop_bias", [None, -30.0], ids=["rows_stop", "runs_to_max_iters"])
+@pytest.mark.parametrize("t_in", [20, 70], ids=["one_block_per_row", "four_blocks_per_row"])
+@pytest.mark.parametrize("clusters", [2, 3], ids=["2_clusters", "3_clusters_ragged"])
+def test_grid_split_equals_the_plain_decode(clusters, t_in, stop_bias):
+    """B=3, U=16, P=(20, 12), V=24, A=8, 5 taps, dropout 0.5: with 2
+    clusters rows pair up in a cluster, with 3 each cluster has one row and
+    the units split 6/6/4; at T_in=70 a row's attention spans four blocks
+    of 18 positions (the conv's halo crossing slices).  With the weights of
+    seed 4 the rows stop at different steps before max_iters; with the stop
+    bias at -30 none stops.  The emulation equals the plain decode within
+    1e-5, and every cluster leaves the loop at the step the plain decode
+    stops (or none does)."""
+    cfg = _tiny_cfg(0.5)
+    B, max_iters = 3, 40
+    params, memory, mask = _inputs(cfg, B, t_in, seed=4, stop_bias=stop_bias)
+    seeds = [5, 6, 7]
+    dims = DK.widths(cfg, memory.shape[2])
+    plan = DK.k2_plan(B, t_in, dims, clusters)
+    assert plan.blocks_per_row == (1 if t_in == 20 else 4)
+    want = DK.decode_autoregressive_plain(params, cfg, memory, mask, seeds, max_iters)
+    frames, stops, aligns, exits = emulate_decode(plan, params, cfg, memory, mask, seeds, max_iters)
+    if stop_bias is None:
+        n_run = int(want[3].max()) + 1
+        assert n_run < max_iters and len(set(want[3].tolist())) == B  # rows stop at different steps
+        assert exits == [n_run] * clusters
+    else:
+        assert exits == [None] * clusters and int(want[3].min()) == max_iters
+    got = (frames.transpose(0, 1), stops.transpose(0, 1), aligns.transpose(0, 1))
+    for name, a, b in zip(("frames", "stops", "aligns"), got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5, msg=name)
+    assert torch.equal(DK.stop_lengths(got[1], max_iters), want[3])
+
+
+def test_row_groups_equal_one_plain_decode():
+    """B = 8 x 2 clusters + 3 = 19 rows in groups of 7 (each group padded by
+    repeating its last row): stop lengths equal one plain decode over all
+    rows, and so do frames and alignments up to each row's stop."""
+    cfg = _tiny_cfg(0.5)
+    B, T_in, max_iters = 19, 12, 30
+    params, memory, mask = _inputs(cfg, B, T_in, seed=9)
+    seeds = DK.row_seeds(list(range(100, 100 + B)), B, "cpu")
+    OPS.reset_launch_counts()
+    one = DK.decode_autoregressive_plain(params, cfg, memory, mask, seeds, max_iters)
+    calls = []
+
+    def group(mem, msk, sd):
+        calls.append(mem.shape[0])
+        return DK.decode_autoregressive_plain(params, cfg, mem, msk, sd, max_iters)[:3]
+
+    frames, stops, aligns = DK.decode_in_groups(group, memory, mask, seeds, 7)
+    assert calls == [7, 7, 7] and frames.shape == one[0].shape
+    stop_len = DK.stop_lengths(stops, max_iters)
+    assert torch.equal(stop_len, one[3])
+    assert int(one[3].min()) < max_iters  # some rows stop
+    for b in range(B):
+        n = int(stop_len[b])
+        torch.testing.assert_close(frames[b, :n], one[0][b, :n], rtol=0, atol=1e-6)
+        torch.testing.assert_close(aligns[b, :n], one[2][b, :n], rtol=0, atol=1e-6)
+    assert OPS.LAUNCHES["tacotron_decode"] == 0

@@ -1,12 +1,17 @@
-"""Where a step of the PyTorch port's trainer kernels goes, by phase, on one
-CUDA card: K3 (csrc/tacotron_train_fwd.cu) and K4 (csrc/tacotron_train_bwd.cu).
+"""Where a step of the PyTorch port's cluster-grid kernels goes, by phase, on
+one CUDA card: the trainer kernels K3 (csrc/tacotron_train_fwd.cu) and K4
+(csrc/tacotron_train_bwd.cu), or the decode kernel K2
+(csrc/tacotron_decode.cu).
 
-    python3 tools/torch_k34_phase_split.py [--tree DIR] [--shape B,T_in,T]
+    python3 tools/torch_k34_phase_split.py [--kernel k34|k2] [--tree DIR] [--shape ...]
 
 Builds a clock64()-stamped copy of each kernel into build/k34_phase_split/
-with nvcc and runs it through the package's own wrappers (``train_fwd``,
-``train_bwd``) on random full-width weights (default config) at
-B=32, T_in=160, T=608 (the train path's first batch), zoneout masks on.
+with nvcc and runs it through the package's own wrappers on random
+full-width weights (default config): ``train_fwd`` and ``train_bwd`` at
+B=32, T_in=160, T=608 (the train path's first batch), zoneout masks on
+(``--shape B,T_in,T``); or, with ``--kernel k2``,
+``decode_autoregressive_kernel`` at B=4, T_in=32 for 150 steps with the
+stop bias at -30 (the serve phase's shape; ``--shape B,T_in,steps``).
 ``--tree`` takes the package and its ``csrc/`` from another checkout (an
 unpacked older commit), so two versions of the kernels can be split by the
 same script on the same card.
@@ -14,12 +19,14 @@ same script on the same card.
 A phase is a comment at the step loop's body indentation, or one level
 deeper (4 or 6 spaces, ``// text``), in the kernel: a stamp goes before the
 first line of each, and thread 0 of every block adds the SM cycles since
-the previous stamp to the running phase's slot.  So the time of a grid barrier falls into the phase that holds it,
-unless a comment of its own marks it.  Cycles become microseconds by each
+the previous stamp to the running phase's sum (in shared memory; each stamp
+stores the sum to global memory, no read back).  So the time of a grid
+barrier falls into the phase that holds it, unless a comment of its own
+marks it.  Cycles become microseconds by each
 block's total cycles over the kernel time by CUDA events.  Prints, for each
 kernel, the kernel time, and us per step of each phase (mean over blocks
-and the largest block's); the stamps add a few instructions and one global
-store per phase.  The last line is one JSON object with the same numbers.
+and the largest block's) over one timed launch; the stamps add a few
+instructions and one global store per phase.  The last line is one JSON object with the same numbers.
 """
 
 from __future__ import annotations
@@ -38,12 +45,15 @@ MAX_BLOCKS, SLOTS = 256, 64
 
 STAMP = f"""
 __device__ long long k34_prof[{MAX_BLOCKS} * {SLOTS}];
+__shared__ long long k34_sum[{SLOTS}];
 __shared__ long long k34_last;
 __shared__ int k34_cur;
 __device__ __forceinline__ void k34_stamp(int slot) {{
   if (threadIdx.x == 0) {{
     const long long n = clock64();
-    k34_prof[blockIdx.x * {SLOTS} + k34_cur] += n - k34_last;
+    const long long t = k34_sum[k34_cur] + (n - k34_last);
+    k34_sum[k34_cur] = t;
+    k34_prof[blockIdx.x * {SLOTS} + k34_cur] = t;
     k34_last = n;
     k34_cur = slot;
   }}
@@ -78,7 +88,8 @@ def stamped(src: str) -> tuple[str, list[str]]:
             labels.append(m.group(1)[:70])
         out.append(line)
         if "extern __shared__ float4 smem4[];" in line:
-            out.append(f"  if (threadIdx.x == 0) {{ k34_last = clock64(); k34_cur = {SLOTS - 1}; }}")
+            out.append(f"  if (threadIdx.x == 0) {{ for (int i = 0; i < {SLOTS}; ++i) k34_sum[i] = 0; "
+                       f"k34_last = clock64(); k34_cur = {SLOTS - 1}; }}")
     if not labels or len(labels) >= SLOTS - 1:
         raise RuntimeError(f"found {len(labels)} phase comments in the step loop")
     text = "\n".join(out)
@@ -116,8 +127,9 @@ def build(ops, source: str):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=("k34", "k2"), default="k34")
     ap.add_argument("--tree", default=HERE, help="checkout whose package and csrc/ are split")
-    ap.add_argument("--shape", default="32,160,608", help="B,T_in,T")
+    ap.add_argument("--shape", default=None, help="B,T_in,T (k34: default 32,160,608; k2: steps, 4,32,150)")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
     import chip_smoke as CS  # noqa: E402  (the repo's own: inputs, bounds, timing)
@@ -130,7 +142,6 @@ def main() -> int:
 
     from tacotronv2_wavernn_chinese_tpu_torch import ops
     from tacotronv2_wavernn_chinese_tpu_torch.config import default_config
-    from tacotronv2_wavernn_chinese_tpu_torch.ops import tacotron_trainer_kernel as TK
     from tacotronv2_wavernn_chinese_tpu_torch.utils.checkpoints import init_tacotron
 
     if not torch.cuda.is_available():
@@ -141,17 +152,36 @@ def main() -> int:
     print(smi, flush=True)
     print(f"package from {os.path.dirname(ops.CSRC_DIR)}", flush=True)
     ops.build_all()
-    libs = {name: build(ops, f"tacotron_train_{name}.cu") for name in ("fwd", "bwd")}
-    B, T_in, T = (int(v) for v in args.shape.split(","))
+    shape = args.shape or ("4,32,150" if args.kernel == "k2" else "32,160,608")
+    B, T_in, T = (int(v) for v in shape.split(","))
     tcfg = default_config().tacotron
-    params = init_tacotron(4, tcfg, device="cuda")
-    x = CS.core_inputs(params, tcfg, B, T, T_in, torch.device("cuda"), 33)
-    w = TK.pack_core_weights(params, tcfg)
-    call = (w, x["pre"], x["masks"], x["keys"], x["values"], x["mask"], float(tcfg.zoneout_rate))
-    box = {"fwd": TK.train_fwd(*call)}
-    runs = {"fwd": lambda: TK.train_fwd(*call),
-            "bwd": lambda: TK.train_bwd(*call, box["fwd"], list(x["cots"]))}
-    record = {"device": smi, "tree": os.path.abspath(args.tree), "B": B, "T_in": T_in, "T": T, "kernels": []}
+    dev = torch.device("cuda")
+    params = init_tacotron(4, tcfg, device=dev)
+    if args.kernel == "k2":
+        from tacotronv2_wavernn_chinese_tpu_torch.ops import tacotron_decoder_kernel as DK
+
+        libs = {"decode": build(ops, "tacotron_decode.cu")}
+        params["stop_projection"] = dict(params["stop_projection"],
+                                         b=torch.full_like(params["stop_projection"]["b"], -30.0))
+        rng = np.random.default_rng(33)
+        V = 2 * tcfg.encoder_lstm_units
+        memory = torch.as_tensor(rng.uniform(-1, 1, (B, T_in, V)), dtype=torch.float32, device=dev)
+        mask = torch.ones(B, T_in, device=dev)
+        runs = {"decode": lambda: DK.decode_autoregressive_kernel(params, tcfg, memory, mask, list(range(B)), T)}
+        names = {"decode": "K2 decode"}
+    else:
+        from tacotronv2_wavernn_chinese_tpu_torch.ops import tacotron_trainer_kernel as TK
+
+        libs = {name: build(ops, f"tacotron_train_{name}.cu") for name in ("fwd", "bwd")}
+        x = CS.core_inputs(params, tcfg, B, T, T_in, dev, 33)
+        w = TK.pack_core_weights(params, tcfg)
+        call = (w, x["pre"], x["masks"], x["keys"], x["values"], x["mask"], float(tcfg.zoneout_rate))
+        box = {"fwd": TK.train_fwd(*call)}
+        runs = {"fwd": lambda: TK.train_fwd(*call),
+                "bwd": lambda: TK.train_bwd(*call, box["fwd"], list(x["cots"]))}
+        names = {"fwd": "K3 fwd", "bwd": "K4 bwd"}
+    record = {"device": smi, "tree": os.path.abspath(args.tree), "kernel": args.kernel, "B": B, "T_in": T_in,
+              "T": T, "kernels": []}
     for name, (lib, labels) in libs.items():
         runs[name]()  # warm
         ops.check_launch(lib.k34_prof_zero(), "k34_prof_zero")
@@ -163,7 +193,7 @@ def main() -> int:
         blocks = prof[used]
         clock = blocks.sum(1) / (ms * 1e-3)  # cycles per second of each block
         per = blocks / clock[:, None] / T * 1e6  # us per step
-        print(f"K{3 if name == 'fwd' else 4} {name}: {ms:.2f} ms, {ms / T * 1e3:.2f} us/step, "
+        print(f"{names[name]}: {ms:.2f} ms, {ms / T * 1e3:.2f} us/step, "
               f"{int(used.sum())} blocks, SM clock {clock.mean() / 1e9:.3f} GHz", flush=True)
         phases = []
         for i, lab in enumerate(labels + ["prologue"]):
