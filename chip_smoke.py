@@ -21,6 +21,17 @@ Phases, each printing its lines before the next starts:
            steps); a long input (B=2, T_in=2048, the longest a 500-character
            text gives, 100 steps); then a scaling line, K2 us/step at B=1,
            4, 16 x T_in=32, 256, 1024
+  k2 branches
+           each other branch of the decode kernel (anti-repeat, smoothing,
+           LSA with and without its synthesis window, r = 2, 3, 6) at full
+           width against its plain version: B=4, T_in=32, 150 steps (timed),
+           ragged B=5, T_in=37 and B=2, T_in=256 (40 steps), stop bias -30;
+           frames and alignments within 1e-3 at every step, stop lengths
+           equal, a row diverging only after a plain argmax near-tie (top-2
+           gap < 1e-5); each branch's text->mel through a Synthesizer with
+           the launch counter read around it; one /generate_tts request
+           through an r=2 anti-repeat artifact (WAV of stop_len x 275
+           samples); GMM and Graves raising NotImplementedError on the card
   serve    full-width random weights written as an export artifact, served
            on localhost: three /generate_tts requests and one
            /generate_tts_batch, WAV headers and lengths checked, both
@@ -86,6 +97,35 @@ def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
 
 
+def ptxas_entries(log: str) -> list:
+    """(kernel<template arguments>, registers, spill store bytes, spill load
+    bytes) of each entry function in an ``nvcc -Xptxas=-v`` log."""
+    import re
+
+    out, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            name = mangled
+            end = mangled.find("_kernel") + len("_kernel")
+            for n in range(len("_kernel"), end):  # the identifier whose length prefix is its own length
+                if mangled[:end - n].endswith(str(n)) and mangled[end - n].isalpha():
+                    name = mangled[end - n:end]
+                    break
+            args = re.findall(r"L[ib](\d+)E", mangled)
+            name += f"<{','.join(args)}>" if args else ""
+            spill = (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out.append((name, int(m.group(1)), *spill))
+            name = None
+    return out
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -132,15 +172,20 @@ def wavernn_work(cfg, T: int, B: int):
 
 def decoder_work(tcfg, B: int, T_in: int, V: int, steps: int, max_iters: int):
     """(flops, bytes) of ``steps`` decoder steps for B rows (outputs for
-    all max_iters steps are written)."""
+    all max_iters steps are written), for forward or LSA attention at r
+    frames a step: the projection has 81r outputs, and forward attention's
+    mu one more; anti-repeat's context reads at most six positions."""
     u, A, taps = tcfg.decoder_lstm_units, tcfg.attention_dim, tcfg.attention_kernel
     p1, p2 = tcfg.prenet_layers
+    r, forward = tcfg.outputs_per_step, tcfg.attention_mode == "forward"
+    nproj = 81 * r + int(forward)
+    ctx_pos = min(T_in, 6) if forward and tcfg.anti_repeat else T_in
     macs_row = (80 * p1 + p1 * p2 + (p2 + V + u) * 4 * u + 2 * u * 4 * u + u * A
-                + T_in * (taps * A + A) + T_in * V + (u + V) * 82)
+                + T_in * (taps * A + A) + ctx_pos * V + (u + V) * nproj)
     weights = 80 * p1 + p1 * p2 + (p2 + V + u) * 4 * u + 2 * u * 4 * u + u * A + taps * A \
-        + 3 * A + (u + V) * 82 + p1 + p2 + 8 * u + 82
+        + 3 * A + (u + V) * nproj + p1 + p2 + 8 * u + nproj
     flops = 2.0 * macs_row * B * steps
-    nbytes = 4.0 * (weights + B * T_in * (A + V + 1) + max_iters * B * (80 + 1 + T_in))
+    nbytes = 4.0 * (weights + B * T_in * (A + V + 1) + max_iters * B * (81 * r + T_in))
     return flops, nbytes
 
 
@@ -338,6 +383,248 @@ def k2_cases(params, tcfg, dev, rng) -> None:
                          warmup=True)
             parts.append(f"B={B} T_in={T_in} {ms / 150 * 1e3:.1f}")
     phase("decoder", "K2 scaling (150 steps, stop bias -30, us/step): " + ", ".join(parts))
+
+
+# ---------------------------------------------------------------------------
+# K2's other branches: anti-repeat, smoothing, LSA and its window, r = 2-6
+# ---------------------------------------------------------------------------
+
+# (name, config overrides): together they launch every instantiation the
+# wrapper picks (csrc/tacotron_decode.cu k2_kernel); the default branch is
+# the decoder phase's
+K2_BRANCHES = (
+    ("anti_repeat", {"anti_repeat": True}),
+    ("smoothing", {"smoothing": True}),
+    ("anti_repeat_smoothing", {"anti_repeat": True, "smoothing": True}),
+    ("lsa", {"attention_mode": "lsa"}),
+    ("lsa_not_cumulative", {"attention_mode": "lsa", "cumulative_weights": False}),
+    ("lsa_smoothing", {"attention_mode": "lsa", "smoothing": True}),
+    ("lsa_window_monotonic", {"attention_mode": "lsa", "synthesis_constraint": True, "anti_repeat": True}),
+    ("lsa_window_smoothing", {"attention_mode": "lsa", "synthesis_constraint": True, "smoothing": True,
+                              "synthesis_window": 4}),
+    ("r2", {"outputs_per_step": 2}),
+    ("r3", {"outputs_per_step": 3}),
+    ("r6_stop_all", {"outputs_per_step": 6, "stop_at_any": False}),
+    ("r2_anti_repeat", {"outputs_per_step": 2, "anti_repeat": True}),
+)
+NEAR_TIE = 1e-5  # a plain argmax decided by less than this may go the other way in the kernel
+
+
+def uses_argmax(tcfg) -> bool:
+    """Whether the decode's trajectory follows an argmax of the alignment."""
+    return (tcfg.attention_mode == "forward" and tcfg.anti_repeat) or (
+        tcfg.attention_mode == "lsa" and tcfg.synthesis_constraint)
+
+
+class ArgmaxGaps:
+    """Records the top-2 gap of every row at each call of the plain
+    attention's argmax (once per decoder step)."""
+
+    def __enter__(self):
+        import torch
+
+        from tacotronv2_wavernn_chinese_tpu_torch.models import attention as ATT
+
+        self.gaps, self._orig = [], ATT.argmax_first
+
+        def wrapped(x):
+            top = torch.topk(x, 2, dim=-1).values
+            self.gaps.append((top[:, 0] - top[:, 1]).cpu())
+            return self._orig(x)
+
+        ATT.argmax_first = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from tacotronv2_wavernn_chinese_tpu_torch.models import attention as ATT
+
+        ATT.argmax_first = self._orig
+
+
+def run_k2_branch(params, tcfg, memory, mask, seeds, max_iters: int, tag: str) -> dict:
+    """K2 against its plain version for one branch (the kernel's time the
+    mean of five launches): stop lengths equal and
+    every frame and alignment within 1e-3 at every step; where the
+    trajectory follows an argmax (anti-repeat, the LSA window), a row may
+    diverge only at or after a step whose plain top-2 gap was below
+    NEAR_TIE, and is compared no further."""
+    import torch
+
+    from tacotronv2_wavernn_chinese_tpu_torch.ops import tacotron_decoder_kernel as DK
+
+    r = tcfg.outputs_per_step
+    out = {}
+    out["ms"] = cuda_ms(lambda: out.__setitem__(
+        "k", DK.decode_autoregressive_kernel(params, tcfg, memory, mask, seeds, max_iters)), reps=5, warmup=True)
+    with ArgmaxGaps() as rec:
+        out["plain_ms"] = cuda_ms(lambda: out.__setitem__(
+            "p", DK.decode_autoregressive_plain(params, tcfg, memory, mask, seeds, max_iters)))
+    gaps = torch.stack(rec.gaps[-out["p"][2].shape[1]:]).numpy() if rec.gaps else None  # [steps, B]
+    fk, sk, ak, lk = out["k"]
+    fp, sp, ap, lp = out["p"]
+    B = fk.shape[0]
+    step_err = lambda a, b: (a - b).abs().reshape(B, max_iters, -1).amax(-1)
+    err = torch.maximum(step_err(fk, fp), step_err(ak, ap)).cpu().numpy()  # [B, max_iters]
+    lk, lp = lk.cpu().numpy(), lp.cpu().numpy()
+    worst, diverged = 0.0, []
+    for b in range(B):
+        upto = min(max_iters, int(min(lk[b], lp[b])) // r + 1)  # through the step that stops the row
+        bad = np.nonzero(err[b, :upto] > 1e-3)[0]
+        if bad.size:
+            t = int(bad[0])
+            ties = [] if gaps is None or not uses_argmax(tcfg) else \
+                [s for s in range(min(t + 1, gaps.shape[0])) if gaps[s, b] < NEAR_TIE]
+            check(bool(ties), f"{tag}: row {b} max|d| {err[b, t]:.3e} > 1e-3 at step {t} with no plain near-tie "
+                  f"(top-2 gap < {NEAR_TIE}) at or before it")
+            diverged.append((b, ties[0], t))
+            upto = t
+        else:
+            check(lk[b] == lp[b], f"{tag}: row {b} stop length kernel {lk[b]} plain {lp[b]}")
+        if upto:
+            worst = max(worst, float(err[b, :upto].max()))
+    out["max_abs_err"] = worst
+    out["steps"] = int(min(max_iters, int(lk.max()) // r + 1))
+    out["diverged"] = diverged
+    n_ties = int((gaps < NEAR_TIE).sum()) if gaps is not None and uses_argmax(tcfg) else 0
+    phase("k2 branches", f"{tag}: stop_len kernel {lk.tolist()} plain {lp.tolist()}; max|d| {worst:.2e}; "
+          f"diverged rows (row, near-tie step, first step > 1e-3) {diverged}; {n_ties} plain near-ties; kernel "
+          f"{out['ms']:.2f} ms ({out['ms'] / out['steps'] * 1e3:.1f} us/step over {out['steps']} steps), "
+          f"plain {out['plain_ms']:.1f} ms")
+    return out
+
+
+def k2_branch_inputs(params, tcfg, dev, rng, B: int, T_in: int):
+    """Encoded random ids with ragged lengths (the longest row fills T_in)
+    and random seeds."""
+    import torch
+
+    from tacotronv2_wavernn_chinese_tpu_torch.models import tacotron as T
+
+    ids = torch.as_tensor(rng.integers(1, tcfg.vocab_size, (B, T_in)), device=dev)
+    lens = torch.as_tensor(np.linspace(T_in, max(1, T_in // 3), B).astype(int), device=dev)
+    memory = T.encode(params, tcfg, ids, lens)
+    return memory, T.input_mask(lens, T_in), [int(v) for v in rng.integers(0, 2**31, B)]
+
+
+def run_k2_branches(cfg, dev, rng, wp, steps: int = SERVE_FRAMES, shapes=((4, 32), (5, 37), (2, 256))) -> list:
+    """Each branch of K2 at full width against the plain version, at the
+    first of ``shapes`` for ``steps`` steps (timed) and at the others for
+    40 (the ragged B=5, T_in=37 splits a row over two blocks, T_in=256 over
+    eight); then each branch's text->mel through a Synthesizer with the
+    launch counter read around it, one /generate_tts request through an
+    r=2 anti-repeat artifact, and GMM and Graves raising on the card.
+    Returns the kernels-line entries."""
+    import dataclasses
+
+    import torch
+
+    from tacotronv2_wavernn_chinese_tpu_torch import ops
+    from tacotronv2_wavernn_chinese_tpu_torch.infer.synthesizer import Synthesizer
+    from tacotronv2_wavernn_chinese_tpu_torch.ops import tacotron_decoder_kernel as DK
+    from tacotronv2_wavernn_chinese_tpu_torch.utils.checkpoints import init_tacotron
+
+    entries = []
+    clusters = DK.card_clusters(dev)
+    text = SENTENCES[0]
+    for i, (name, over) in enumerate(K2_BRANCHES):
+        bcfg = dataclasses.replace(cfg, tacotron=dataclasses.replace(cfg.tacotron, **over))
+        tcfg, r = bcfg.tacotron, bcfg.tacotron.outputs_per_step
+        tp = init_tacotron(20 + i, tcfg, device=dev)
+        tp["stop_projection"] = dict(tp["stop_projection"], b=torch.full_like(tp["stop_projection"]["b"], -30.0))
+        runs = []
+        for j, (B, T_in) in enumerate(shapes):
+            mem, mask, seeds = k2_branch_inputs(tp, tcfg, dev, rng, B, T_in)
+            runs.append(run_k2_branch(tp, tcfg, mem, mask, seeds, steps if j == 0 else 40,
+                                      f"{name} B={B} T_in={T_in}"))
+        main = runs[0]
+        B, T_in = shapes[0]
+        plan = DK.k2_plan(B, T_in, DK.widths(tcfg, 2 * tcfg.encoder_lstm_units), clusters, r,
+                          int(tcfg.attention_mode == "forward"))
+        bms, by = bound(*decoder_work(tcfg, B, T_in, 2 * tcfg.encoder_lstm_units, main["steps"], steps))
+        # the branch's main path: text -> mel through a Synthesizer, SERVE_FRAMES frames
+        synth = Synthesizer(bcfg, tp, max_iters=SERVE_FRAMES // r, device=dev)
+        ops.reset_launch_counts()
+        mel, _, _ = synth.text_to_mel(text)
+        launches = ops.LAUNCHES["tacotron_decode"]
+        check(launches >= 1, f"k2 branches {name}: text->mel launched the decode kernel {launches} times")
+        check(mel.shape == (SERVE_FRAMES // r * r, 80) and np.isfinite(mel).all(),
+              f"k2 branches {name}: mel {mel.shape}, finite {np.isfinite(mel).all()}")
+        phase("k2 branches", f"{name}: text->mel {mel.shape[0]} frames, {launches} decode launches; variant "
+              f"{DK.k2_variant(tcfg)}, plan {plan.clusters} clusters, {plan.NP} projection outputs on chip, "
+              f"{plan.NX} from L2, {plan.smem_bytes()} bytes of shared memory")
+        entries.append({
+            "name": f"tacotron_decode/{name}", "route": "cuda",
+            "source": "tacotronv2_wavernn_chinese_tpu_torch/csrc/tacotron_decode.cu",
+            "replaces": "tacotronv2_wavernn_chinese_tpu/ops/tacotron_decoder_kernel.py:627",
+            "launches": launches, "max_abs_err": max(x["max_abs_err"] for x in runs),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "shape": f"B={B} T_in={T_in} steps={main['steps']} r={r}", "variant": DK.k2_variant(tcfg),
+            "diverged_rows": sum(len(x["diverged"]) for x in runs), "smem_bytes": plan.smem_bytes(),
+        })
+        if name == "r2_anti_repeat":
+            entries[-1]["launches"] = serve_branch(bcfg, tp, wp, dev, text)
+    # GMM and Graves: the plain version only; on the card they raise naming their ROADMAP item
+    for mode in ("gmm", "graves"):
+        mcfg = dataclasses.replace(cfg, tacotron=dataclasses.replace(cfg.tacotron, attention_mode=mode))
+        tp = init_tacotron(40, mcfg.tacotron, device=dev)
+        mem, mask, seeds = k2_branch_inputs(tp, mcfg.tacotron, dev, rng, 2, 32)
+        for what, call in (("the decode", lambda: DK.decode_autoregressive_kernel(tp, mcfg.tacotron, mem, mask,
+                                                                                  seeds, 10)),
+                           ("a Synthesizer", lambda: Synthesizer(mcfg, tp, device=dev))):
+            try:
+                call()
+            except NotImplementedError as e:
+                check("ROADMAP.md, queue item 16" in str(e), f"{mode}: {what} raised without item 16: {e}")
+                phase("k2 branches", f"{mode}: {what} on the card raises NotImplementedError ({e})")
+            else:
+                raise SmokeFailure(f"{mode}: {what} on the card did not raise")
+    return entries
+
+
+def serve_branch(cfg, tp, wp, dev, text: str) -> int:
+    """One /generate_tts request through an artifact of ``cfg`` (here r=2
+    with anti-repeat): the WAV must hold exactly stop_len x 275 samples.
+    Returns the decode kernel's launches during the request."""
+    import torch
+
+    from tacotronv2_wavernn_chinese_tpu_torch import ops
+    from tacotronv2_wavernn_chinese_tpu_torch.frontend import get_pyin
+    from tacotronv2_wavernn_chinese_tpu_torch.serving import server as SRV
+    from tacotronv2_wavernn_chinese_tpu_torch.serving.export import load_exported, write_artifact
+
+    r = cfg.tacotron.outputs_per_step
+    art = os.path.join(HERE, "build", "chip_smoke_artifact_branch")
+    write_artifact(cfg, tp, art, wp)
+    synth = load_exported(art, max_iters=SERVE_FRAMES // r, device=dev)
+    _, _, stops = synth.mel_from_ids([synth.symbols.encode(get_pyin(text)[0])], seed=[4])
+    httpd = SRV.serve(synth.cfg, synth, "127.0.0.1", 0, max_batch=4, max_queue=8)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{httpd.server_address[1]}/generate_tts",
+            data=json.dumps({"text": text, "seed": 4}).encode("utf-8"), headers={"Content-Type": "application/json"})
+        ops.reset_launch_counts()
+        h0 = time.time()
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            body = json.loads(resp.read())
+        torch.cuda.synchronize()
+        host_ms = (time.time() - h0) * 1e3
+        launches = dict(ops.LAUNCHES)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+    check(body.get("status") == 0, f"k2 branches serve: /generate_tts failed: {body.get('error')}")
+    with wave.open(io.BytesIO(base64.b64decode(body["wav_b64"]))) as wf:
+        n = wf.getnframes()
+        check(wf.getframerate() == 22050 and wf.getsampwidth() == 2, "k2 branches serve: bad WAV header")
+    check(n == stops[0] * 275, f"k2 branches serve: {n} samples, expected stop_len {stops[0]} x 275")
+    check(launches["tacotron_decode"] >= 1 and launches["wavernn_sample"] >= 1,
+          f"k2 branches serve: launches {launches}")
+    phase("k2 branches", f"/generate_tts through an r={r} anti-repeat artifact: {host_ms:.1f} ms host, stop_len "
+          f"{stops[0]} frames, {n} samples, launches {launches}")
+    return launches["tacotron_decode"]
 
 
 # ---------------------------------------------------------------------------
@@ -673,9 +960,10 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
     phase("build", f"nvcc built {ops.BUILD_INFO.get('built')} in {time.time() - t0:.1f} s "
           f"into {ops.BUILD_INFO.get('dir')}")
     for src, log in ops.BUILD_INFO.get("logs", {}).items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                phase("build", f"{src}: {line.strip()}")
+        for name, regs, stores, loads in ptxas_entries(log):
+            phase("build", f"{src}: {name}: {regs} registers, {stores} bytes spill stores, {loads} bytes spill loads")
+            # the decode kernel's branches are held to no spills (K2 sits at the register limit)
+            check(src != "tacotron_decode.cu" or stores + loads == 0, f"{src}: {name} spills")
 
     # ---------------- wavernn ----------------
     wcfg = cfg.wavernn
@@ -721,6 +1009,11 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
     t_k2 = time.time()
     k2_cases(tp_long, tcfg, dev, rng)
     phase("decoder", f"K2 cases and scaling took {time.time() - t_k2:.1f} s")
+
+    # ---------------- K2 branches ----------------
+    t_br = time.time()
+    branch_entries = run_k2_branches(cfg, dev, rng, wp)
+    phase("k2 branches", f"took {time.time() - t_br:.1f} s")
 
     # ---------------- serve ----------------
     art = os.path.join(HERE, "build", "chip_smoke_artifact")
@@ -869,6 +1162,7 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
          "max_rel_err": k34["k4_rel"],
          "ms": k34["k4_ms"], "plain_ms": k34["k4_plain_ms"], "bound_ms": bms4, "bound_by": by4,
          "library_ms": None, "grid_blocks": k34["blocks"], "clusters": k34["clusters"]},
+        *branch_entries,
     ]}
     phase("kernels", f"shapes: K1 T={k1['T']} folds={k1['B']}; K2 B={mem_s.shape[0]} "
           f"T_in={mem_s.shape[1]} steps={k2['steps']}; K3/K4 B={Bm} T_in={Tim} T={Tm}; "

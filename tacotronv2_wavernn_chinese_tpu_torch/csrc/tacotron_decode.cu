@@ -4,61 +4,89 @@
 //
 // Replaces the TPU kernel
 // tacotronv2_wavernn_chinese_tpu/ops/tacotron_decoder_kernel.py
-// (decode_autoregressive_pallas, _kernel), default branch: forward
-// attention, r = 1, no anti-repeat, no smoothing.  Per step and row:
-// prenet with always-on dropout (per-row seed, rng.cuh: lanes [0, P1) for
-// layer 1, [P1, P1 + P2) for layer 2) -> LSTM1 on [prenet, context, h1] ->
-// LSTM2 on [out1, h2] (TF gate order, forget bias +1, eval-mode zoneout
-// (1-z)*new + z*prev on the carried state, out = the raw new_h) -> forward
-// attention (SAME location conv over the cumulated alignments with the
-// combined [taps, A] filter, tanh energy against the keys, softmax masked
-// at -1e9, forward recursion ((1-mu)*alpha + mu*shift(alpha) + 1e-10) *
-// softmax with a zero-filled shift, renormalised) -> context -> frame,
-// stop and mu projections.
+// (decode_autoregressive_pallas, _kernel), location-sensitive branches:
+// forward attention with or without anti-repeat, LSA with or without its
+// synthesis window, either with smoothing, r = 1-6 frames a step.  Per step
+// and row: prenet with always-on dropout (per-row seed, rng.cuh: lanes [0,
+// P1) for layer 1, [P1, P1 + P2) for layer 2) on the last frame of the
+// previous step -> LSTM1 on [prenet, context, h1] -> LSTM2 on [out1, h2] (TF
+// gate order, forget bias +1, eval-mode zoneout (1-z)*new + z*prev on the
+// carried state, out = the raw new_h) -> attention (SAME location conv with
+// the combined [taps, A] filter, tanh energy against the keys) -> context ->
+// r frames, r stop logits and, for forward attention, mu.
+//
+// The attention branches are template parameters (K2Variant), so a branch
+// adds no switch to the step loop:
+//   * forward: conv over the cumulated softmax, softmax masked at -1e9,
+//     the recursion ((1-mu)*alpha + mu*shift(alpha) + 1e-10) * softmax with
+//     a zero-filled shift, renormalised; with ANTI the anti-repeat rule of
+//     forward_attention.py:176-215 between recursion and renormalisation
+//     (argmax kept monotonic, the dwell at one position capped, the
+//     alignment windowed to [m-2, m+3) and its bin at clip(m) set to twice
+//     the windowed sum).
+//   * LSA: conv over the previous alignment (the running sum with
+//     cumulative_weights: cw = 1), no recursion and no mu; with WIN the
+//     energies outside [prev - back, prev + ahead) around the previous
+//     argmax are -1e9 (both window types: back and ahead come from the
+//     host).
+//   * SMOOTH: sigmoid(energy) * mask normalised by its sum, instead of the
+//     softmax.
 //
 // Semantics kept exactly: finished rows keep advancing with real outputs
 // until every row is done; after that each step writes frames 0, stops 1e4
-// and aligns 0.  alpha and the cumulated alignments start one-hot at
-// position 0, mu at 0.5.
+// and aligns 0.  Forward attention starts alpha and the cumulated
+// alignments one-hot at position 0 and mu at 0.5; LSA starts at zeros.
+// A row is done at the first step whose r stop flags (sigmoid > 0.5) number
+// at least ``need`` (1: any frame, r: all frames).
 //
 // What bounds it: every step is a serial chain of small products over ~1.76
 // M f32 weights (l1 1,048,576, l2 524,288, prenet 86,016, proj 82 x 768, wq
-// 32,768: ~7.0 MB) and the attention over T_in positions; at serving batch
-// sizes (1-16 rows) the step is bound by latency (barriers, the chain of
-// dependent products), not by bytes or operations.  The first design ran
-// all rows on one block that streamed the weights from L2 every step (~35
-// GB/s through one SM, 195 us per step at B=4).
+// 32,768: ~7.0 MB at r = 1) and the attention over T_in positions; at
+// serving batch sizes (1-16 rows) the step is bound by latency (barriers,
+// the chain of dependent products), not by bytes or operations.  The first
+// design ran all rows on one block that streamed the weights from L2 every
+// step (~35 GB/s through one SM, 195 us per step at B=4).
 //
 // Design: the grid of the trainer kernels (NC clusters of TR_CLUSTER blocks,
 // one block per SM, the count the card keeps resident), with every weight
-// held once on chip for the whole decode: no decoder weight is read from L2
-// after the prologue, and each product serves all B rows at once.  The plan
-// (k2_plan; mirrored term for term by ops/tacotron_decoder_kernel.py
-// k2_plan, which the wrapper compares with the library before every
-// launch):
+// that feeds the next step held once on chip for the whole decode: no such
+// weight is read from L2 after the prologue, and each product serves all B
+// rows at once.  The plan (k2_plan; mirrored term for term by
+// ops/tacotron_decoder_kernel.py k2_plan, which the wrapper compares with
+// the library before every launch):
 //
 //   * K-units, as in K3.  Rank q of every cluster holds its K-slice of l1
 //     ([pre2 | ctx | h1] rows) and of l2 against the four gates of its
 //     cluster's output units, and the wq rows of its K-units; the LSTM
 //     epilogues run for the rank's K-units and every row in every cluster.
-//   * Frame feedback inside the cluster.  Rank q also holds the proj columns
-//     of its out2 K-units and its ctx K-slice, its output slice of the first
-//     prenet layer and the rows of the second that make its pre2 K-slice.
-//     Every cluster computes the projection and the prenet for all rows; the
-//     projection's partials merge through distributed shared memory in rank
-//     order, so every block of every cluster holds bit-identical frames,
-//     stop logits, mu and done flags, and every block leaves the step loop
-//     at the same step without a grid-wide vote.
+//   * Frame feedback inside the cluster.  Rank q also holds the projection
+//     columns that feed the next step or decide the exit (the last frame,
+//     the r stops and mu: NP = 80 + r + mu outputs) over its out2 K-units
+//     and its ctx K-slice, its output slice of the first prenet layer and
+//     the rows of the second that make its pre2 K-slice.  Every cluster
+//     computes those NP outputs and the prenet for all rows; the partials
+//     merge through distributed shared memory in rank order, so every block
+//     of every cluster holds bit-identical frames, stop logits, mu and done
+//     flags, and every block leaves the step loop at the same step without
+//     a grid-wide vote.
+//   * The other 80(r-1) frame columns only leave the kernel.  Cluster c
+//     computes ec of them for all rows from the rank slices of the packed
+//     weights in global memory (L2: wx, [TR_CLUSTER, 80(r-1), LKP]) and
+//     writes them out; they are off the feedback chain.
 //   * Rows.  The attention of row b runs on bpr blocks of cluster b / rpc;
 //     bpr grows with T_in (about K2_POS positions a block) up to
-//     TR_CLUSTER / rpc, so a short input keeps its row in one block.
+//     TR_CLUSTER / rpc, so a short input keeps its row in one block.  A
+//     row's argmax (anti-repeat, the synthesis window) merges (max, index)
+//     pairs of its blocks in rank order, the lowest index on ties as
+//     jnp.argmax; every block of the row keeps the row's max_attention and
+//     dwell counter.
 //
 // A step: [prenet 1 -> cluster gather -> prenet 2 -> x1 partials -> merged
 // g1] barrier 1 [LSTM1 -> g2] barrier 2 [LSTM2 -> pq (the cluster holds all
 // of wq) -> the rows' attention -> ctx] barrier 3 [projection partials ->
-// merged frame, stop, mu, done flags].  Three grid barriers; what lies
-// between them crosses only the cluster.  Global memory carries g1, g2 and
-// ctx ([B, 4U], [B, 4U], [B, V]) and the outputs.
+// merged frame, stops, mu, done flags; the other frame columns].  Three
+// grid barriers; what lies between them crosses only the cluster.  Global
+// memory carries g1, g2 and ctx ([B, 4U], [B, 4U], [B, V]) and the outputs.
 //
 // K1 (wavernn_sample.cu) and this kernel are both persistent grids that fill
 // the card; the serve path launches them on one stream, one after the
@@ -67,19 +95,22 @@
 // Numbers: the products' sums are taken in another order than the plain
 // version's (each K split over eight ranks and ks lanes), the softmax and
 // the context over a row's blocks; values differ by rounding, and the check
-// is every frame and alignment within 1e-3 of the plain loop.
+// is every frame and alignment within 1e-3 of the plain loop (anti-repeat
+// and the window: up to a step whose argmax the plain loop decides by less
+// than 1e-5).
 #include "rng.cuh"
 #include "tacotron_train_common.cuh"
 
 namespace {
 
 constexpr int NMEL = 80;
-constexpr int NPROJ = NMEL + 2;  // frame (80) | stop (1) | mu (1)
-constexpr int LDP = NPROJ + 2;   // row stride of the projection partials and merged outputs
-constexpr int K2_POS = 32;       // attention positions a row block aims for
+constexpr int K2_POS = 32;  // attention positions a row block aims for
+
+enum { K2_FORWARD = 0, K2_LSA = 1 };
 
 struct K2Dims {
   int B, T_in, P1, P2, U, V, A, taps;
+  int r, mu;  // frames a step; 1 when the projection has the mu column (forward attention)
 };
 
 struct K2Plan {
@@ -87,6 +118,8 @@ struct K2Plan {
   int Ku, uc, ub;    // K-units of a rank; output units of a cluster, of a block
   int K1p, Kp, Kv;   // a rank's prenet-1 outputs, prenet-2 outputs (its pre2 K-slice), ctx K-slice
   int rpc, bpr, nT;  // rows of a cluster, blocks of a row, positions of a block
+  int NP, NX, ec;    // on-chip projection outputs (last frame | r stops | mu); the other frame
+                     // columns; of those, a cluster's
 };
 
 // rpc is the smallest power of two with rpc * NC >= B; bpr = 0 when the
@@ -111,6 +144,9 @@ __host__ __device__ inline K2Plan k2_plan(const K2Dims& d, int NC) {
   }
   p.bpr = bpr;
   p.nT = bpr ? tr_cdiv(d.T_in, bpr) : 0;
+  p.NP = NMEL + d.r + d.mu;
+  p.NX = NMEL * (d.r - 1);
+  p.ec = tr_cdiv(p.NX, NC);
   return p;
 }
 
@@ -120,7 +156,7 @@ struct K2Layout {
   int w1;     // [4uc, LK1]  l1: the rank's [pre2 | ctx | h1] inputs x the cluster's gate rows
   int w2;     // [4uc, LK2]  l2: the rank's [out1 | h2] inputs x the cluster's gate rows
   int wq;     // [Ku, A]     wq columns of the rank's K-units
-  int wp;     // [NPROJ, LKP] proj: the rank's [out2 | ctx] inputs x frame, stop, mu
+  int wp;     // [NP, LKP]   proj: the rank's [out2 | ctx] inputs x last frame, stops, mu
   int wp1;    // [K1p, LKM]  prenet 1: the rank's outputs x the 80 mel inputs
   int wp2;    // [Kp, LKG]   prenet 2: the rank's outputs (its pre2 K-slice) x all P1 inputs
   int wc;     // [taps, A]   combined location conv
@@ -131,27 +167,30 @@ struct K2Layout {
   int xs;     // [B, LK1]    x1; x2 [B, LK2] during LSTM1's product
   int gin;    // [B, LKG]    prenet-1 outputs gathered from the cluster; from LSTM2 on, the
               //             projection's inputs [B, LKP] (out2 K-units | ctx K-slice)
-  int part;   // [B, max(4uc, LDP)] partial products read by the cluster
-  int fr;     // [B, LDP]    merged frame | stop | mu logits of the last step (the prenet's input)
+  int part;   // [B, max(4uc, LDX)] partial products read by the cluster
+  int fr;     // [B, LDP]    merged last frame | stops | mu logits of the last step (the prenet's input)
   int mu, done;  // [B]
   int seed, key;  // [B]     each row's seed; this step's dropout key (rng_key of the seed, row 0, the step)
   int pqp;    // [rpc, A]    partial query projections of the cluster's rows (read by the cluster)
   int pq;     // [A]         the row's query projection + energy bias
-  int cum;    // [nT + taps - 1] cumulated alignments of the slice and its halo
+  int cum;    // [nT + taps - 1] the conv's input over the slice and its halo: the cumulated softmax
+              //             (forward), the previous or cumulated alignment (LSA)
   int alpha, en, asm_;  // [nT] forward state; energies then the recursion; this step's softmax
   int ctxp;   // [V]         this block's partial context (read by the row)
-  int red;    // [16]
-  int bred;   // [64]
+  int red;    // [16]        the row's exchange: 0-1 statistics, 2 sum, 4-7 merged; 8-9 (max, index)
+              //             of the block; 10-11 the row's max_attention and dwell counter
+  int bred;   // [64]        block reductions; anti-repeat: the support of the alignment
   int total;
 };
 
 struct K2Ld {
-  int LK1, LK2, LKP, LKM, LKG;
+  int LK1, LK2, LKP, LKM, LKG, LDP, LDX;
 };
 
 __host__ __device__ inline K2Ld k2_ld(const K2Dims& d, const K2Plan& p) {
+  const int LDP = tr_up4(p.NP + 2);
   return K2Ld{tr_up4(p.Kp + p.Kv + p.Ku) + 4, tr_up4(2 * p.Ku) + 4, tr_up4(p.Ku + p.Kv) + 4,
-              tr_up4(NMEL) + 4, tr_up4(d.P1) + 4};
+              tr_up4(NMEL) + 4, tr_up4(d.P1) + 4, LDP, LDP + tr_up4(p.ec)};
 }
 
 __host__ __device__ inline K2Layout k2_layout(const K2Dims& d, const K2Plan& p) {
@@ -162,20 +201,20 @@ __host__ __device__ inline K2Layout k2_layout(const K2Dims& d, const K2Plan& p) 
   L.w1 = o;    o += ng * ld.LK1;
   L.w2 = o;    o += ng * ld.LK2;
   L.wq = o;    o += p.Ku * d.A;
-  L.wp = o;    o += NPROJ * ld.LKP;
+  L.wp = o;    o += p.NP * ld.LKP;
   L.wp1 = o;   o += p.K1p * ld.LKM;
   L.wp2 = o;   o += p.Kp * ld.LKG;
   L.wc = o;    o += tr_up4(d.taps * d.A);
   L.b1 = o;    o += tr_up4(p.K1p);
   L.b2 = o;    o += tr_up4(p.Kp);
-  L.pb = o;    o += LDP;
+  L.pb = o;    o += ld.LDP;
   L.v = o;     o += A4;
   L.eb = o;    o += A4;
   L.st = o;    o += tr_up4(4 * d.B * p.Ku);
   L.xs = o;    o += d.B * ld.LK1;
   L.gin = o;   o += d.B * tr_max(ld.LKG, ld.LKP);
-  L.part = o;  o += d.B * tr_max(ng, LDP);
-  L.fr = o;    o += d.B * LDP;
+  L.part = o;  o += d.B * tr_max(ng, ld.LDX);
+  L.fr = o;    o += d.B * ld.LDP;
   L.mu = o;    o += tr_up4(d.B);
   L.done = o;  o += tr_up4(d.B);
   L.seed = o;  o += tr_up4(d.B);
@@ -337,40 +376,150 @@ __device__ inline float2 k2_block_stats(float2 v, float* red) {
   return r;
 }
 
+// (max, first index) of the block's values, lowest index on ties (as
+// jnp.argmax); an empty thread holds (-inf, INT_MAX).  Every thread gets the
+// result.  ``red`` is 64 floats of shared scratch.
+__device__ inline void k2_block_argmax(float& v, int& i, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  auto take = [](float& v, int& i, float v2, int i2) {
+    if (v2 > v || (v2 == v && i2 < i)) {
+      v = v2;
+      i = i2;
+    }
+  };
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) take(v, i, __shfl_xor_sync(0xffffffffu, v, o), __shfl_xor_sync(0xffffffffu, i, o));
+  if (lane == 0) {
+    red[warp] = v;
+    red[32 + warp] = __int_as_float(i);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    float u = lane < TR_WARPS ? red[lane] : -INFINITY;
+    int j = lane < TR_WARPS ? __float_as_int(red[32 + lane]) : 0x7fffffff;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) take(u, j, __shfl_xor_sync(0xffffffffu, u, o), __shfl_xor_sync(0xffffffffu, j, o));
+    __syncwarp();
+    if (lane == 0) {
+      red[0] = u;
+      red[1] = __int_as_float(j);
+    }
+  }
+  __syncthreads();
+  v = red[0];
+  i = __float_as_int(red[1]);
+  __syncthreads();
+}
+
+// The branches' numbers, fixed for the launch.
+struct K2Attn {
+  float cw;                     // the conv input's carry: 1 (forward; LSA with cumulative_weights), else 0
+  int back, ahead;              // LSA synthesis window [prev - back, prev + ahead)
+  int dwell_first, dwell_rest;  // anti-repeat (cfg.dwell_limit_first, dwell_limit_rest)
+  int need;                     // stop flags of a step that finish a row: 1 (any of r) or r (all)
+};
+
+// What the softmax (or, SMOOTH, the normalised sigmoid) takes at position t
+// from energy e: -1e9 (or 0) outside the mask and, WIN, outside the window
+// around the previous argmax pm (models/attention.py lsa_step).
+template <bool SMOOTH, bool WIN>
+__device__ __forceinline__ float k2_score(float e, float m, int t, int pm, const K2Attn& at) {
+  const bool valid = !WIN || (t >= pm - at.back && t < pm + at.ahead);
+  if (SMOOTH) return valid ? sigmoidf_(e) * m : 0.0f;
+  return valid && m > 0.0f ? e : -1e9f;
+}
+
+// Anti-repeat, by thread 0 of each block of a row once the row's blocks
+// have put their (max, index) of the recursion in red[8..9] and their
+// recursion values in en[] (models/attention.py anti_repeat_constrain):
+// the row's argmax (merged in rank order, the lowest index on ties), the
+// new max_attention m and dwell counter (red[10..11], alike in every block
+// of the row), and the support of the constrained alignment, at most six
+// positions (the window [m-2, m+3) and the bin clip(m)), with its weights
+// normalised: sup[0..5] positions, sup[8..13] weights, sup[16] the count.
+// Every block of the row computes the same support from the same values in
+// the same order.
+__device__ void k2_anti_repeat(cg::cluster_group& cl, float* red, float* sup, float* en, int rank0, int bpr, int nT,
+                               int T_in, const K2Attn& at) {
+  float bv = -INFINITY;
+  int arg = 0x7fffffff;
+  for (int j = 0; j < bpr; ++j) {
+    const float* o = cl.map_shared_rank(red, rank0 + j);
+    if (o[8] > bv) {
+      bv = o[8];
+      arg = __float_as_int(o[9]);
+    }
+  }
+  const int pm = __float_as_int(red[10]), pp = __float_as_int(red[11]);
+  int m = arg <= pm ? pm : pm + 1;
+  if (pp < at.dwell_first && m > 2) m = pm;
+  int p = m == pm ? pp + 1 : 1;
+  if (p >= at.dwell_rest) {
+    m += 1;
+    p = 1;
+  }
+  red[10] = __int_as_float(m);
+  red[11] = __int_as_float(p);
+  const int lo = tr_max(m - 2, 0), hi = tr_min(m + 3, T_in), cm = tr_min(tr_max(m, 0), T_in - 1);
+  float s = 0.0f;
+  for (int t = lo; t < hi; ++t) s += cl.map_shared_rank(en, rank0 + t / nT)[t % nT];
+  const float boost = 2.0f * (s < 1e-10f ? 1.0f : s);
+  int n = 0;
+  float tot = 0.0f;
+  for (int t = lo; t < hi; ++t) {
+    const float v = t == cm ? boost : cl.map_shared_rank(en, rank0 + t / nT)[t % nT];
+    sup[n] = __int_as_float(t);
+    sup[8 + n] = v;
+    tot += v;
+    ++n;
+  }
+  if (cm < lo || cm >= hi) {
+    sup[n] = __int_as_float(cm);
+    sup[8 + n] = boost;
+    tot += boost;
+    ++n;
+  }
+  for (int k = 0; k < n; ++k) sup[8 + k] /= tot;
+  sup[16] = __int_as_float(n);
+}
+
 struct K2Weights {  // all [out, in] (ops/tacotron_decoder_kernel.py pack_weights)
   const float *pre_w1, *pre_b1, *pre_w2, *pre_b2;   // [P1, 80], [P1], [P2, P1], [P2]
   const float *l1, *l1_b, *l2, *l2_b;               // [4U, P2 + V + U], [4U], [4U, 2U], [4U]
   const float *wq, *w_comb, *b_comb, *att_v, *att_b;  // [A, U], [taps, A], [A], [A], [A]
-  const float *proj, *proj_b;                       // [82, U + V], [82]
+  const float *proj, *proj_b;                       // [NP, U + V], [NP]: last frame | stops | mu
+  const float *wx, *wx_b;                           // [TR_CLUSTER, NX, LKP] rank slices, [NX]: the other frames
 };
 
 struct K2Io {
   const float *keys, *values, *mask;  // [B, T_in, A], [B, T_in, V], [B, T_in]
   const int* seeds;                   // [B]
-  float *frames, *stops, *aligns;     // [max_iters, B, 80], [max_iters, B], [max_iters, B, T_in]
+  float *frames, *stops, *aligns;     // [max_iters, B, 80r], [max_iters, B, r], [max_iters, B, T_in]
   float *g1, *g2, *ctx;               // exchange: [B, 4U], [B, 4U], [B, V]
 };
 
 // The layout arrives as a kernel parameter, in the constant bank: computed in
 // the kernel and held in registers across the step loop, its offsets made
 // the kernel spill (512 threads leave 128 registers a thread).
+template <int MODE, bool ANTI, bool SMOOTH, bool WIN>
 __global__ void __launch_bounds__(TR_THREADS, 1)
-tacotron_decode_kernel(K2Weights w, K2Io io, K2Dims d, K2Plan pl, K2Layout L, int max_iters, float zo,
+tacotron_decode_kernel(K2Weights w, K2Io io, K2Dims d, K2Plan pl, K2Layout L, K2Attn at, int max_iters, float zo,
                        float zo_keep, float drop_keep, uint32_t drop_thresh, unsigned* counter) {
+  static_assert(MODE == K2_LSA || !WIN, "the synthesis window is LSA's");
+  static_assert(MODE == K2_FORWARD || !ANTI, "anti-repeat is forward attention's");
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   cg::cluster_group cl = cg::this_cluster();
   const K2Ld ld = k2_ld(d, pl);
   const K2Role R = k2_role(d, pl);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int B = d.B, T_in = d.T_in, P1 = d.P1, P2 = d.P2, U = d.U, V = d.V, A = d.A, taps = d.taps;
+  const int B = d.B, T_in = d.T_in, P1 = d.P1, P2 = d.P2, U = d.U, V = d.V, A = d.A, taps = d.taps, r = d.r;
   const int padl = (taps - 1) / 2, Ku = pl.Ku, Kp = pl.Kp, Kv = pl.Kv, K1p = pl.K1p, uc = pl.uc, ng = 4 * uc;
-  const int LK1 = ld.LK1, LK2 = ld.LK2, LKP = ld.LKP, LKM = ld.LKM, LKG = ld.LKG;
-  const int K1 = LK1 - 4, K2 = LK2 - 4, KP = LKP - 4;
+  const int LK1 = ld.LK1, LK2 = ld.LK2, LKP = ld.LKP, LKM = ld.LKM, LKG = ld.LKG, LDP = ld.LDP, LDX = ld.LDX;
+  const int K1 = LK1 - 4, K2 = LK2 - 4, KP = LKP - 4, NP = pl.NP, FR = NMEL * r;
   const int nku = R.ku.n(), nou = R.ou.n(), nv = R.rv.n(), bpr = pl.bpr, rank0 = R.rank0;
   const int b = R.row, t0 = R.pos.lo, n_own = R.pos.n(), nT = pl.nT;
   const Range ku = R.ku, cu = R.cu, r1 = R.r1, r2 = R.r2, rv = R.rv;
-  const Range vs = b >= 0 ? tr_range(R.sl, tr_cdiv(V, bpr), V) : Range{0, 0};  // context entries this block merges
   float *w1 = sm + L.w1, *w2 = sm + L.w2, *wq = sm + L.wq, *wp = sm + L.wp, *wp1 = sm + L.wp1, *wp2 = sm + L.wp2;
   float *wc = sm + L.wc, *b1 = sm + L.b1, *b2 = sm + L.b2, *pb = sm + L.pb, *vsm = sm + L.v, *eb = sm + L.eb;
   float *c1 = sm + L.st, *h1 = c1 + B * Ku, *c2 = h1 + B * Ku, *h2 = c2 + B * Ku;
@@ -399,7 +548,7 @@ tacotron_decode_kernel(K2Weights w, K2Io io, K2Dims d, K2Plan pl, K2Layout L, in
     const int u = i / A, a = i - u * A;
     wq[i] = u < nku ? __ldg(w.wq + (size_t)a * U + ku.lo + u) : 0.0f;
   }
-  tr_load_slice(wp, NPROJ, LKP, w.proj, U + V, [](int o) { return o; }, [=](int k) {
+  tr_load_slice(wp, NP, LKP, w.proj, U + V, [](int o) { return o; }, [=](int k) {
     if (k < Ku) return k < nku ? ku.lo + k : -1;
     return rv.lo + k - Ku < rv.hi ? U + rv.lo + k - Ku : -1;
   });
@@ -410,12 +559,13 @@ tacotron_decode_kernel(K2Weights w, K2Io io, K2Dims d, K2Plan pl, K2Layout L, in
   for (int i = tid; i < taps * A; i += TR_THREADS) wc[i] = __ldg(w.w_comb + i);
   for (int i = tid; i < K1p; i += TR_THREADS) b1[i] = r1.lo + i < r1.hi ? __ldg(w.pre_b1 + r1.lo + i) : 0.0f;
   for (int i = tid; i < Kp; i += TR_THREADS) b2[i] = r2.lo + i < r2.hi ? __ldg(w.pre_b2 + r2.lo + i) : 0.0f;
-  for (int i = tid; i < LDP; i += TR_THREADS) pb[i] = i < NPROJ ? __ldg(w.proj_b + i) : 0.0f;
+  for (int i = tid; i < LDP; i += TR_THREADS) pb[i] = i < NP ? __ldg(w.proj_b + i) : 0.0f;
   for (int a = tid; a < A; a += TR_THREADS) {
     vsm[a] = __ldg(w.att_v + a);
     eb[a] = __ldg(w.b_comb + a) + __ldg(w.att_b + a);
   }
-  // state: LSTMs at zero, the go frame, mu 0.5, nothing done; alpha and cum one-hot at position 0
+  // state: LSTMs at zero, the go frame, mu 0.5, nothing done; forward attention starts alpha and cum
+  // one-hot at position 0, LSA its alignment at zeros; max_attention and the dwell counter at 0
   for (int i = tid; i < 4 * B * Ku; i += TR_THREADS) c1[i] = 0.0f;
   for (int i = tid; i < B * LK1; i += TR_THREADS) xs[i] = 0.0f;
   for (int i = tid; i < B * LDP; i += TR_THREADS) fr[i] = 0.0f;
@@ -425,9 +575,10 @@ tacotron_decode_kernel(K2Weights w, K2Io io, K2Dims d, K2Plan pl, K2Layout L, in
     seed[i] = (uint32_t)__ldg(io.seeds + i);
     key[i] = rng_key(seed[i], 0u, 0u);
   }
-  for (int i = tid; i < n_own; i += TR_THREADS) alpha[i] = t0 + i == 0 ? 1.0f : 0.0f;
-  for (int e = tid; e < n_own + taps - 1; e += TR_THREADS) cum[e] = t0 - padl + e == 0 ? 1.0f : 0.0f;
-  const K2Epi to_gates{EPI_STORE, part, ng}, to_proj{EPI_STORE, part, LDP};
+  const float one0 = MODE == K2_FORWARD ? 1.0f : 0.0f;
+  for (int i = tid; i < n_own; i += TR_THREADS) alpha[i] = t0 + i == 0 ? one0 : 0.0f;
+  for (int e = tid; e < n_own + taps - 1; e += TR_THREADS) cum[e] = t0 - padl + e == 0 ? one0 : 0.0f;
+  if (tid == 0) red[10] = red[11] = __int_as_float(0);
   unsigned target = 0;
   int n_run = max_iters;  // steps run before every row was done
   __syncthreads();
@@ -451,7 +602,7 @@ tacotron_decode_kernel(K2Weights w, K2Io io, K2Dims d, K2Plan pl, K2Layout L, in
     }
     __syncthreads();
     // 1c. g1 partials over x1 = [pre2 | ctx | h1] slices, merged in the cluster
-    k2_product(xs, LK1, B, w1, LK1, ng, K1, to_gates);
+    k2_product(xs, LK1, B, w1, LK1, ng, K1, K2Epi{EPI_STORE, part, ng});
     cl.sync();
     for (int k = tid; k < B * nou * 4; k += TR_THREADS) {
       const int bb = k / (nou * 4), rest = k - bb * nou * 4, g = rest / nou, j = R.ou.lo + rest % nou;
@@ -482,7 +633,7 @@ tacotron_decode_kernel(K2Weights w, K2Io io, K2Dims d, K2Plan pl, K2Layout L, in
       xs[bb * LK2 + 2 * Ku + k - bb * (LK2 - 2 * Ku)] = 0.0f;
     }
     __syncthreads();
-    k2_product(xs, LK2, B, w2, LK2, ng, K2, to_gates);
+    k2_product(xs, LK2, B, w2, LK2, ng, K2, K2Epi{EPI_STORE, part, ng});
     cl.sync();
     for (int k = tid; k < B * nou * 4; k += TR_THREADS) {
       const int bb = k / (nou * 4), rest = k - bb * nou * 4, g = rest / nou, j = R.ou.lo + rest % nou;
@@ -515,7 +666,7 @@ tacotron_decode_kernel(K2Weights w, K2Io io, K2Dims d, K2Plan pl, K2Layout L, in
       pqp[k] = acc;
     }
     cl.sync();
-    // 4. attention of the rows: energies and softmax statistics of the slice
+    // 4. attention of the rows: energies (scores) and their statistics over the slice
     float2 st = make_float2(-INFINITY, 0.0f);
     if (b >= 0) {
       const int rr = R.q / bpr;
@@ -527,6 +678,7 @@ tacotron_decode_kernel(K2Weights w, K2Io io, K2Dims d, K2Plan pl, K2Layout L, in
       __syncthreads();
       const float* keys = io.keys + (size_t)b * T_in * A;
       const float* mask = io.mask + (size_t)b * T_in;
+      const int pm = __float_as_int(red[10]);  // the row's previous argmax (the window's centre)
       for (int i = warp; i < n_own; i += 2 * TR_WARPS) {  // two positions a warp: each filter read serves both
         const int i2 = i + TR_WARPS < n_own ? i + TR_WARPS : i;
         const int t = t0 + i, t2 = t0 + i2;
@@ -562,87 +714,164 @@ tacotron_decode_kernel(K2Weights w, K2Io io, K2Dims d, K2Plan pl, K2Layout L, in
         e = warp_sum(e);
         e2 = warp_sum(e2);
         if (lane == 0) {
-          en[i] = __ldg(mask + t) > 0.0f ? e : -1e9f;
-          en[i2] = __ldg(mask + t2) > 0.0f ? e2 : -1e9f;  // i2 == i when the warp has one position left
+          en[i] = k2_score<SMOOTH, WIN>(e, __ldg(mask + t), t, pm, at);
+          en[i2] = k2_score<SMOOTH, WIN>(e2, __ldg(mask + t2), t2, pm, at);  // i2 == i when one position is left
         }
       }
       __syncthreads();
-      float2 ms = make_float2(-INFINITY, 0.0f);
-      for (int i = tid; i < n_own; i += TR_THREADS) ms = k2_stats_merge(ms, make_float2(en[i], 1.0f));
-      st = k2_block_stats(ms, bred);
+      if (SMOOTH) {  // the normaliser is the plain sum of the scores
+        float ps = 0.0f;
+        for (int i = tid; i < n_own; i += TR_THREADS) ps += en[i];
+        st = make_float2(0.0f, tr_block_sum2(ps, 0.0f, bred).x);
+      } else {
+        float2 ms = make_float2(-INFINITY, 0.0f);
+        for (int i = tid; i < n_own; i += TR_THREADS) ms = k2_stats_merge(ms, make_float2(en[i], 1.0f));
+        st = k2_block_stats(ms, bred);
+      }
     }
     if (tid == 0) {
       red[0] = st.x;
       red[1] = st.y;
     }
     if (bpr > 1) cl.sync(); else __syncthreads();
-    // 4b. softmax, forward recursion and the unnormalised context of the slice
+    // 4b. the row's softmax; forward: the recursion; LSA: the alignment itself
     float s2 = 0.0f;
     if (b >= 0) {
       if (tid == 0) {
         float2 M = make_float2(-INFINITY, 0.0f);
         for (int j = 0; j < bpr; ++j) {
           const float* o = cl.map_shared_rank(red, rank0 + j);
-          M = k2_stats_merge(M, make_float2(o[0], o[1]));
+          M = SMOOTH ? make_float2(0.0f, M.y + o[1]) : k2_stats_merge(M, make_float2(o[0], o[1]));
         }
         red[4] = M.x;
         red[5] = M.y;
         // alpha at the position before the slice: the last step's, held by the previous slice's block
-        red[6] = (t0 == 0 || n_own == 0) ? 0.0f : cl.map_shared_rank(alpha, rank0 + R.sl - 1)[nT - 1];
+        if (MODE == K2_FORWARD) red[6] = (t0 == 0 || n_own == 0) ? 0.0f : cl.map_shared_rank(alpha, rank0 + R.sl - 1)[nT - 1];
       }
       __syncthreads();
-      const float M = red[4], Zs = red[5], aprev = red[6], mb = mu[b];
-      float part_s = 0.0f;
-      for (int i = tid; i < n_own; i += TR_THREADS) {
-        const float a_sm = expf(en[i] - M) / Zs;
-        asm_[i] = a_sm;
-        const float shifted = i > 0 ? alpha[i - 1] : aprev;
-        const float pre = ((1.0f - mb) * alpha[i] + mb * shifted + 1e-10f) * a_sm;
-        en[i] = pre;
-        part_s += pre;
+      const float M = red[4], Zs = red[5];
+      float* al_out = io.aligns + ((size_t)s * B + b) * T_in + t0;
+      float bv = -INFINITY, part_s = 0.0f;
+      int bi = 0x7fffffff;
+      if (MODE == K2_FORWARD) {
+        const float aprev = red[6], mb = mu[b];
+        for (int i = tid; i < n_own; i += TR_THREADS) {
+          const float a_sm = SMOOTH ? en[i] / Zs : expf(en[i] - M) / Zs;
+          asm_[i] = a_sm;
+          const float shifted = i > 0 ? alpha[i - 1] : aprev;
+          const float pre = ((1.0f - mb) * alpha[i] + mb * shifted + 1e-10f) * a_sm;
+          en[i] = pre;
+          if (ANTI) {
+            if (pre > bv) {
+              bv = pre;
+              bi = t0 + i;
+            }
+          } else {
+            part_s += pre;
+          }
+        }
+      } else {
+        for (int i = tid; i < n_own; i += TR_THREADS) {
+          const float a = SMOOTH ? en[i] / Zs : expf(en[i] - M) / Zs;
+          asm_[i] = a;
+          al_out[i] = a;
+          if (WIN && a > bv) {
+            bv = a;
+            bi = t0 + i;
+          }
+        }
       }
-      s2 = tr_block_sum2(part_s, 0.0f, bred).x;  // its barriers also publish en[] to the block
-      const float* values = io.values + ((size_t)b * T_in + t0) * V;
-      for (int v = tid; v < V; v += TR_THREADS) {  // the context before the row's normalisation
-        float acc = 0.0f;
+      if (ANTI || WIN) {  // the block's (max, index): anti-repeat's recursion, the window's alignment
+        k2_block_argmax(bv, bi, bred);
+        if (tid == 0) {
+          red[8] = bv;
+          red[9] = __int_as_float(bi);
+        }
+      }
+      if (MODE == K2_FORWARD && !ANTI) s2 = tr_block_sum2(part_s, 0.0f, bred).x;  // also publishes en[]
+      if (MODE == K2_LSA && !WIN) __syncthreads();                              // publishes asm_[]
+      if (!ANTI) {  // the context before (forward) or after (LSA) the row's normalisation
+        const float* src = MODE == K2_FORWARD ? en : asm_;
+        const float* values = io.values + ((size_t)b * T_in + t0) * V;
+        for (int v = tid; v < V; v += TR_THREADS) {
+          float acc = 0.0f;
 #pragma unroll 8
-        for (int i = 0; i < n_own; ++i) acc = fmaf(en[i], __ldg(values + (size_t)i * V + v), acc);
-        ctxp[v] = acc;
+          for (int i = 0; i < n_own; ++i) acc = fmaf(src[i], __ldg(values + (size_t)i * V + v), acc);
+          ctxp[v] = acc;
+        }
       }
     }
     if (tid == 0) red[2] = s2;
     if (bpr > 1) cl.sync(); else __syncthreads();
-    // 4c. normalise, cumulate, merge the context
+    // 4c. normalise (forward), constrain (anti-repeat), cumulate, merge the context
     if (b >= 0) {
-      if (tid == 0) {
-        float S2 = 0.0f;
-        for (int j = 0; j < bpr; ++j) S2 += cl.map_shared_rank(red, rank0 + j)[2];
-        red[7] = S2;
-      }
-      __syncthreads();
-      const float S2 = red[7];
+      const Range vs = tr_range(R.sl, tr_cdiv(V, bpr), V);  // context entries this block merges
       float* al_out = io.aligns + ((size_t)s * B + b) * T_in + t0;
-      for (int i = tid; i < n_own; i += TR_THREADS) {
-        const float a = en[i] / S2;
-        alpha[i] = a;
-        al_out[i] = a;
+      if (ANTI) {
+        if (tid == 0) k2_anti_repeat(cl, red, bred, en, rank0, bpr, nT, T_in, at);
+        __syncthreads();
+        const int ns = __float_as_int(bred[16]);
+        for (int i = tid; i < n_own; i += TR_THREADS) {
+          float a = 0.0f;
+#pragma unroll 1
+          for (int k = 0; k < ns; ++k)
+            if (__float_as_int(bred[k]) == t0 + i) a = bred[8 + k];
+          alpha[i] = a;
+          al_out[i] = a;
+        }
+        const float* values = io.values + (size_t)b * T_in * V;
+        for (int v = vs.lo + tid; v < vs.hi; v += TR_THREADS) {
+          float acc = 0.0f;
+#pragma unroll 1
+          for (int k = 0; k < ns; ++k) acc = fmaf(bred[8 + k], __ldg(values + (size_t)__float_as_int(bred[k]) * V + v), acc);
+          io.ctx[(size_t)b * V + v] = acc;
+        }
+      } else {
+        float S2 = 1.0f;  // LSA: the softmax is the alignment
+        if (MODE == K2_FORWARD) {
+          if (tid == 0) {
+            float sum = 0.0f;
+            for (int j = 0; j < bpr; ++j) sum += cl.map_shared_rank(red, rank0 + j)[2];
+            red[7] = sum;
+          }
+          __syncthreads();
+          S2 = red[7];
+          for (int i = tid; i < n_own; i += TR_THREADS) {
+            const float a = en[i] / S2;
+            alpha[i] = a;
+            al_out[i] = a;
+          }
+        }
+        if (WIN && tid == 0) {  // the row's argmax, the next step's window centre
+          float mv = -INFINITY;
+          int mi = 0x7fffffff;
+          for (int j = 0; j < bpr; ++j) {
+            const float* o = cl.map_shared_rank(red, rank0 + j);
+            if (o[8] > mv) {
+              mv = o[8];
+              mi = __float_as_int(o[9]);
+            }
+          }
+          red[10] = __int_as_float(mi);
+        }
+        for (int v = vs.lo + tid; v < vs.hi; v += TR_THREADS) {
+          float acc = 0.0f;
+          for (int j = 0; j < bpr; ++j) acc += cl.map_shared_rank(ctxp, rank0 + j)[v];
+          io.ctx[(size_t)b * V + v] = MODE == K2_FORWARD ? acc / S2 : acc;
+        }
       }
       for (int e = tid; e < n_own + taps - 1; e += TR_THREADS) {  // the slice and its halo
         const int t = t0 - padl + e;
         if (t >= 0 && t < T_in) {
           const int owner = t / nT, li = t - owner * nT;
-          cum[e] += owner == R.sl ? asm_[li] : cl.map_shared_rank(asm_, rank0 + owner)[li];
+          cum[e] = at.cw * cum[e] + (owner == R.sl ? asm_[li] : cl.map_shared_rank(asm_, rank0 + owner)[li]);
         }
-      }
-      for (int v = vs.lo + tid; v < vs.hi; v += TR_THREADS) {
-        float acc = 0.0f;
-        for (int j = 0; j < bpr; ++j) acc += cl.map_shared_rank(ctxp, rank0 + j)[v];
-        io.ctx[(size_t)b * V + v] = acc / S2;
       }
     }
     // barrier 3
     grid_barrier(counter, target += pl.G);
-    // 5. projection partials over [out2 | ctx] slices (the ctx slice is also x1's next input)
+    // 5. projection partials over [out2 | ctx] slices (the ctx slice is also x1's next input): the
+    // on-chip outputs, and this cluster's share of the other frame columns from L2
     for (int k = tid; k < B * (LKP - Ku); k += TR_THREADS) {
       const int bb = k / (LKP - Ku), i = k - bb * (LKP - Ku);
       const float c = i < nv ? __ldcg(io.ctx + (size_t)bb * V + rv.lo + i) : 0.0f;
@@ -650,25 +879,38 @@ tacotron_decode_kernel(K2Weights w, K2Io io, K2Dims d, K2Plan pl, K2Layout L, in
       if (i < Kv) xs[bb * LK1 + Kp + i] = c;
     }
     __syncthreads();
-    k2_product(gin, LKP, B, wp, LKP, NPROJ, KP, to_proj);
+    k2_product(gin, LKP, B, wp, LKP, NP, KP, K2Epi{EPI_STORE, part, LDX});
+    const Range xc = tr_range(R.c, pl.ec, pl.NX);  // the other frame columns this cluster computes
+    if (xc.n() > 0)
+      k2_product(gin, LKP, B, w.wx + ((size_t)R.q * pl.NX + xc.lo) * LKP, LKP, xc.n(), KP,
+                 K2Epi{EPI_STORE, part + LDP, LDX});
     cl.sync();
-    for (int k = tid; k < B * NPROJ; k += TR_THREADS) {
-      const int bb = k / NPROJ, o = k - bb * NPROJ;
-      fr[bb * LDP + o] = tr_merge(cl, part, bb * LDP + o) + pb[o];
+    for (int k = tid; k < B * NP; k += TR_THREADS) {
+      const int bb = k / NP, o = k - bb * NP;
+      fr[bb * LDP + o] = tr_merge(cl, part, bb * LDX + o) + pb[o];
+    }
+    for (int k = R.q * TR_THREADS + tid; k < B * xc.n(); k += TR_CLUSTER * TR_THREADS) {
+      const int bb = k / xc.n(), j = k - bb * xc.n();
+      io.frames[((size_t)s * B + bb) * FR + xc.lo + j] = tr_merge(cl, part, bb * LDX + LDP + j) + __ldg(w.wx_b + xc.lo + j);
     }
     __syncthreads();
     // 6. outputs, mu and the done flags (every block alike)
     if (R.c == 0) {
       for (int k = R.q * TR_THREADS + tid; k < B * NMEL; k += TR_CLUSTER * TR_THREADS) {
         const int bb = k / NMEL, m = k - bb * NMEL;
-        io.frames[((size_t)s * B + bb) * NMEL + m] = fr[bb * LDP + m];
+        io.frames[((size_t)s * B + bb) * FR + FR - NMEL + m] = fr[bb * LDP + m];
       }
       if (R.q == 0)
-        for (int bb = tid; bb < B; bb += TR_THREADS) io.stops[(size_t)s * B + bb] = fr[bb * LDP + NMEL];
+        for (int k = tid; k < B * r; k += TR_THREADS) {
+          const int bb = k / r;
+          io.stops[(size_t)s * B * r + k] = fr[bb * LDP + NMEL + k - bb * r];
+        }
     }
     for (int bb = tid; bb < B; bb += TR_THREADS) {
-      mu[bb] = sigmoidf_(fr[bb * LDP + NMEL + 1]);
-      if (sigmoidf_(fr[bb * LDP + NMEL]) > 0.5f) done[bb] = 1.0f;
+      if (MODE == K2_FORWARD) mu[bb] = sigmoidf_(fr[bb * LDP + NMEL + r]);
+      int fired = 0;
+      for (int j = 0; j < r; ++j) fired += sigmoidf_(fr[bb * LDP + NMEL + j]) > 0.5f;
+      if (fired >= at.need) done[bb] = 1.0f;
       key[bb] = rng_key(seed[bb], 0u, (uint32_t)(s + 1));
     }
     __syncthreads();
@@ -682,24 +924,46 @@ tacotron_decode_kernel(K2Weights w, K2Io io, K2Dims d, K2Plan pl, K2Layout L, in
   // every row is done: the remaining steps hold frames 0, stops 1e4 and aligns 0 (the whole grid writes them)
   const size_t s0 = (size_t)n_run, n_left = (size_t)(max_iters - n_run);
   const size_t gi = (size_t)blockIdx.x * TR_THREADS + tid, gs = (size_t)gridDim.x * TR_THREADS;
-  for (size_t i = gi; i < n_left * B * NMEL; i += gs) io.frames[s0 * B * NMEL + i] = 0.0f;
-  for (size_t i = gi; i < n_left * B; i += gs) io.stops[s0 * B + i] = 1e4f;
+  for (size_t i = gi; i < n_left * B * FR; i += gs) io.frames[s0 * B * FR + i] = 0.0f;
+  for (size_t i = gi; i < n_left * B * r; i += gs) io.stops[s0 * B * r + i] = 1e4f;
   for (size_t i = gi; i < n_left * B * T_in; i += gs) io.aligns[s0 * B * T_in + i] = 0.0f;
   cl.sync();  // no block leaves while a peer may still read its shared memory
+}
+
+using K2Kernel = void (*)(K2Weights, K2Io, K2Dims, K2Plan, K2Layout, K2Attn, int, float, float, float, uint32_t,
+                          unsigned*);
+
+// The instantiation of a variant: bit 0 LSA, bit 1 anti-repeat, bit 2
+// smoothing, bit 3 the synthesis window (ops/tacotron_decoder_kernel.py
+// k2_variant); nullptr for a combination the kernel does not take.
+K2Kernel k2_kernel(int variant) {
+  switch (variant) {
+    case 0: return tacotron_decode_kernel<K2_FORWARD, false, false, false>;
+    case 2: return tacotron_decode_kernel<K2_FORWARD, true, false, false>;
+    case 4: return tacotron_decode_kernel<K2_FORWARD, false, true, false>;
+    case 6: return tacotron_decode_kernel<K2_FORWARD, true, true, false>;
+    case 1: return tacotron_decode_kernel<K2_LSA, false, false, false>;
+    case 5: return tacotron_decode_kernel<K2_LSA, false, true, false>;
+    case 9: return tacotron_decode_kernel<K2_LSA, false, false, true>;
+    case 13: return tacotron_decode_kernel<K2_LSA, false, true, true>;
+    default: return nullptr;
+  }
 }
 
 }  // namespace
 
 // Bytes of shared memory per block (ops/tacotron_decoder_kernel.py k2_plan
-// computes the same; the wrapper checks before every launch).
-extern "C" int tacotron_decode_smem_bytes(int B, int T_in, int P1, int P2, int U, int V, int A, int taps, int NC) {
-  const K2Dims d{B, T_in, P1, P2, U, V, A, taps};
+// computes the same; the wrapper checks before every launch).  ``mu`` is 1
+// for forward attention (the projection's mu column), 0 for LSA.
+extern "C" int tacotron_decode_smem_bytes(int B, int T_in, int P1, int P2, int U, int V, int A, int taps, int r,
+                                          int mu, int NC) {
+  const K2Dims d{B, T_in, P1, P2, U, V, A, taps, r, mu};
   return k2_layout(d, k2_plan(d, NC)).total * (int)sizeof(float);
 }
 
 // Floats of the global exchange: g1 [B, 4U], g2 [B, 4U], ctx [B, V].
-extern "C" int tacotron_decode_scratch_floats(int B, int T_in, int P1, int P2, int U, int V, int A, int taps,
-                                              int NC) {
+extern "C" int tacotron_decode_scratch_floats(int B, int T_in, int P1, int P2, int U, int V, int A, int taps, int r,
+                                              int mu, int NC) {
   return B * (8 * U + V);
 }
 
@@ -720,53 +984,63 @@ static cudaLaunchConfig_t decode_config(cudaLaunchAttribute* at, int G, int smem
 
 // Clusters of TR_CLUSTER blocks that the card keeps resident at once with
 // one block per SM (asked at TR_SMEM_ONE_PER_SM bytes of shared memory), or
-// a negative cudaError_t.
+// a negative cudaError_t.  Every variant has the same launch bounds.
 extern "C" int tacotron_decode_clusters() {
-  cudaError_t err = cudaFuncSetAttribute(tacotron_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const K2Kernel fn = k2_kernel(0);
+  cudaError_t err = cudaFuncSetAttribute((const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          TR_SMEM_ONE_PER_SM);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchAttribute at[1];
   cudaLaunchConfig_t cfg = decode_config(at, TR_CLUSTER, TR_SMEM_ONE_PER_SM, 0);
   int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, tacotron_decode_kernel, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&n, (const void*)fn, &cfg);
   return err == cudaSuccess ? n : -(int)err;
 }
 
 // Launches the whole decode on ``stream`` as NC clusters of TR_CLUSTER
-// blocks.  ``ptrs`` holds 23 device pointers: keys [B, T_in, A], values
-// [B, T_in, V], mask [B, T_in] (f32), seeds [B] (int32); the weights in
-// WEIGHT_ORDER of ops/tacotron_decoder_kernel.py (pack_weights: [out, in]);
-// frames [max_iters, B, 80], stops [max_iters, B], aligns [max_iters, B,
-// T_in]; the exchange [tacotron_decode_scratch_floats(...)].  ``counter``
-// is one zeroed uint32.  Returns a cudaError_t:
+// blocks.  ``ptrs`` holds 25 device pointers: keys [B, T_in, A], values
+// [B, T_in, V], mask [B, T_in] (f32), seeds [B] (int32); the 17 weights in
+// WEIGHT_ORDER of ops/tacotron_decoder_kernel.py (pack_weights: [out, in];
+// wx and wx_b may be any pointer at r = 1); frames [max_iters, B, 80r],
+// stops [max_iters, B, r], aligns [max_iters, B, T_in]; the exchange
+// [tacotron_decode_scratch_floats(...)].  ``counter`` is one zeroed uint32.
+// ``variant`` picks the attention branch (k2_kernel), ``need`` the stop
+// policy (1: any of the r flags, r: all), ``back``/``ahead`` the LSA window,
+// ``cw`` the LSA carry.  Returns a cudaError_t:
 // cudaErrorCooperativeLaunchTooLarge when NC clusters cannot be resident
 // together or the rows do not fit, cudaErrorInvalidValue when the plan
-// exceeds a block's shared memory, else the launch's own.
+// exceeds a block's shared memory or the variant does not exist, else the
+// launch's own.
 extern "C" int tacotron_decode_launch(void* const* ptrs, unsigned* counter, int B, int T_in, int P1, int P2,
-                                      int U, int V, int A, int taps, int max_iters, int NC, float zoneout,
-                                      float zoneout_keep, float drop_keep, uint32_t drop_thresh, void* stream) {
+                                      int U, int V, int A, int taps, int r, int variant, int max_iters, int NC,
+                                      int need, int back, int ahead, int dwell_first, int dwell_rest, float cw,
+                                      float zoneout, float zoneout_keep, float drop_keep, uint32_t drop_thresh,
+                                      void* stream) {
+  const K2Kernel fn = k2_kernel(variant);
+  if (fn == nullptr || r < 1) return (int)cudaErrorInvalidValue;
   const float* const* f = reinterpret_cast<const float* const*>(ptrs);
   const K2Weights w{f[4], f[5], f[6], f[7], f[8], f[9], f[10], f[11], f[12], f[13], f[14], f[15], f[16],
-                    f[17], f[18]};
-  float* scratch = static_cast<float*>(ptrs[22]);
+                    f[17], f[18], f[19], f[20]};
+  float* scratch = static_cast<float*>(ptrs[24]);
   const K2Io io{f[0], f[1], f[2], static_cast<const int*>(ptrs[3]),
-                static_cast<float*>(ptrs[19]), static_cast<float*>(ptrs[20]), static_cast<float*>(ptrs[21]),
+                static_cast<float*>(ptrs[21]), static_cast<float*>(ptrs[22]), static_cast<float*>(ptrs[23]),
                 scratch, scratch + (size_t)B * 4 * U, scratch + (size_t)B * 8 * U};
-  const K2Dims d{B, T_in, P1, P2, U, V, A, taps};
+  const K2Dims d{B, T_in, P1, P2, U, V, A, taps, r, (variant & 1) ? 0 : 1};
   const K2Plan pl = k2_plan(d, NC);
   if (pl.bpr == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
   const int smem = k2_layout(d, pl).total * (int)sizeof(float);
   if (smem > TR_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(tacotron_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute((const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute at[1];
   cudaLaunchConfig_t cfg = decode_config(at, pl.G, smem, (cudaStream_t)stream);
   int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, tacotron_decode_kernel, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&n, (const void*)fn, &cfg);
   if (err != cudaSuccess) return (int)err;
   if (n < NC) return (int)cudaErrorCooperativeLaunchTooLarge;
-  err = cudaLaunchKernelEx(&cfg, tacotron_decode_kernel, w, io, d, pl, k2_layout(d, pl), max_iters, zoneout,
-                           zoneout_keep, drop_keep, drop_thresh, counter);
+  const K2Attn attn{cw, back, ahead, dwell_first, dwell_rest, need};
+  err = cudaLaunchKernelEx(&cfg, fn, w, io, d, pl, k2_layout(d, pl), attn, max_iters, zoneout, zoneout_keep,
+                           drop_keep, drop_thresh, counter);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

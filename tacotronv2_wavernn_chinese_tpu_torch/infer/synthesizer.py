@@ -59,7 +59,7 @@ class Synthesizer:
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
-        DK.check_supported(cfg.tacotron)
+        DK.check_supported(cfg.tacotron, self.device)
         self.params = tacotron_from_numpy(params, cfg.tacotron, self.device)
         self.vocoder_params = None
         if vocoder_params is not None:

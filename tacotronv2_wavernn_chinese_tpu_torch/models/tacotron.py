@@ -1,8 +1,9 @@
 """Tacotron-2 acoustic model: phoneme ids -> mel spectrogram.
 
 embedding(128) -> 3x[conv5-256 + ReLU + BN] -> BiLSTM(256/dir, zoneout 0.1)
--> decoder (prenet 256/256 with always-on dropout, 2x LSTM 256, forward
-attention, frame/stop projections, r=1) -> 5-layer postnet.
+-> decoder (prenet 256/256 with always-on dropout, 2x LSTM 256, attention
+(forward by default; LSA, GMM or Graves), frame/stop projections of r
+frames a step) -> 5-layer postnet.
 
 Inference: the autoregressive decode runs as one CUDA kernel on the card
 (``ops.tacotron_decoder_kernel``); ``decoder_step`` below is the step the
@@ -119,7 +120,7 @@ class DecoderCarry(NamedTuple):
 def init_decoder_carry(cfg: TacotronModelConfig, batch: int, mem_len: int, value_dim: int, device=None):
     u = cfg.decoder_lstm_units
     z = lambda: torch.zeros(batch, u, device=device)
-    return DecoderCarry(z(), z(), z(), z(), ATT.init_state(batch, mem_len, value_dim, device))
+    return DecoderCarry(z(), z(), z(), z(), ATT.init_state(cfg, batch, mem_len, value_dim, device))
 
 
 def decoder_step(
@@ -135,14 +136,15 @@ def decoder_step(
     b_comb=None,
 ):
     """One inference decoder step (reference Architecture_wrappers.py:175-218):
-    prenet -> concat(context) -> 2x zoneout LSTM -> attention -> projections.
-    Returns (frame [B, 80], stop [B, 1], align [B, T_in], new carry)."""
+    prenet -> concat(context) -> 2x zoneout LSTM -> attention of
+    ``cfg.attention_mode`` -> projections.  Returns (frames [B, 80r],
+    stops [B, r], align [B, T_in], new carry)."""
     pre = L.prenet(params["prenet"], prev_frame, cfg.dropout_rate, masks=prenet_masks)
     x = torch.cat([pre, carry.att.context], dim=-1)
     c1, h1, out1 = L.zoneout_lstm_step(params["dec_lstm1"], x, carry.c1, carry.h1, cfg.zoneout_rate)
     c2, h2, out2 = L.zoneout_lstm_step(params["dec_lstm2"], out1, carry.c2, carry.h2, cfg.zoneout_rate)
-    context, align, att_state = ATT.forward_step(
-        params["attention"], out2, carry.att, keys, values, mem_mask, w_comb, b_comb
+    context, align, att_state = ATT.step(
+        params["attention"], cfg, out2, carry.att, keys, values, mem_mask, w_comb, b_comb
     )
     proj_in = torch.cat([out2, context], dim=-1)
     w = torch.cat([params["frame_projection"]["w"], params["stop_projection"]["w"]], dim=1)
@@ -160,9 +162,10 @@ def decode_autoregressive(
     seeds,
     max_iters: int | None = None,
 ):
-    """Dynamic-stop decode -> (frames [B,T,80], stops [B,T],
-    aligns [B,T,T_in], stop_len [B]).  CUDA tensors run the decode kernel,
-    CPU tensors its plain version."""
+    """Dynamic-stop decode of at most T = max_iters steps -> (frames
+    [B, T*r, 80], stops [B, T*r], aligns [B, T, T_in], stop_len [B] in
+    frames).  CUDA tensors run the decode kernel, CPU tensors its plain
+    version."""
     T = max_iters if max_iters is not None else cfg.max_iters
     return DK.decode_autoregressive_kernel(params, cfg, memory, mem_mask, seeds, T)
 
@@ -221,6 +224,11 @@ def _decoder_core(params, cfg, pre_all, masks, keys, memory, mem_mask, fused_dec
     loop, anything else the same autograd Function with the kernels' plain
     versions."""
     B, T_in = memory.shape[0], memory.shape[1]
+    if cfg.attention_mode != "forward" or cfg.smoothing:
+        raise NotImplementedError(
+            f"attention_mode={cfg.attention_mode!r}, smoothing={cfg.smoothing}: training runs forward "
+            "attention without smoothing (ROADMAP.md, queue item 6)"
+        )
     if memory.device.type == "cuda":
         if fused_decoder == "off":
             raise NotImplementedError(
@@ -229,8 +237,8 @@ def _decoder_core(params, cfg, pre_all, masks, keys, memory, mem_mask, fused_dec
             )
         if not TK.train_supported(cfg):
             raise NotImplementedError(
-                f"attention_mode={cfg.attention_mode!r}, smoothing={cfg.smoothing}: the trainer "
-                "kernels run forward attention without smoothing (ROADMAP.md, queue item 6)"
+                "the trainer kernels take two prenet layers and widths that are multiples of 4 "
+                "(ROADMAP.md, queue item 5)"
             )
         clusters = TK.card_clusters(memory.device)
         if not TK.train_supported_shape(B, T_in, cfg, clusters):
@@ -266,7 +274,7 @@ def decode_teacher_forced(
         )
     B, T_out, M = mel_targets.shape
     r = cfg.outputs_per_step
-    keys = ATT.precompute_keys(params["attention"], memory)
+    keys = ATT.precompute_keys(params["attention"], cfg, memory)
     # <GO> zero frame, then the target frames strided by r, shifted one step
     strided = mel_targets[:, r - 1::r, :]
     dec_inputs = torch.cat([mel_targets.new_zeros(B, 1, M), strided[:, :-1, :]], dim=1)

@@ -2,27 +2,33 @@
 plain version.
 
 ``decode_autoregressive_kernel`` runs the whole decode to ``max_iters``
-(csrc/tacotron_decode.cu: one launch per row group, whole-batch early
+steps (csrc/tacotron_decode.cu: one launch per row group, whole-batch early
 exit); ``decode_autoregressive_plain`` is the same function in plain
 PyTorch, a loop over ``models.tacotron.decoder_step`` with the same random
 generator.  Both take (params, cfg, memory [B, T_in, V], mem_mask [B, T_in],
-seeds [B], max_iters) and return (frames [B, T, 80], stops [B, T],
-aligns [B, T, T_in], stop_len [B]).  For a CUDA tensor the wrapper
-launches the kernel or raises; only a CPU tensor goes to the plain version.
+seeds [B], max_iters) and return (frames [B, T*r, 80], stops [B, T*r],
+aligns [B, T, T_in], stop_len [B] in frames), r = cfg.outputs_per_step.
+For a CUDA tensor the wrapper launches the kernel or raises; only a CPU
+tensor goes to the plain version.
 
 The kernel is one grid of thread-block clusters (about one block per SM)
-that holds every decoder weight on chip for the whole decode.  ``k2_plan``
-is that grid's plan, term for term as the .cu file computes it; the wrapper
-compares it with the library's own numbers before every launch.  A batch
-that one launch cannot hold (more rows than the grid's, or shared memory
-for the rows and positions) runs as sequential launches over equal row
-groups, the last one padded by repeating a real row (``row_groups``): a
-row's decode depends only on its own inputs and seed, so its stop length
-and its frames up to the stop are those of one decode over all rows.
+that holds every decoder weight feeding the next step on chip for the whole
+decode.  ``k2_plan`` is that grid's plan, term for term as the .cu file
+computes it; the wrapper compares it with the library's own numbers before
+every launch.  A batch that one launch cannot hold (more rows than the
+grid's, or shared memory for the rows and positions) runs as sequential
+launches over equal row groups, the last one padded by repeating a real row
+(``row_groups``): a row's decode depends only on its own inputs and seed,
+so its stop length and its frames up to the stop are those of one decode
+over all rows.
 
-Scope: forward attention, r = 1, no anti-repeat, no smoothing, two prenet
-layers, widths that are multiples of 4.  Everything else raises
-NotImplementedError (ROADMAP.md, queue item 6).
+Scope of the kernel (``check_supported``, the TPU kernel's ``supported``
+less GMM and Graves): forward attention with or without anti-repeat, LSA
+with or without the synthesis window (either type, cumulative_weights on or
+off), either with smoothing; r = 1-6 under either stop policy; two prenet
+layers; widths that are multiples of 4.  GMM and Graves attention run in the
+plain version only: on the card they raise NotImplementedError (ROADMAP.md,
+queue item 16).
 
 Randomness: the prenet dropout of row b at step t draws
 ``hash_bits(seeds[b], 0, t, lane)`` with lanes [0, p1) for the first layer
@@ -45,10 +51,11 @@ from . import (
 
 NUM_MELS = 80
 STOP_FILL = 1e4  # stop logit written for steps after every row is done
+MAX_R = 6  # frames a step the kernel takes (the TPU kernel's bound)
 
 WEIGHT_ORDER = (
     "pre_w1", "pre_b1", "pre_w2", "pre_b2", "l1", "l1_b", "l2", "l2_b",
-    "wq", "w_comb", "b_comb", "att_v", "att_b", "proj", "proj_b",
+    "wq", "w_comb", "b_comb", "att_v", "att_b", "proj", "proj_b", "wx", "wx_b",
 )
 
 
@@ -65,47 +72,78 @@ def row_seeds(seeds, batch: int, device) -> torch.Tensor:
     return s.to(torch.int32).contiguous()
 
 
-def check_supported(cfg: TacotronModelConfig) -> None:
-    """Raise for the decoder configurations the kernel does not run yet."""
-    from ..models.attention import check_supported as check_attention
+def check_supported(cfg: TacotronModelConfig, device=None) -> None:
+    """Raise for a decoder configuration that cannot run on ``device``
+    (None: the card).  The plain version (CPU) runs every attention mode
+    and every r; the kernel runs forward and LSA attention at r = 1-6."""
+    from ..models.attention import MODES
 
-    check_attention(cfg)
-    if cfg.outputs_per_step != 1:
-        raise NotImplementedError(
-            f"outputs_per_step={cfg.outputs_per_step}: only r=1 is ported "
-            "(ROADMAP.md, queue item 6: r up to 6)"
-        )
+    if cfg.attention_mode not in MODES:
+        raise ValueError(f"unknown attention mode {cfg.attention_mode!r}")
+    if cfg.outputs_per_step < 1:
+        raise ValueError(f"outputs_per_step={cfg.outputs_per_step} must be at least 1")
     if len(cfg.prenet_layers) != 2:
-        raise NotImplementedError("the decoder kernel takes exactly two prenet layers")
+        raise NotImplementedError("the decoder kernel and its plain version take exactly two prenet layers")
+    if device is not None and torch.device(device).type == "cpu":
+        return
+    if cfg.attention_mode in ("gmm", "graves"):
+        raise NotImplementedError(
+            f"attention_mode={cfg.attention_mode!r}: the decode kernel runs forward and LSA attention; "
+            "GMM and Graves run in the plain version on the CPU only (ROADMAP.md, queue item 16)"
+        )
+    if cfg.outputs_per_step > MAX_R:
+        raise NotImplementedError(
+            f"outputs_per_step={cfg.outputs_per_step}: the decode kernel takes r up to {MAX_R}, as the TPU "
+            "kernel does (ROADMAP.md, queue item 15)"
+        )
 
 
-def stop_lengths(stops: torch.Tensor, max_iters: int) -> torch.Tensor:
-    """First frame whose stop sigmoid passes 0.5 (exclusive), else
-    max_iters (reference tacotron_synthesize.py:105)."""
-    finished = torch.sigmoid(stops) > 0.5
-    idx = torch.argmax(finished.to(torch.int32), dim=-1)
-    return torch.where(finished.any(dim=-1), idx, torch.full_like(idx, max_iters)).to(torch.int32)
+def k2_variant(cfg: TacotronModelConfig) -> int:
+    """The kernel instantiation of ``cfg`` (csrc/tacotron_decode.cu
+    k2_kernel): bit 0 LSA, bit 1 anti-repeat (forward attention only; for
+    LSA the flag picks the window's type), bit 2 smoothing, bit 3 the LSA
+    synthesis window."""
+    lsa = cfg.attention_mode == "lsa"
+    return (int(lsa) | (int(cfg.anti_repeat and not lsa) << 1) | (int(cfg.smoothing) << 2)
+            | (int(lsa and cfg.synthesis_constraint) << 3))
+
+
+def stop_lengths(stops: torch.Tensor, max_iters: int, r: int = 1, stop_at_any: bool = True) -> torch.Tensor:
+    """Frames until the stop (exclusive of the first flagged frame,
+    reference tacotron_synthesize.py:105), from stops [B, T*r]: the first
+    step whose r flags (sigmoid > 0.5) are any (``stop_at_any``) or all
+    set, times r, plus the first flagged frame inside it; else max_iters * r
+    (the JAX decode's per-step rule, models/tacotron.py:483-493)."""
+    B = stops.shape[0]
+    fin = (torch.sigmoid(stops) > 0.5).reshape(B, -1, r)
+    ex_done = fin.any(dim=-1) if stop_at_any else fin.all(dim=-1)
+    idx = torch.argmax(ex_done.to(torch.int32), dim=-1)
+    step_fin = fin[torch.arange(B, device=stops.device), idx]
+    first = torch.argmax(step_fin.to(torch.int32), dim=-1)
+    full = torch.full_like(idx, max_iters * r)
+    return torch.where(ex_done.any(dim=-1), idx * r + first, full).to(torch.int32)
 
 
 def pack_weights(params: dict, cfg: TacotronModelConfig) -> dict:
     """Model params -> the kernel's layout: every dense transposed to
-    [out, in]; the frame, stop and mu projections stacked into one [82, u+V]
-    matrix over the input [out2 | context]; the location conv and location
-    dense combined into one [taps, A] filter."""
+    [out, in]; the projection outputs that stay on chip (the last frame,
+    the r stop logits and, for forward attention, mu) stacked into one
+    [NP, u+V] matrix over the input [out2 | context]; the location conv and
+    location dense combined into one [taps, A] filter.  The other frame
+    columns ("wx") are packed per plan (``pack_other_frames``)."""
     from ..models.attention import combined_location_weights
 
     att = params["attention"]
-    V = params["frame_projection"]["w"].shape[0] - cfg.decoder_lstm_units
-    mu_w = att["mu_layer"]["w"]  # rows [context (V); query (u)]
+    U = cfg.decoder_lstm_units
+    V = params["frame_projection"]["w"].shape[0] - U
     w_comb, b_comb = combined_location_weights(att)
     t = lambda a: a.t().contiguous()
-    proj = torch.cat(
-        [params["frame_projection"]["w"], params["stop_projection"]["w"],
-         torch.cat([mu_w[V:], mu_w[:V]], dim=0)], dim=1,
-    )
-    proj_b = torch.cat(
-        [params["frame_projection"]["b"], params["stop_projection"]["b"], att["mu_layer"]["b"]]
-    )
+    fw, fb = params["frame_projection"]["w"], params["frame_projection"]["b"]
+    cols, bias = [fw[:, -NUM_MELS:], params["stop_projection"]["w"]], [fb[-NUM_MELS:], params["stop_projection"]["b"]]
+    if cfg.attention_mode == "forward":
+        mu_w = att["mu_layer"]["w"]  # rows [context (V); query (u)]
+        cols.append(torch.cat([mu_w[V:], mu_w[:V]], dim=0))
+        bias.append(att["mu_layer"]["b"])
     layers = params["prenet"]["layers"]
     return {
         "pre_w1": t(layers[0]["w"]), "pre_b1": layers[0]["b"].contiguous(),
@@ -115,8 +153,25 @@ def pack_weights(params: dict, cfg: TacotronModelConfig) -> dict:
         "wq": t(att["query_layer"]["w"]),
         "w_comb": w_comb.contiguous(), "b_comb": b_comb.contiguous(),
         "att_v": att["v"].contiguous(), "att_b": att["b"].contiguous(),
-        "proj": t(proj), "proj_b": proj_b.contiguous(),
+        "proj": t(torch.cat(cols, dim=1)), "proj_b": torch.cat(bias).contiguous(),
+        "wx_b": fb[: fb.shape[0] - NUM_MELS].contiguous(),
     }
+
+
+def pack_other_frames(params: dict, plan: "K2Plan") -> torch.Tensor:
+    """The frame columns before the last frame, [CLUSTER, 80(r-1), LKP]:
+    rank q's slice holds them over the projection inputs it owns, in the
+    order of its input row (its out2 K-units from 0, its context K-slice
+    from k_units; zeros elsewhere).  The kernel reads them from global
+    memory: they only leave the kernel."""
+    fw = params["frame_projection"]["w"]
+    U, Ku = plan.dims[2], plan.k_units
+    wx = fw.new_zeros(CLUSTER, plan.NX, plan.lkp)
+    for q in range(CLUSTER):
+        ku, kv = plan.k_unit_range(q), plan.ctx_range(q)
+        wx[q, :, : len(ku)] = fw[list(ku), : plan.NX].t()
+        wx[q, :, Ku: Ku + len(kv)] = fw[[U + v for v in kv], : plan.NX].t()
+    return wx.contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -125,8 +180,6 @@ def pack_weights(params: dict, cfg: TacotronModelConfig) -> dict:
 
 CLUSTER = 8  # blocks of a thread-block cluster
 SMEM_LIMIT = 232448  # opt-in dynamic shared memory of one block on sm_90
-NPROJ = NUM_MELS + 2  # frame | stop | mu
-LDP = NPROJ + 2  # row stride of the projection partials
 POSITIONS = 32  # attention positions a row block aims for (K2_POS)
 
 
@@ -161,7 +214,9 @@ class K2Plan:
     context inputs; cluster c owns the gate outputs of the units
     [c*units_c, ...) (rank q merging [q*units_b, ...) of them); row b's
     attention runs on blocks_per_row blocks of cluster b // rows_per_cluster,
-    ``positions`` encoder positions each."""
+    ``positions`` encoder positions each.  Of the projection, NP outputs
+    stay on chip (the last frame, r stops, mu when ``mu``); cluster c
+    computes the other frame columns [c*ec, ...) of NX from global memory."""
 
     B: int
     T_in: int
@@ -177,6 +232,40 @@ class K2Plan:
     rows_per_cluster: int
     blocks_per_row: int
     positions: int
+    r: int = 1
+    mu: int = 1
+
+    @property
+    def NP(self) -> int:
+        return NUM_MELS + self.r + self.mu
+
+    @property
+    def NX(self) -> int:
+        return NUM_MELS * (self.r - 1)
+
+    @property
+    def ec(self) -> int:
+        return _cdiv(self.NX, self.clusters)
+
+    @property
+    def ldp(self) -> int:
+        """Row stride of the merged projection outputs."""
+        return _up4(self.NP + 2)
+
+    @property
+    def ldx(self) -> int:
+        """Row stride of the projection partials (on-chip outputs, then the
+        cluster's other frame columns)."""
+        return self.ldp + _up4(self.ec)
+
+    @property
+    def lkp(self) -> int:
+        """Row stride of a rank's projection inputs [out2 K-units | ctx K-slice]."""
+        return _up4(self.k_units + self.ctx_k) + 4
+
+    def other_frames(self, c: int) -> range:
+        """The frame columns (of the NX before the last frame) cluster c computes."""
+        return _cut(c, self.ec, self.NX)
 
     def k_unit_range(self, q: int) -> range:
         return _cut(q, self.k_units, self.dims[2])
@@ -216,11 +305,12 @@ class K2Plan:
         term for term."""
         P1, P2, U, V, A, taps = self.dims
         B, Ku, Kp, Kv, ng, nT = self.B, self.k_units, self.prenet_k, self.ctx_k, 4 * self.units_c, self.positions
-        LK1, LK2, LKP = _up4(Kp + Kv + Ku) + 4, _up4(2 * Ku) + 4, _up4(Ku + Kv) + 4
+        LK1, LK2, LKP = _up4(Kp + Kv + Ku) + 4, _up4(2 * Ku) + 4, self.lkp
         LKM, LKG = _up4(NUM_MELS) + 4, _up4(P1) + 4
-        weights = (ng * LK1 + ng * LK2 + Ku * A + NPROJ * LKP + self.pre1_k * LKM + Kp * LKG + _up4(taps * A)
+        LDP, LDX = self.ldp, self.ldx
+        weights = (ng * LK1 + ng * LK2 + Ku * A + self.NP * LKP + self.pre1_k * LKM + Kp * LKG + _up4(taps * A)
                    + _up4(self.pre1_k) + _up4(Kp) + LDP + 2 * _up4(A))
-        rows = _up4(4 * B * Ku) + B * LK1 + B * max(LKG, LKP) + B * max(ng, LDP) + B * LDP + 4 * _up4(B)
+        rows = _up4(4 * B * Ku) + B * LK1 + B * max(LKG, LKP) + B * max(ng, LDX) + B * LDP + 4 * _up4(B)
         attention = (self.rows_per_cluster * A + _up4(A) + _up4(nT + taps - 1) + 3 * _up4(nT) + _up4(V)
                      + 16 + 64)
         return weights + rows + attention
@@ -239,10 +329,11 @@ class K2Plan:
         return self.blocks_per_row > 0 and self.smem_bytes() <= SMEM_LIMIT
 
 
-def k2_plan(batch: int, t_in: int, dims: tuple, clusters: int) -> K2Plan:
+def k2_plan(batch: int, t_in: int, dims: tuple, clusters: int, r: int = 1, mu: int = 1) -> K2Plan:
     """The plan of one launch for ``clusters`` resident clusters
-    (``k2_plan`` of the .cu file, term for term); ``fits`` says whether it
-    launches."""
+    (``k2_plan`` of the .cu file, term for term), r frames a step, ``mu``
+    1 for forward attention (the projection's mu column), 0 for LSA;
+    ``fits`` says whether it launches."""
     P1, P2, U, V, A, taps = dims
     rpc = 1
     while rpc * clusters < batch:
@@ -255,17 +346,17 @@ def k2_plan(batch: int, t_in: int, dims: tuple, clusters: int) -> K2Plan:
     uc = _cdiv(U, clusters)
     return K2Plan(batch, t_in, tuple(dims), clusters, clusters * CLUSTER, _cdiv(U, CLUSTER), uc,
                   _cdiv(uc, CLUSTER), _cdiv(P1, CLUSTER), _cdiv(P2, CLUSTER), _cdiv(V, CLUSTER),
-                  rpc, bpr, _cdiv(t_in, bpr) if bpr else 0)
+                  rpc, bpr, _cdiv(t_in, bpr) if bpr else 0, r, mu)
 
 
-def rows_per_launch(t_in: int, dims: tuple, clusters: int) -> int:
+def rows_per_launch(t_in: int, dims: tuple, clusters: int, r: int = 1, mu: int = 1) -> int:
     """The most rows one launch takes at this encoder length (the grid's
     rows, and shared memory, which grows with the rows and with a block's
     positions); 0 when not even one row fits."""
     lo, hi = 0, clusters * CLUSTER  # fits() only turns false as the rows grow
     while lo < hi:
         mid = (lo + hi + 1) // 2
-        if k2_plan(mid, t_in, dims, clusters).fits():
+        if k2_plan(mid, t_in, dims, clusters, r, mu).fits():
             lo = mid
         else:
             hi = mid - 1
@@ -311,12 +402,12 @@ def card_clusters(device: torch.device) -> int:
     return _CLUSTERS[key]
 
 
-def launch_group(t_in: int, dims: tuple, clusters: int) -> int:
+def launch_group(t_in: int, dims: tuple, clusters: int, r: int = 1, mu: int = 1) -> int:
     """Rows per launch; NotImplementedError when not even one row fits."""
-    group = rows_per_launch(t_in, dims, clusters)
+    group = rows_per_launch(t_in, dims, clusters, r, mu)
     if group == 0:
         raise NotImplementedError(
-            f"T_in={t_in} with widths {dims} is beyond the decode kernel's envelope on a card with {clusters} "
+            f"T_in={t_in} with widths {dims} and r={r} is beyond the decode kernel's envelope on a card with {clusters} "
             f"resident clusters of {CLUSTER} blocks: one row's weight slices and positions exceed a block's "
             f"shared memory (ROADMAP.md, queue item 15)"
         )
@@ -326,15 +417,16 @@ def launch_group(t_in: int, dims: tuple, clusters: int) -> int:
 def decode_autoregressive_kernel(params, cfg: TacotronModelConfig, memory, mem_mask, seeds, max_iters: int):
     """The whole decode.  CUDA: one kernel launch per row group; CPU: the
     plain version."""
-    check_supported(cfg)
+    check_supported(cfg, memory.device)
     if memory.device.type == "cpu":
         return decode_autoregressive_plain(params, cfg, memory, mem_mask, seeds, max_iters)
     if memory.device.type != "cuda":
         raise NotImplementedError(f"no decoder kernel for device {memory.device}")
-    from ..models.attention import precompute_keys
+    from ..models.attention import lsa_window_bounds, precompute_keys
 
     dev = memory.device
     B, T_in, V = memory.shape
+    r, mu = cfg.outputs_per_step, int(cfg.attention_mode == "forward")
     dims = widths(cfg, V)
     P1, P2, U, _, A, taps = dims
     for name, n in (("prenet widths", P1), ("prenet widths", P2), ("decoder_lstm_units", U),
@@ -342,52 +434,60 @@ def decode_autoregressive_kernel(params, cfg: TacotronModelConfig, memory, mem_m
         if n % 4:
             raise NotImplementedError(f"the decoder kernel needs {name} divisible by 4, got {n}")
     w = pack_weights(params, cfg)
+    NP = NUM_MELS + r + mu
     shapes = {
         "pre_w1": (P1, NUM_MELS), "pre_b1": (P1,), "pre_w2": (P2, P1), "pre_b2": (P2,),
         "l1": (4 * U, P2 + V + U), "l1_b": (4 * U,), "l2": (4 * U, 2 * U), "l2_b": (4 * U,),
         "wq": (A, U), "w_comb": (taps, A), "b_comb": (A,), "att_v": (A,), "att_b": (A,),
-        "proj": (NPROJ, U + V), "proj_b": (NPROJ,),
+        "proj": (NP, U + V), "proj_b": (NP,), "wx_b": (NUM_MELS * (r - 1),),
     }
-    for k in WEIGHT_ORDER:
-        require_f32_contiguous(k, w[k], dev, shapes[k])
+    for k, shape in shapes.items():
+        require_f32_contiguous(k, w[k], dev, shape)
     seeds = row_seeds(seeds, B, dev)
     mem_mask = mem_mask.to(torch.float32)
     if max_iters <= 0 or B == 0:  # nothing to run
-        stops = memory.new_empty((B, max(max_iters, 0)))
-        return (memory.new_empty((B, stops.shape[1], NUM_MELS)), stops,
-                memory.new_empty((B, stops.shape[1], T_in)), stop_lengths(stops, max_iters))
+        T = max(max_iters, 0)
+        stops = memory.new_empty((B, T * r))
+        return (memory.new_empty((B, T * r, NUM_MELS)), stops, memory.new_empty((B, T, T_in)),
+                stop_lengths(stops, T, r, cfg.stop_at_any))
     clusters = card_clusters(dev)
-    group = launch_group(T_in, dims, clusters)
+    group = launch_group(T_in, dims, clusters, r, mu)
     rate = float(cfg.dropout_rate)
+    back, ahead = lsa_window_bounds(cfg)
+    cw = 1.0 if cfg.attention_mode == "forward" or cfg.cumulative_weights else 0.0
     lib = load("tacotron_decode.cu")
 
     def launch(mem, mask, sd):
         Bg = mem.shape[0]
-        plan = k2_plan(Bg, T_in, dims, clusters)
-        lib_smem = lib.tacotron_decode_smem_bytes(Bg, T_in, *dims, clusters)
-        lib_scratch = lib.tacotron_decode_scratch_floats(Bg, T_in, *dims, clusters)
+        plan = k2_plan(Bg, T_in, dims, clusters, r, mu)
+        lib_smem = lib.tacotron_decode_smem_bytes(Bg, T_in, *dims, r, mu, clusters)
+        lib_scratch = lib.tacotron_decode_scratch_floats(Bg, T_in, *dims, r, mu, clusters)
         if (lib_smem, lib_scratch) != (plan.smem_bytes(), plan.scratch_floats()):
             raise RuntimeError(
                 f"tacotron_decode: the library's layout ({lib_smem} bytes of shared memory, {lib_scratch} "
                 f"exchange floats) differs from k2_plan ({plan.smem_bytes()}, {plan.scratch_floats()})"
             )
-        keys = precompute_keys(params["attention"], mem).contiguous()
+        wx = pack_other_frames(params, plan) if r > 1 else w["wx_b"].new_zeros(4)
+        require_f32_contiguous("wx", wx, dev, (CLUSTER, plan.NX, plan.lkp) if r > 1 else (4,))
+        keys = precompute_keys(params["attention"], cfg, mem).contiguous()
         mem = mem.contiguous()
         mask = mask.contiguous()
         require_f32_contiguous("keys", keys, dev, (Bg, T_in, A))
         require_f32_contiguous("memory", mem, dev, (Bg, T_in, V))
         require_f32_contiguous("mem_mask", mask, dev, (Bg, T_in))
-        frames = torch.empty((max_iters, Bg, NUM_MELS), dtype=torch.float32, device=dev)
-        stops = torch.empty((max_iters, Bg), dtype=torch.float32, device=dev)
+        frames = torch.empty((max_iters, Bg, NUM_MELS * r), dtype=torch.float32, device=dev)
+        stops = torch.empty((max_iters, Bg, r), dtype=torch.float32, device=dev)
         aligns = torch.empty((max_iters, Bg, T_in), dtype=torch.float32, device=dev)
         scratch = torch.empty((plan.scratch_floats(),), dtype=torch.float32, device=dev)
         counter = torch.zeros((1,), dtype=torch.int32, device=dev)
-        tensors = [keys, mem, mask, sd, *[w[k] for k in WEIGHT_ORDER], frames, stops, aligns, scratch]
+        weights = [wx if k == "wx" else w[k] for k in WEIGHT_ORDER]
+        tensors = [keys, mem, mask, sd, *weights, frames, stops, aligns, scratch]
         ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
         with torch.cuda.device(dev):
             err = lib.tacotron_decode_launch(
-                ptrs, ptr(counter), Bg, T_in, *dims, int(max_iters), clusters,
-                float(cfg.zoneout_rate), 1.0 - float(cfg.zoneout_rate), 1.0 - rate,
+                ptrs, ptr(counter), Bg, T_in, *dims, r, k2_variant(cfg), int(max_iters), clusters,
+                1 if cfg.stop_at_any else r, back, ahead, int(cfg.dwell_limit_first), int(cfg.dwell_limit_rest),
+                cw, float(cfg.zoneout_rate), 1.0 - float(cfg.zoneout_rate), 1.0 - rate,
                 keep_threshold(rate) if rate > 0.0 else 0xFFFFFFFF, stream_ptr(dev),
             )
         LAUNCHES["tacotron_decode"] += 1
@@ -395,7 +495,9 @@ def decode_autoregressive_kernel(params, cfg: TacotronModelConfig, memory, mem_m
         return frames.transpose(0, 1), stops.transpose(0, 1), aligns.transpose(0, 1)
 
     frames, stops, aligns = decode_in_groups(launch, memory, mem_mask, seeds, group)
-    return frames, stops, aligns, stop_lengths(stops, max_iters)
+    frames = frames.reshape(B, max_iters * r, NUM_MELS)
+    stops = stops.reshape(B, max_iters * r)
+    return frames, stops, aligns, stop_lengths(stops, max_iters, r, cfg.stop_at_any)
 
 
 def prenet_keep_masks(seeds: torch.Tensor, step: int, p1: int, p2: int, rate: float):
@@ -410,7 +512,10 @@ def prenet_keep_masks(seeds: torch.Tensor, step: int, p1: int, p2: int, rate: fl
 def decode_autoregressive_plain(
     params, cfg: TacotronModelConfig, memory, mem_mask, seeds, max_iters: int, prenet_masks=None
 ):
-    """Plain version of the decode kernel (the ``decoder_step`` loop).
+    """Plain version of the decode kernel (the ``decoder_step`` loop), for
+    every attention mode and every r: the last of a step's r frames is fed
+    back, and a row is done at the first step whose stop flags are any
+    (``cfg.stop_at_any``) or all set.
 
     ``prenet_masks`` (optional): one boolean keep-mask per prenet layer,
     shaped [T, B, width], replacing the generator's draws (tests inject
@@ -420,16 +525,20 @@ def decode_autoregressive_plain(
     from ..models import attention as ATT
     from ..models import tacotron as T
 
-    check_supported(cfg)
+    check_supported(cfg, "cpu")
     B, T_in, V = memory.shape
     dev = memory.device
+    r = cfg.outputs_per_step
     p1, p2 = cfg.prenet_layers
     rate = float(cfg.dropout_rate)
     seeds = row_seeds(seeds, B, dev)
-    keys = ATT.precompute_keys(params["attention"], memory)
-    w_comb, b_comb = ATT.combined_location_weights(params["attention"])
-    frames = memory.new_zeros(max_iters, B, NUM_MELS)
-    stops = memory.new_full((max_iters, B), STOP_FILL)
+    att = params["attention"]
+    keys = ATT.precompute_keys(att, cfg, memory)
+    w_comb = b_comb = None
+    if "location_conv" in att:  # hoisted out of the loop
+        w_comb, b_comb = ATT.combined_location_weights(att)
+    frames = memory.new_zeros(max_iters, B, NUM_MELS * r)
+    stops = memory.new_full((max_iters, B, r), STOP_FILL)
     aligns = memory.new_zeros(max_iters, B, T_in)
     carry = T.init_decoder_carry(cfg, B, T_in, V, dev)
     prev = memory.new_zeros(B, NUM_MELS)
@@ -440,16 +549,17 @@ def decode_autoregressive_plain(
         if rate <= 0.0:
             masks = None
         elif prenet_masks is not None:
-            masks = (prenet_masks[0][t].to(dev), prenet_masks[1][t].to(dev))
+            masks = tuple(m[t].to(dev) for m in prenet_masks)
         else:
             masks = prenet_keep_masks(seeds, t, p1, p2, rate)
         frame, stop, align, carry = T.decoder_step(
             params, cfg, prev, carry, keys, memory, mem_mask, masks, w_comb, b_comb
         )
-        frames[t], stops[t], aligns[t] = frame, stop[:, 0], align
-        finished = finished | (torch.sigmoid(stop[:, 0]) > 0.5)
-        prev = frame
-    frames = frames.transpose(0, 1)
-    stops = stops.transpose(0, 1)
+        frames[t], stops[t], aligns[t] = frame, stop, align
+        fired = torch.sigmoid(stop) > 0.5
+        finished = finished | (fired.any(dim=-1) if cfg.stop_at_any else fired.all(dim=-1))
+        prev = frame[:, -NUM_MELS:]
+    frames = frames.transpose(0, 1).reshape(B, max_iters * r, NUM_MELS)
+    stops = stops.transpose(0, 1).reshape(B, max_iters * r)
     aligns = aligns.transpose(0, 1)
-    return frames, stops, aligns, stop_lengths(stops, max_iters)
+    return frames, stops, aligns, stop_lengths(stops, max_iters, r, cfg.stop_at_any)

@@ -261,20 +261,15 @@ class _Init:
 
 
 def init_tacotron(seed: int, cfg: TacotronModelConfig, device="cpu") -> Params:
-    """Random Tacotron-2 params with the JAX init's tree and shapes
-    (forward attention; the other attention modes and the CBHG head are
-    not ported yet, see ROADMAP.md, queue items 6 and 12)."""
-    if cfg.attention_mode != "forward":
-        raise NotImplementedError(
-            f"attention_mode={cfg.attention_mode!r} is not ported yet "
-            "(ROADMAP.md, queue item 6: the decoder kernel's remaining branches)"
-        )
+    """Random Tacotron-2 params with the JAX init's tree and shapes, for
+    every attention mode and every r (the CBHG head is not ported yet, see
+    ROADMAP.md, queue item 12)."""
     if cfg.predict_linear:
         raise NotImplementedError("the CBHG mel->linear head is not ported yet (ROADMAP.md, queue item 12)")
     g = _Init(seed, device)
     enc_out = 2 * cfg.encoder_lstm_units
     M, r = 80, cfg.outputs_per_step
-    A, q = cfg.attention_dim, cfg.decoder_lstm_units
+    q = cfg.decoder_lstm_units
     prenet, d = [], M
     for s in cfg.prenet_layers:
         prenet.append(g.dense(d, s))
@@ -286,15 +281,7 @@ def init_tacotron(seed: int, cfg: TacotronModelConfig, device="cpu") -> Params:
         ),
         "enc_lstm_fw": g.lstm(cfg.enc_conv_channels, cfg.encoder_lstm_units),
         "enc_lstm_bw": g.lstm(cfg.enc_conv_channels, cfg.encoder_lstm_units),
-        "attention": {
-            "memory_layer": g.dense(enc_out, A, bias=False),
-            "query_layer": g.dense(q, A, bias=False),
-            "location_conv": g.conv(cfg.attention_kernel, 1, cfg.attention_filters),
-            "location_layer": g.dense(cfg.attention_filters, A, bias=False),
-            "v": g.glorot((A,)),
-            "b": g.full((A,), 0.0),
-            "mu_layer": g.dense(enc_out + q, 1),
-        },
+        "attention": _init_attention(g, cfg, enc_out, q),
         "prenet": {"layers": prenet},
         "dec_lstm1": g.lstm(cfg.prenet_layers[-1] + enc_out, cfg.decoder_lstm_units),
         "dec_lstm2": g.lstm(cfg.decoder_lstm_units, cfg.decoder_lstm_units),
@@ -303,6 +290,33 @@ def init_tacotron(seed: int, cfg: TacotronModelConfig, device="cpu") -> Params:
         "postnet": g.conv_stack(cfg.postnet_layers, cfg.postnet_kernel, M, cfg.postnet_channels),
         "postnet_projection": g.dense(cfg.postnet_channels, M),
     }
+
+
+def _init_attention(g: _Init, cfg: TacotronModelConfig, memory_dim: int, query_dim: int) -> Params:
+    """The attention params of ``cfg.attention_mode`` (JAX
+    models/attention.py init_params)."""
+    mode, A = cfg.attention_mode, cfg.attention_dim
+    if mode in ("forward", "lsa"):
+        p = {
+            "memory_layer": g.dense(memory_dim, A, bias=False),
+            "query_layer": g.dense(query_dim, A, bias=False),
+            "location_conv": g.conv(cfg.attention_kernel, 1, cfg.attention_filters),
+            "location_layer": g.dense(cfg.attention_filters, A, bias=False),
+            "v": g.glorot((A,)),
+            "b": g.full((A,), 0.0),
+        }
+        if mode == "forward":
+            p["mu_layer"] = g.dense(memory_dim + query_dim, 1)  # over [context, query]
+        return p
+    if mode == "gmm":
+        return {"gmm_layer": g.dense(query_dim + memory_dim, 3 * cfg.num_attn_mixtures)}
+    if mode == "graves":
+        H, h = cfg.graves_heads, cfg.decoder_lstm_units // 4
+        p = {"layer1": g.dense(query_dim, h), "layer2": g.dense(h, 3 * H)}
+        if not g.meta:  # bias (0, 10, 1) per (g, b, k) block (reference graves_attention.py:36-38)
+            p["layer2"]["b"] = g._t(np.concatenate([np.zeros(H), np.full(H, 10.0), np.ones(H)]))
+        return p
+    raise ValueError(f"unknown attention mode {mode!r}")
 
 
 def init_wavernn(

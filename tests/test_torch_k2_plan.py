@@ -10,8 +10,11 @@ gives), and a shape beyond it raises; a plain-torch emulation of the grid's
 split (K-sliced products merged in rank order, the projection and the
 prenet redundant in every cluster, per-cluster done flags, a row's
 attention over its blocks) equals ``decode_autoregressive_plain``, with
-every cluster leaving the step loop at the same step; and the row-group
-path equals one plain decode over all rows."""
+every cluster leaving the step loop at the same step, for the default
+branch and for anti-repeat, smoothing, LSA and its window and r = 2-6 (the
+row's argmax merged over its blocks, the other frame columns from each
+cluster's share); the plan's projection outputs and shared memory for each
+mode and r; and the row-group path equals one plain decode over all rows."""
 
 import dataclasses
 
@@ -81,7 +84,7 @@ def test_every_weight_is_held_once_per_cluster():
     l2 = sum(4 * len(cu[c]) * 2 * len(plan.k_unit_range(q)) for c in range(plan.clusters) for q in range(C))
     assert (l1, l2) == (4 * U * (P2 + V + U), 4 * U * 2 * U)
     assert sum(len(plan.k_unit_range(q)) * A for q in range(C)) == U * A
-    assert sum(DK.NPROJ * len(plan.proj_inputs(q)) for q in range(C)) == DK.NPROJ * (U + V)
+    assert sum(plan.NP * len(plan.proj_inputs(q)) for q in range(C)) == plan.NP * (U + V)
     assert sum(len(plan.pre1_range(q)) * 80 + len(plan.pre2_range(q)) * P1 for q in range(C)) == 80 * P1 + P2 * P1
 
 
@@ -168,22 +171,46 @@ def _inputs(cfg, B, T_in, seed, stop_bias=None):
     return params, memory, mask
 
 
+def _row_argmax(x, slices):
+    """The row's (max, first index) as the kernel merges it: each block's
+    first maximum over its slice, then the blocks in rank order, a later
+    block taking over only on a larger value."""
+    best_v, best_i = -float("inf"), None
+    for r in slices:
+        if len(r):
+            i = r.start + int(torch.argmax(x[r]))  # torch.argmax: the first maximum
+            if float(x[i]) > best_v:
+                best_v, best_i = float(x[i]), i
+    return best_i
+
+
 def emulate_decode(plan, params, cfg, memory, mem_mask, seeds, max_iters):
     """K2's split, one cluster at a time within each step: x1/x2 slices of
     each rank against its gate rows, partials added in rank order and merged
-    by the cluster that owns the unit; LSTM epilogues, prenet and projection
-    computed in every cluster for all rows (projection partials over each
-    rank's [out2 | ctx] inputs, merged in rank order); per-cluster done
-    flags; a row's attention over its blocks (per-slice softmax statistics,
-    normaliser and context partials merged in the row's rank order).
-    Returns the kernel's outputs [T, B, ...] and each cluster's exit step."""
-    from tacotronv2_wavernn_chinese_tpu_torch.models.attention import precompute_keys
+    by the cluster that owns the unit; LSTM epilogues, prenet and the
+    on-chip projection outputs (last frame, r stops, mu) computed in every
+    cluster for all rows (partials over each rank's [out2 | ctx] inputs,
+    merged in rank order); the other frame columns, cluster c's share, from
+    the per-rank packed weights (``pack_other_frames``); per-cluster done
+    flags under the stop policy; a row's attention over its blocks
+    (per-slice softmax or sigmoid statistics, normaliser and context
+    partials merged in the row's rank order; anti-repeat and the LSA window
+    from the row's argmax merged over its blocks, anti-repeat's alignment
+    from its support of at most six positions).  Returns the kernel's
+    outputs [T, B, ...] and each cluster's exit step."""
+    from tacotronv2_wavernn_chinese_tpu_torch.models.attention import lsa_window_bounds, precompute_keys
 
     P1, P2, U, V, A, taps = plan.dims
     B, T_in, _ = memory.shape
-    NC, padl, M = plan.clusters, (taps - 1) // 2, DK.NUM_MELS
+    NC, padl, M, r = plan.clusters, (taps - 1) // 2, DK.NUM_MELS, plan.r
+    forward, lsa = cfg.attention_mode == "forward", cfg.attention_mode == "lsa"
+    anti, win, smooth = forward and cfg.anti_repeat, lsa and cfg.synthesis_constraint, cfg.smoothing
+    cw = 0.0 if lsa and not cfg.cumulative_weights else 1.0
+    back, ahead = lsa_window_bounds(cfg)
+    need = 1 if cfg.stop_at_any else r
     w = DK.pack_weights(params, cfg)
-    keys = precompute_keys(params["attention"], memory)
+    wx = DK.pack_other_frames(params, plan) if r > 1 else None
+    keys = precompute_keys(params["attention"], cfg, memory)
     rate = float(cfg.dropout_rate)
     s64 = DK.row_seeds(seeds, B, "cpu").to(torch.int64)[:, None]
     kr = [plan.k_unit_range(q) for q in range(C)]
@@ -202,13 +229,15 @@ def emulate_decode(plan, params, cfg, memory, mem_mask, seeds, max_iters):
     z = lambda *s: torch.zeros(*s)
     # per-cluster copies of everything a cluster computes for all rows
     st = [[z(B, U) for _ in range(4)] for _ in range(NC)]  # c1, h1, c2, h2
-    fr = [z(B, DK.NPROJ) for _ in range(NC)]
+    fr = [z(B, plan.NP) for _ in range(NC)]
     mu = [torch.full((B,), 0.5) for _ in range(NC)]
     done = [torch.zeros(B, dtype=torch.bool) for _ in range(NC)]
-    ctx, alpha = z(B, V), z(B, T_in)
-    alpha[:, 0] = 1.0
-    cum = alpha.clone()
-    frames, stops, aligns = z(max_iters, B, M), torch.full((max_iters, B), DK.STOP_FILL), z(max_iters, B, T_in)
+    ctx, alpha, cum = z(B, V), z(B, T_in), z(B, T_in)
+    if forward:
+        alpha[:, 0] = cum[:, 0] = 1.0
+    max_att, pos_rec = [0] * B, [0] * B  # held by the row's blocks
+    frames, aligns = z(max_iters, B, M * r), z(max_iters, B, T_in)
+    stops = torch.full((max_iters, B, r), DK.STOP_FILL)
     exits = [None] * NC
 
     def keep(step, lanes):
@@ -262,29 +291,70 @@ def emulate_decode(plan, params, cfg, memory, mem_mask, seeds, max_iters):
         for b, slices in rows.items():
             c = b // plan.rows_per_cluster
             pq = sum(out2[c][b, kr[q]] @ w["wq"][:, kr[q]].t() for q in range(C))
-            win = F.pad(cum[b], (padl, taps - 1 - padl)).unfold(0, taps, 1)  # [T_in, taps]
-            en = torch.tanh(keys[b] + (pq + w["b_comb"] + w["att_b"]) + win @ w["w_comb"]) @ w["att_v"]
-            en = torch.where(mem_mask[b] > 0, en, torch.full_like(en, -1e9))
-            stats = [(en[r].max(), torch.exp(en[r] - en[r].max()).sum()) for r in slices if len(r)]
-            Mx = max(m for m, _ in stats)
-            Zs = sum(zz * torch.exp(m - Mx) for m, zz in stats)
-            a_sm = torch.exp(en - Mx) / Zs
+            win_in = F.pad(cum[b], (padl, taps - 1 - padl)).unfold(0, taps, 1)  # [T_in, taps]
+            en = torch.tanh(keys[b] + (pq + w["b_comb"] + w["att_b"]) + win_in @ w["w_comb"]) @ w["att_v"]
+            pos = torch.arange(T_in)
+            valid = (pos >= max_att[b] - back) & (pos < max_att[b] + ahead) if win else torch.ones(T_in, dtype=torch.bool)
+            if smooth:
+                en = torch.where(valid, torch.sigmoid(en) * mem_mask[b], torch.zeros_like(en))
+                a_sm = en / sum(en[r].sum() for r in slices)
+            else:
+                en = torch.where(valid & (mem_mask[b] > 0), en, torch.full_like(en, -1e9))
+                stats = [(en[r].max(), torch.exp(en[r] - en[r].max()).sum()) for r in slices if len(r)]
+                Mx = max(m for m, _ in stats)
+                a_sm = torch.exp(en - Mx) / sum(zz * torch.exp(m - Mx) for m, zz in stats)
+            a_sm_all[b] = a_sm
+            if lsa:
+                new_alpha[b] = a_sm
+                new_ctx[b] = sum(a_sm[r] @ memory[b, r] for r in slices)
+                if win:
+                    max_att[b] = _row_argmax(a_sm, slices)
+                continue
             shift = F.pad(alpha[b], (1, 0))[:-1]
             pre = ((1 - mu[c][b]) * alpha[b] + mu[c][b] * shift + 1e-10) * a_sm
-            S2 = sum(pre[r].sum() for r in slices)
-            new_alpha[b] = pre / S2
-            new_ctx[b] = sum(new_alpha[b, r] @ memory[b, r] for r in slices)
-            a_sm_all[b] = a_sm
-        ctx, alpha, cum = new_ctx, new_alpha, cum + a_sm_all
+            if not anti:
+                S2 = sum(pre[r].sum() for r in slices)
+                new_alpha[b] = pre / S2
+                new_ctx[b] = sum(new_alpha[b, r] @ memory[b, r] for r in slices)
+                continue
+            arg, pm, pp = _row_argmax(pre, slices), max_att[b], pos_rec[b]
+            m = pm if arg <= pm else pm + 1
+            if pp < cfg.dwell_limit_first and m > 2:
+                m = pm
+            p = pp + 1 if m == pm else 1
+            if p >= cfg.dwell_limit_rest:
+                m, p = m + 1, 1
+            max_att[b], pos_rec[b] = m, p
+            lo, hi, cm = max(m - 2, 0), min(m + 3, T_in), min(max(m, 0), T_in - 1)
+            s_win = sum(float(pre[t]) for t in range(lo, hi))
+            boost = 2.0 * (1.0 if s_win < 1e-10 else s_win)
+            support = {t: (boost if t == cm else float(pre[t])) for t in range(lo, hi)}
+            support.setdefault(cm, boost)
+            total = sum(support.values())
+            for t, v in support.items():
+                new_alpha[b, t] = v / total
+            new_ctx[b] = sum(new_alpha[b, t] * memory[b, t] for t in support)
+        ctx, alpha, cum = new_ctx, new_alpha, cw * cum + a_sm_all
         aligns[s] = alpha
         # projections, mu and the done flags: every cluster for all rows
         pin_cols = [plan.proj_inputs(q) for q in range(C)]
         for c in range(NC):
             pin = torch.cat([out2[c], ctx], -1)
             fr[c] = sum(pin[:, pin_cols[q]] @ w["proj"][:, pin_cols[q]].t() for q in range(C)) + w["proj_b"]
-            mu[c] = torch.sigmoid(fr[c][:, M + 1])
-            done[c] = done[c] | (torch.sigmoid(fr[c][:, M]) > 0.5)
-        frames[s], stops[s] = fr[0][:, :M], fr[0][:, M]
+            if forward:
+                mu[c] = torch.sigmoid(fr[c][:, M + r])
+            fired = (torch.sigmoid(fr[c][:, M:M + r]) > 0.5).sum(-1)
+            done[c] = done[c] | (fired >= need)
+            cols = plan.other_frames(c)  # this cluster's other frame columns, from each rank's packed slice
+            for q in range(C):
+                slots = torch.zeros(B, plan.lkp)
+                slots[:, : len(kr[q])] = out2[c][:, list(kr[q])]
+                slots[:, plan.k_units: plan.k_units + len(rv[q])] = ctx[:, list(rv[q])]
+                if len(cols):
+                    frames[s][:, cols.start:cols.stop] += slots @ wx[q, cols.start:cols.stop].t()
+            if len(cols):
+                frames[s][:, cols.start:cols.stop] += w["wx_b"][cols.start:cols.stop]
+        frames[s][:, M * (r - 1):], stops[s] = fr[0][:, :M], fr[0][:, M:M + r]
         for c in range(NC):
             if exits[c] is None and bool(done[c].all()):
                 exits[c] = s + 1
@@ -320,10 +390,108 @@ def test_grid_split_equals_the_plain_decode(clusters, t_in, stop_bias):
         assert exits == [n_run] * clusters
     else:
         assert exits == [None] * clusters and int(want[3].min()) == max_iters
-    got = (frames.transpose(0, 1), stops.transpose(0, 1), aligns.transpose(0, 1))
+    _assert_equals_plain(frames, stops, aligns, want, max_iters, cfg)
+
+
+# name: (config overrides, stop bias, seed of the weights and inputs): the
+# branches K2 takes beyond the default.  With the stop bias at -30 no row
+# stops in 40 steps, and short dwell limits make anti-repeat walk across
+# the row's blocks; the other seeds stop the rows at different steps.
+BRANCHES = {
+    "anti_repeat": (dict(anti_repeat=True, dwell_limit_first=1, dwell_limit_rest=2), -30.0, 4),
+    "anti_repeat_smoothing": (dict(anti_repeat=True, smoothing=True, dwell_limit_first=2, dwell_limit_rest=3),
+                              -30.0, 4),
+    "lsa_window_monotonic": (dict(attention_mode="lsa", synthesis_constraint=True, anti_repeat=True), -30.0, 4),
+    "lsa_window_symmetric_smoothing": (dict(attention_mode="lsa", synthesis_constraint=True, synthesis_window=4,
+                                            smoothing=True, cumulative_weights=False), -30.0, 4),
+    "lsa": (dict(attention_mode="lsa"), None, 10),
+    "r3_stop_all": (dict(outputs_per_step=3, stop_at_any=False), None, 11),
+    "r6": (dict(outputs_per_step=6), None, 15),
+    "r2_anti_repeat": (dict(outputs_per_step=2, anti_repeat=True, dwell_limit_first=1, dwell_limit_rest=2),
+                       -30.0, 4),
+}
+
+
+@pytest.mark.parametrize("branch", list(BRANCHES))
+def test_branch_grid_split_equals_the_plain_decode(branch):
+    """The grid's split for each branch on 3 clusters at T_in=70 (a row's
+    attention over four blocks of 18 positions, so the argmax, the
+    anti-repeat support and the window cross blocks), B=3, dropout 0.5,
+    40 steps: equal to the plain decode within 1e-5, with every cluster
+    leaving the loop at the step the plain decode's last row stops (or none
+    when the stop bias is -30); at r > 1 the other frame columns come from
+    each cluster's share of the per-rank packed weights."""
+    over, stop_bias, seed = BRANCHES[branch]
+    cfg = dataclasses.replace(_tiny_cfg(0.5), **over)
+    B, T_in, max_iters, clusters, r = 3, 70, 40, 3, cfg.outputs_per_step
+    params, memory, mask = _inputs(cfg, B, T_in, seed=seed, stop_bias=stop_bias)
+    dims = DK.widths(cfg, memory.shape[2])
+    plan = DK.k2_plan(B, T_in, dims, clusters, r, int(cfg.attention_mode == "forward"))
+    assert plan.blocks_per_row == 4
+    seeds = [5, 6, 7]
+    want = DK.decode_autoregressive_plain(params, cfg, memory, mask, seeds, max_iters)
+    frames, stops, aligns, exits = emulate_decode(plan, params, cfg, memory, mask, seeds, max_iters)
+    if stop_bias is None:
+        n_run = int(want[3].max()) // r + 1
+        assert n_run < max_iters and exits == [n_run] * clusters
+        assert len(set((want[3] // r).tolist())) > 1  # rows stop at different steps
+    else:
+        assert exits == [None] * clusters and int(want[3].min()) == max_iters * r
+    _assert_equals_plain(frames, stops, aligns, want, max_iters, cfg)
+    if cfg.anti_repeat and cfg.attention_mode == "forward":
+        assert (want[2] > 0).sum(-1).max() <= 6  # the support: [m-2, m+3) and the clipped bin
+        assert int(torch.argmax(want[2][:, -1], -1).min()) > 18  # the rows walked past the first block
+
+
+@pytest.mark.parametrize("mode", ["forward", "lsa"])
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 5, 6])
+def test_plan_for_each_mode_and_r(r, mode):
+    """The projection outputs kept on chip (the last frame, r stops, mu for
+    forward attention) and the other frame columns split over the clusters;
+    every r up to 6 fits one launch over the serve envelope on the card's
+    15 clusters, and the shared memory at B=4, T_in=32 is the library's
+    (csrc/tacotron_decode.cu tacotron_decode_smem_bytes, read on the H100
+    for these configurations)."""
+    mu = int(mode == "forward")
+    plan = DK.k2_plan(4, 32, DIMS, 15, r, mu)
+    assert (plan.NP, plan.NX) == (80 + r + mu, 80 * (r - 1))
+    cols = [list(plan.other_frames(c)) for c in range(15)]
+    assert [j for c in cols for j in c] == list(range(plan.NX))
+    assert plan.ldx >= plan.ldp + plan.ec and plan.lkp == 100
+    library = {("lsa", 1): 183_008, ("forward", 1): 183_408, ("forward", 2): 184_080, ("forward", 3): 184_544,
+               ("forward", 6): 186_144}
+    if (mode, r) in library:
+        assert plan.smem_bytes() == library[mode, r]
+    t_max = _worst_case_t_in()
+    for t_in in (1, 32, 256, t_max):
+        assert DK.rows_per_launch(t_in, DIMS, 15, r, mu) >= 16
+        assert DK.k2_plan(16, t_in, DIMS, 15, r, mu).smem_bytes() <= DK.SMEM_LIMIT
+
+
+def test_variants_name_the_kernel_instantiations():
+    """k2_variant: bit 0 LSA, bit 1 anti-repeat (forward only; under LSA it
+    picks the window type), bit 2 smoothing, bit 3 the LSA window; the eight
+    combinations the kernel instantiates, and no other."""
+    cases = {
+        (): 0, (("anti_repeat", True),): 2, (("smoothing", True),): 4,
+        (("anti_repeat", True), ("smoothing", True)): 6, (("attention_mode", "lsa"),): 1,
+        (("attention_mode", "lsa"), ("smoothing", True)): 5,
+        (("attention_mode", "lsa"), ("synthesis_constraint", True)): 9,
+        (("attention_mode", "lsa"), ("synthesis_constraint", True), ("anti_repeat", True)): 9,
+        (("attention_mode", "lsa"), ("synthesis_constraint", True), ("smoothing", True)): 13,
+        (("synthesis_constraint", True),): 0,
+    }
+    for over, want in cases.items():
+        assert DK.k2_variant(dataclasses.replace(CFG, **dict(over))) == want
+
+
+def _assert_equals_plain(frames, stops, aligns, want, max_iters, cfg):
+    B, r = frames.shape[1], cfg.outputs_per_step
+    got = (frames.transpose(0, 1).reshape(B, -1, DK.NUM_MELS), stops.transpose(0, 1).reshape(B, -1),
+           aligns.transpose(0, 1))
     for name, a, b in zip(("frames", "stops", "aligns"), got, want):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5, msg=name)
-    assert torch.equal(DK.stop_lengths(got[1], max_iters), want[3])
+    assert torch.equal(DK.stop_lengths(got[1], max_iters, r, cfg.stop_at_any), want[3])
 
 
 def test_row_groups_equal_one_plain_decode():

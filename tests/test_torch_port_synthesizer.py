@@ -3,8 +3,9 @@
 With r frames per decoder step, a row that stops after n frames ran
 ceil(n / r) steps, so its alignment keeps [: ceil(n / r)] steps (the JAX
 synthesizer's rule, infer/synthesizer.py ``mel_from_ids``), and its mel
-keeps n frames.  The port's decode still raises for r > 1, so the r=2 case
-is reached with ``forward_inference`` stubbed to an output of r=2 shapes."""
+keeps n frames.  ``forward_inference`` is stubbed to outputs of known
+values at r = 1, 2 and 3 (tests/test_torch_port_decode_configs.py runs an
+r = 3 decode end to end against the JAX synthesizer)."""
 
 from __future__ import annotations
 

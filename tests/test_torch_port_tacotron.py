@@ -163,12 +163,20 @@ def test_row_independence_of_the_decode(setup):
 
 
 def test_unported_options_raise():
+    """On the card (device None or CUDA) GMM and Graves attention and r > 6
+    raise naming their ROADMAP item; the plain version (CPU) takes GMM and
+    Graves, and the kernel's scope takes anti-repeat, LSA and r up to 6."""
+    for mode in ("gmm", "graves"):
+        cfg = dataclasses.replace(_cfg(0.0), attention_mode=mode)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue item 16"):
+            TDK.check_supported(cfg)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue item 16"):
+            TDK.check_supported(cfg, "cuda")
+        TDK.check_supported(cfg, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TDK.check_supported(dataclasses.replace(_cfg(0.0), attention_mode="gmm"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TDK.check_supported(dataclasses.replace(_cfg(0.0), outputs_per_step=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TDK.check_supported(dataclasses.replace(_cfg(0.0), anti_repeat=True))
+        TDK.check_supported(dataclasses.replace(_cfg(0.0), outputs_per_step=7))
+    TDK.check_supported(dataclasses.replace(_cfg(0.0), outputs_per_step=6, anti_repeat=True, smoothing=True))
+    TDK.check_supported(dataclasses.replace(_cfg(0.0), attention_mode="lsa", synthesis_constraint=True))
 
 
 def test_init_tacotron_has_the_jax_tree_shapes():

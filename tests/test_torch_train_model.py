@@ -191,3 +191,8 @@ def test_unported_options_raise(setup):
                                   tb["inputs"], tb["input_lengths"], tb["mel_targets"], True, generator=gen)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TTask.loss_fn(tp, _cfg(mixed_precision=True), tb, gen)
+    # the eager core knows forward attention without smoothing only
+    for over in ({"smoothing": True}, {"attention_mode": "lsa"}):
+        with pytest.raises(NotImplementedError, match="queue item 6"):
+            TT.forward_teacher_forced(tp, dataclasses.replace(_cfg().tacotron, **over), tb["inputs"],
+                                      tb["input_lengths"], tb["mel_targets"], True, generator=gen)

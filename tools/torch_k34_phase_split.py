@@ -3,14 +3,15 @@ one CUDA card: the trainer kernels K3 (csrc/tacotron_train_fwd.cu) and K4
 (csrc/tacotron_train_bwd.cu), or the decode kernel K2
 (csrc/tacotron_decode.cu).
 
-    python3 tools/torch_k34_phase_split.py [--kernel k34|k2] [--tree DIR] [--shape ...]
+    python3 tools/torch_k34_phase_split.py [--kernel k34|k2] [--tree DIR] [--shape ...] [--tacotron k=v,...]
 
 Builds a clock64()-stamped copy of each kernel into build/k34_phase_split/
 with nvcc and runs it through the package's own wrappers on random
 full-width weights (default config): ``train_fwd`` and ``train_bwd`` at
 B=32, T_in=160, T=608 (the train path's first batch), zoneout masks on
 (``--shape B,T_in,T``); or, with ``--kernel k2``,
-``decode_autoregressive_kernel`` at B=4, T_in=32 for 150 steps with the
+``decode_autoregressive_kernel`` at B=4, T_in=32 for 150 steps (the
+branch of ``--tacotron``, e.g. ``anti_repeat=True``) with the
 stop bias at -30 (the serve phase's shape; ``--shape B,T_in,steps``).
 ``--tree`` takes the package and its ``csrc/`` from another checkout (an
 unpacked older commit), so two versions of the kernels can be split by the
@@ -130,6 +131,8 @@ def main() -> int:
     ap.add_argument("--kernel", choices=("k34", "k2"), default="k34")
     ap.add_argument("--tree", default=HERE, help="checkout whose package and csrc/ are split")
     ap.add_argument("--shape", default=None, help="B,T_in,T (k34: default 32,160,608; k2: steps, 4,32,150)")
+    ap.add_argument("--tacotron", default="", help="k2: tacotron config fields of the branch to split, "
+                    "e.g. anti_repeat=True,outputs_per_step=2 (default: the default config)")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
     import chip_smoke as CS  # noqa: E402  (the repo's own: inputs, bounds, timing)
@@ -155,6 +158,13 @@ def main() -> int:
     shape = args.shape or ("4,32,150" if args.kernel == "k2" else "32,160,608")
     B, T_in, T = (int(v) for v in shape.split(","))
     tcfg = default_config().tacotron
+    if args.tacotron:
+        import ast
+        import dataclasses
+
+        fields = dict(kv.split("=", 1) for kv in args.tacotron.split(","))
+        lit = lambda v: ast.literal_eval(v) if v not in ("forward", "lsa", "gmm", "graves") else v
+        tcfg = dataclasses.replace(tcfg, **{k: lit(v) for k, v in fields.items()})
     dev = torch.device("cuda")
     params = init_tacotron(4, tcfg, device=dev)
     if args.kernel == "k2":
@@ -181,7 +191,7 @@ def main() -> int:
                 "bwd": lambda: TK.train_bwd(*call, box["fwd"], list(x["cots"]))}
         names = {"fwd": "K3 fwd", "bwd": "K4 bwd"}
     record = {"device": smi, "tree": os.path.abspath(args.tree), "kernel": args.kernel, "B": B, "T_in": T_in,
-              "T": T, "kernels": []}
+              "T": T, "tacotron": args.tacotron, "kernels": []}
     for name, (lib, labels) in libs.items():
         runs[name]()  # warm
         ops.check_launch(lib.k34_prof_zero(), "k34_prof_zero")
