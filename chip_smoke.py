@@ -98,24 +98,15 @@ def phase(name: str, msg: str) -> None:
 
 
 def ptxas_entries(log: str) -> list:
-    """(kernel<template arguments>, registers, spill store bytes, spill load
-    bytes) of each entry function in an ``nvcc -Xptxas=-v`` log."""
+    """(mangled entry name, registers, spill store bytes, spill load bytes)
+    of each entry function in an ``nvcc -Xptxas=-v`` log."""
     import re
 
     out, name, spill = [], None, (0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            mangled = m.group(1)
-            name = mangled
-            end = mangled.find("_kernel") + len("_kernel")
-            for n in range(len("_kernel"), end):  # the identifier whose length prefix is its own length
-                if mangled[:end - n].endswith(str(n)) and mangled[end - n].isalpha():
-                    name = mangled[end - n:end]
-                    break
-            args = re.findall(r"L[ib](\d+)E", mangled)
-            name += f"<{','.join(args)}>" if args else ""
-            spill = (0, 0)
+            name, spill = m.group(1), (0, 0)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             spill = (int(m.group(1)), int(m.group(2)))
@@ -294,13 +285,16 @@ def run_k1(params, wcfg, mels, seed: int, greedy: bool, tag: str, warmup: bool =
 
 
 def run_k2(params, tcfg, memory, mask, seeds, max_iters: int, tag: str, per_step: bool):
+    """K2 against its plain version (the kernel's time the mean of five
+    launches after one untimed): stop lengths equal, frames and alignments
+    compared up to the shortest stop."""
     import torch
 
     from tacotronv2_wavernn_chinese_tpu_torch.ops import tacotron_decoder_kernel as DK
 
     out = {}
     out["ms"] = cuda_ms(lambda: out.__setitem__(
-        "k", DK.decode_autoregressive_kernel(params, tcfg, memory, mask, seeds, max_iters)), warmup=True)
+        "k", DK.decode_autoregressive_kernel(params, tcfg, memory, mask, seeds, max_iters)), reps=5, warmup=True)
     out["plain_ms"] = cuda_ms(lambda: out.__setitem__(
         "p", DK.decode_autoregressive_plain(params, tcfg, memory, mask, seeds, max_iters)))
     fk, sk, ak, lk = out["k"]
@@ -407,7 +401,8 @@ K2_BRANCHES = (
     ("r6_stop_all", {"outputs_per_step": 6, "stop_at_any": False}),
     ("r2_anti_repeat", {"outputs_per_step": 2, "anti_repeat": True}),
 )
-NEAR_TIE = 1e-5  # a plain argmax decided by less than this may go the other way in the kernel
+NEAR_TIE = 1e-5  # a plain argmax whose top-2 gap is below this share of the top may go the other way
+MAX_DIVERGED = 2  # rows of one branch, over all its runs, that may use the near-tie allowance
 
 
 def uses_argmax(tcfg) -> bool:
@@ -417,8 +412,8 @@ def uses_argmax(tcfg) -> bool:
 
 
 class ArgmaxGaps:
-    """Records the top-2 gap of every row at each call of the plain
-    attention's argmax (once per decoder step)."""
+    """Records each row's top-2 gap relative to its top value at each call
+    of the plain attention's argmax (once per decoder step)."""
 
     def __enter__(self):
         import torch
@@ -429,7 +424,7 @@ class ArgmaxGaps:
 
         def wrapped(x):
             top = torch.topk(x, 2, dim=-1).values
-            self.gaps.append((top[:, 0] - top[:, 1]).cpu())
+            self.gaps.append(((top[:, 0] - top[:, 1]) / top[:, 0].abs().clamp_min(1e-30)).cpu())
             return self._orig(x)
 
         ATT.argmax_first = wrapped
@@ -443,11 +438,14 @@ class ArgmaxGaps:
 
 def run_k2_branch(params, tcfg, memory, mask, seeds, max_iters: int, tag: str) -> dict:
     """K2 against its plain version for one branch (the kernel's time the
-    mean of five launches): stop lengths equal and
-    every frame and alignment within 1e-3 at every step; where the
-    trajectory follows an argmax (anti-repeat, the LSA window), a row may
-    diverge only at or after a step whose plain top-2 gap was below
-    NEAR_TIE, and is compared no further."""
+    mean of five launches): every frame, stop logit and alignment of all
+    max_iters steps within 1e-3, the fills after the grid's exit included,
+    and stop lengths equal.  Where the trajectory follows an argmax
+    (anti-repeat, the LSA window) a row may diverge at step t only when
+    the plain decode's relative top-2 gap was below NEAR_TIE at step t
+    (anti-repeat's argmax acts within its step) or t - 1 (the window's acts
+    on the next); it is compared no further, and the other rows only up to
+    the earlier of the two exits."""
     import torch
 
     from tacotronv2_wavernn_chinese_tpu_torch.ops import tacotron_decoder_kernel as DK
@@ -459,38 +457,126 @@ def run_k2_branch(params, tcfg, memory, mask, seeds, max_iters: int, tag: str) -
     with ArgmaxGaps() as rec:
         out["plain_ms"] = cuda_ms(lambda: out.__setitem__(
             "p", DK.decode_autoregressive_plain(params, tcfg, memory, mask, seeds, max_iters)))
-    gaps = torch.stack(rec.gaps[-out["p"][2].shape[1]:]).numpy() if rec.gaps else None  # [steps, B]
+    gaps = torch.stack(rec.gaps).numpy() if rec.gaps and uses_argmax(tcfg) else None  # [steps run, B]
     fk, sk, ak, lk = out["k"]
     fp, sp, ap, lp = out["p"]
     B = fk.shape[0]
     step_err = lambda a, b: (a - b).abs().reshape(B, max_iters, -1).amax(-1)
-    err = torch.maximum(step_err(fk, fp), step_err(ak, ap)).cpu().numpy()  # [B, max_iters]
+    err = torch.maximum(torch.maximum(step_err(fk, fp), step_err(ak, ap)), step_err(sk, sp)).cpu().numpy()
     lk, lp = lk.cpu().numpy(), lp.cpu().numpy()
-    worst, diverged = 0.0, []
+    run = lambda lens: int(min(max_iters, int(lens.max()) // r + 1))  # steps until every row was done
+    diverged = []
     for b in range(B):
-        upto = min(max_iters, int(min(lk[b], lp[b])) // r + 1)  # through the step that stops the row
-        bad = np.nonzero(err[b, :upto] > 1e-3)[0]
-        if bad.size:
+        bad = np.nonzero(err[b] > 1e-3)[0]
+        if bad.size and gaps is not None:
             t = int(bad[0])
-            ties = [] if gaps is None or not uses_argmax(tcfg) else \
-                [s for s in range(min(t + 1, gaps.shape[0])) if gaps[s, b] < NEAR_TIE]
-            check(bool(ties), f"{tag}: row {b} max|d| {err[b, t]:.3e} > 1e-3 at step {t} with no plain near-tie "
-                  f"(top-2 gap < {NEAR_TIE}) at or before it")
-            diverged.append((b, ties[0], t))
-            upto = t
-        else:
+            ties = [s for s in (t, t - 1) if 0 <= s < gaps.shape[0] and gaps[s, b] < NEAR_TIE]
+            if ties:
+                diverged.append((b, ties[0], t))
+    n = min(run(lk), run(lp)) if diverged else max_iters
+    worst = 0.0
+    for b in range(B):
+        upto = next((t for row, _, t in diverged if row == b), n)
+        bad = np.nonzero(err[b, :upto] > 1e-3)[0]
+        check(bad.size == 0, f"{tag}: row {b} max|d| {err[b, bad[0]] if bad.size else 0:.3e} > 1e-3 at step "
+              f"{bad[0] if bad.size else -1} with no plain near-tie (relative top-2 gap < {NEAR_TIE}) there or "
+              "one step before")
+        if upto == n:
             check(lk[b] == lp[b], f"{tag}: row {b} stop length kernel {lk[b]} plain {lp[b]}")
         if upto:
             worst = max(worst, float(err[b, :upto].max()))
     out["max_abs_err"] = worst
-    out["steps"] = int(min(max_iters, int(lk.max()) // r + 1))
+    out["steps"] = run(lk)
     out["diverged"] = diverged
-    n_ties = int((gaps < NEAR_TIE).sum()) if gaps is not None and uses_argmax(tcfg) else 0
+    out["stop_len"] = lp
+    n_ties = int((gaps < NEAR_TIE).sum()) if gaps is not None else 0
     phase("k2 branches", f"{tag}: stop_len kernel {lk.tolist()} plain {lp.tolist()}; max|d| {worst:.2e}; "
           f"diverged rows (row, near-tie step, first step > 1e-3) {diverged}; {n_ties} plain near-ties; kernel "
           f"{out['ms']:.2f} ms ({out['ms'] / out['steps'] * 1e3:.1f} us/step over {out['steps']} steps), "
           f"plain {out['plain_ms']:.1f} ms")
     return out
+
+
+def stop_thresholds(z: np.ndarray, r: int, stop_at_any: bool, steps: int, margin: float = 1e-4) -> dict:
+    """Thresholds c for raw stop logits ``z`` [B, steps*r] (the stop bias
+    left out), none within ``margin`` of a logit; a stop bias of -c then
+    stops rows where their logits cross c.  "spread": the rows' stop steps
+    differ most (at r > 1 first: the other stop rule gives other lengths;
+    then more rows stop, the last later).  "exit": every row stops before
+    80% of ``steps``, the last as late as it can, so the grid leaves the
+    loop early.  A kind no threshold meets is left out."""
+    import torch
+
+    from tacotronv2_wavernn_chinese_tpu_torch.ops import tacotron_decoder_kernel as DK
+
+    B = z.shape[0]
+    g = z.reshape(B, steps, r)
+    g = g.max(-1) if stop_at_any else g.min(-1)  # [B, steps]: the step's stop rule
+    vals = np.unique(z.astype(np.float64))
+    mids = (vals[1:] + vals[:-1]) / 2
+    cands = mids[(vals[1:] - vals[:-1]) >= 2 * margin]
+    best = {}
+    for c in cands:
+        fired = g > c
+        hit = fired.any(-1)
+        if not hit.any():
+            continue
+        at = np.where(hit, fired.argmax(-1), steps)  # each row's stop step
+        keys = {"spread": (len(np.unique(at)), int(hit.sum()), int(at[hit].max()))}
+        if r > 1:
+            this, other = (DK.stop_lengths(torch.as_tensor(z - c), steps, r, rule).numpy()
+                           for rule in (stop_at_any, not stop_at_any))
+            keys["spread"] = (not np.array_equal(this, other),) + keys["spread"]
+        if at.max() < int(0.8 * steps):
+            keys["exit"] = (int(at.max()),)
+        for kind, key in keys.items():
+            if kind not in best or key > best[kind][0]:
+                best[kind] = (key, float(c))
+    return {kind: c for kind, (_, c) in best.items()}
+
+
+def with_stop_bias(params, bias: float):
+    import torch
+
+    sp = params["stop_projection"]
+    return dict(params, stop_projection=dict(sp, b=torch.full_like(sp["b"], bias)))
+
+
+def run_k2_stops(params, tcfg, memory, mask, seeds, max_iters: int, tag: str, plain_stops):
+    """The branch again, compared as in run_k2_branch, at each stop bias
+    of ``stop_thresholds`` on the stop logits ``plain_stops`` [B,
+    max_iters*r] of its run at bias -30: rows stop at steps of their own,
+    and in the "exit" run every row does, so the grid leaves the loop
+    early and its fills are compared.  A row must stop in every run.
+    Returns the runs and whether the other stop rule would have given other
+    lengths in one of them."""
+    import torch
+
+    from tacotronv2_wavernn_chinese_tpu_torch.ops import tacotron_decoder_kernel as DK
+
+    r = tcfg.outputs_per_step
+    z = plain_stops.cpu().numpy() + 30.0
+    cs = stop_thresholds(z, r, tcfg.stop_at_any, max_iters)
+    check("spread" in cs, f"{tag}: no stop bias stops a row before {max_iters} steps")
+    kinds = {}
+    for kind, c in sorted(cs.items(), reverse=True):
+        kinds.setdefault(c, []).append(kind)
+    runs, told_apart = [], False
+    for c, names in kinds.items():
+        kind = " and ".join(names)
+        out = run_k2_branch(with_stop_bias(params, -c), tcfg, memory, mask, seeds, max_iters,
+                            f"{tag} stop bias {-c:.5f} ({kind})")
+        lens = out["stop_len"]
+        check(bool((lens < max_iters * r).any()), f"{tag} ({kind}): no row stopped: {lens.tolist()}")
+        if "exit" in kind:
+            check(out["steps"] < max_iters, f"{tag} ({kind}): the grid ran all {max_iters} steps")
+        other = DK.stop_lengths(torch.as_tensor(z - c), max_iters, r, not tcfg.stop_at_any).numpy()
+        told_apart |= not np.array_equal(other, lens)
+        phase("k2 branches", f"{tag} ({kind}): rows stop at frames {lens.tolist()} ({int((lens % r != 0).sum())} "
+              f"inside a step's r frames), the grid after {out['steps']} of {max_iters} steps; the "
+              f"{'all' if tcfg.stop_at_any else 'any'} rule would give {other.tolist()}")
+        runs.append(out)
+    return runs, told_apart
 
 
 def k2_branch_inputs(params, tcfg, dev, rng, B: int, T_in: int):
@@ -510,13 +596,13 @@ def run_k2_branches(cfg, dev, rng, wp, steps: int = SERVE_FRAMES, shapes=((4, 32
     """Each branch of K2 at full width against the plain version, at the
     first of ``shapes`` for ``steps`` steps (timed) and at the others for
     40 (the ragged B=5, T_in=37 splits a row over two blocks, T_in=256 over
-    eight); then each branch's text->mel through a Synthesizer with the
-    launch counter read around it, one /generate_tts request through an
-    r=2 anti-repeat artifact, and GMM and Graves raising on the card.
-    Returns the kernels-line entries."""
+    eight), each at stop bias -30 (no row stops) and again at the stop
+    biases of ``run_k2_stops`` (rows stop, the grid leaves the loop early);
+    then each branch's text->mel through a Synthesizer with the launch
+    counter read around it, one /generate_tts request through an r=2
+    anti-repeat artifact that stops, and GMM and Graves raising on the
+    card.  Returns the kernels-line entries."""
     import dataclasses
-
-    import torch
 
     from tacotronv2_wavernn_chinese_tpu_torch import ops
     from tacotronv2_wavernn_chinese_tpu_torch.infer.synthesizer import Synthesizer
@@ -529,17 +615,24 @@ def run_k2_branches(cfg, dev, rng, wp, steps: int = SERVE_FRAMES, shapes=((4, 32
     for i, (name, over) in enumerate(K2_BRANCHES):
         bcfg = dataclasses.replace(cfg, tacotron=dataclasses.replace(cfg.tacotron, **over))
         tcfg, r = bcfg.tacotron, bcfg.tacotron.outputs_per_step
-        tp = init_tacotron(20 + i, tcfg, device=dev)
-        tp["stop_projection"] = dict(tp["stop_projection"], b=torch.full_like(tp["stop_projection"]["b"], -30.0))
-        runs = []
+        tp = with_stop_bias(init_tacotron(20 + i, tcfg, device=dev), -30.0)
+        runs, told_apart = [], False
         for j, (B, T_in) in enumerate(shapes):
             mem, mask, seeds = k2_branch_inputs(tp, tcfg, dev, rng, B, T_in)
-            runs.append(run_k2_branch(tp, tcfg, mem, mask, seeds, steps if j == 0 else 40,
-                                      f"{name} B={B} T_in={T_in}"))
+            n_steps, tag = steps if j == 0 else 40, f"{name} B={B} T_in={T_in}"
+            runs.append(run_k2_branch(tp, tcfg, mem, mask, seeds, n_steps, tag))
+            stop_runs, told = run_k2_stops(tp, tcfg, mem, mask, seeds, n_steps, tag, runs[-1]["p"][1])
+            runs += stop_runs
+            told_apart |= told
+        # the stop runs must tell "all of the r flags" from "any"
+        check(r == 1 or tcfg.stop_at_any or told_apart,
+              f"k2 branches {name}: the any and all stop rules gave the same lengths in every stop run")
+        n_div = sum(len(x["diverged"]) for x in runs)
+        check(n_div <= MAX_DIVERGED, f"k2 branches {name}: {n_div} rows diverged at near-ties, more than "
+              f"{MAX_DIVERGED}")
         main = runs[0]
         B, T_in = shapes[0]
-        plan = DK.k2_plan(B, T_in, DK.widths(tcfg, 2 * tcfg.encoder_lstm_units), clusters, r,
-                          int(tcfg.attention_mode == "forward"))
+        plan = DK.k2_plan(B, T_in, DK.widths(tcfg, 2 * tcfg.encoder_lstm_units), clusters, r, DK.proj_mu(tcfg))
         bms, by = bound(*decoder_work(tcfg, B, T_in, 2 * tcfg.encoder_lstm_units, main["steps"], steps))
         # the branch's main path: text -> mel through a Synthesizer, SERVE_FRAMES frames
         synth = Synthesizer(bcfg, tp, max_iters=SERVE_FRAMES // r, device=dev)
@@ -559,7 +652,7 @@ def run_k2_branches(cfg, dev, rng, wp, steps: int = SERVE_FRAMES, shapes=((4, 32
             "launches": launches, "max_abs_err": max(x["max_abs_err"] for x in runs),
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": bms, "bound_by": by, "library_ms": None,
             "shape": f"B={B} T_in={T_in} steps={main['steps']} r={r}", "variant": DK.k2_variant(tcfg),
-            "diverged_rows": sum(len(x["diverged"]) for x in runs), "smem_bytes": plan.smem_bytes(),
+            "diverged_rows": n_div, "stop_runs": len(runs) - len(shapes), "smem_bytes": plan.smem_bytes(),
         })
         if name == "r2_anti_repeat":
             entries[-1]["launches"] = serve_branch(bcfg, tp, wp, dev, text)
@@ -583,27 +676,39 @@ def run_k2_branches(cfg, dev, rng, wp, steps: int = SERVE_FRAMES, shapes=((4, 32
 
 def serve_branch(cfg, tp, wp, dev, text: str) -> int:
     """One /generate_tts request through an artifact of ``cfg`` (here r=2
-    with anti-repeat): the WAV must hold exactly stop_len x 275 samples.
-    Returns the decode kernel's launches during the request."""
+    with anti-repeat) whose stop bias is set near the threshold of the
+    sentence's stop logits, so that the decode stops before max_iters: the
+    WAV must hold exactly stop_len x 275 samples, stop_len the plain
+    decode's.  Returns the decode kernel's launches during the request."""
     import torch
 
     from tacotronv2_wavernn_chinese_tpu_torch import ops
-    from tacotronv2_wavernn_chinese_tpu_torch.frontend import get_pyin
+    from tacotronv2_wavernn_chinese_tpu_torch.frontend import default_symbols, get_pyin
+    from tacotronv2_wavernn_chinese_tpu_torch.ops import tacotron_decoder_kernel as DK
     from tacotronv2_wavernn_chinese_tpu_torch.serving import server as SRV
     from tacotronv2_wavernn_chinese_tpu_torch.serving.export import load_exported, write_artifact
 
-    r = cfg.tacotron.outputs_per_step
+    tcfg, seed = cfg.tacotron, 4
+    r, steps = tcfg.outputs_per_step, SERVE_FRAMES // tcfg.outputs_per_step
+    ids = default_symbols().encode(get_pyin(text)[0])
+    mem, mask = encode_batch(tp, tcfg, [ids], dev)
+    z = DK.decode_autoregressive_plain(tp, tcfg, mem, mask, [seed], steps)[1].cpu().numpy() + 30.0
+    cs = stop_thresholds(z, r, tcfg.stop_at_any, steps)
+    check("exit" in cs, f"k2 branches serve: no stop bias stops the sentence before {steps} steps")
+    tp = with_stop_bias(tp, -cs["exit"])
+    want = int(DK.decode_autoregressive_plain(tp, tcfg, mem, mask, [seed], steps)[3][0])
+    check(want < steps * r, f"k2 branches serve: the plain decode ran to max_iters ({want} frames)")
     art = os.path.join(HERE, "build", "chip_smoke_artifact_branch")
     write_artifact(cfg, tp, art, wp)
-    synth = load_exported(art, max_iters=SERVE_FRAMES // r, device=dev)
-    _, _, stops = synth.mel_from_ids([synth.symbols.encode(get_pyin(text)[0])], seed=[4])
+    synth = load_exported(art, max_iters=steps, device=dev)
     httpd = SRV.serve(synth.cfg, synth, "127.0.0.1", 0, max_batch=4, max_queue=8)
     th = threading.Thread(target=httpd.serve_forever, daemon=True)
     th.start()
     try:
         req = urllib.request.Request(
             f"http://127.0.0.1:{httpd.server_address[1]}/generate_tts",
-            data=json.dumps({"text": text, "seed": 4}).encode("utf-8"), headers={"Content-Type": "application/json"})
+            data=json.dumps({"text": text, "seed": seed}).encode("utf-8"),
+            headers={"Content-Type": "application/json"})
         ops.reset_launch_counts()
         h0 = time.time()
         with urllib.request.urlopen(req, timeout=600) as resp:
@@ -619,11 +724,11 @@ def serve_branch(cfg, tp, wp, dev, text: str) -> int:
     with wave.open(io.BytesIO(base64.b64decode(body["wav_b64"]))) as wf:
         n = wf.getnframes()
         check(wf.getframerate() == 22050 and wf.getsampwidth() == 2, "k2 branches serve: bad WAV header")
-    check(n == stops[0] * 275, f"k2 branches serve: {n} samples, expected stop_len {stops[0]} x 275")
+    check(n == want * 275, f"k2 branches serve: {n} samples, expected the plain stop_len {want} x 275")
     check(launches["tacotron_decode"] >= 1 and launches["wavernn_sample"] >= 1,
           f"k2 branches serve: launches {launches}")
     phase("k2 branches", f"/generate_tts through an r={r} anti-repeat artifact: {host_ms:.1f} ms host, stop_len "
-          f"{stops[0]} frames, {n} samples, launches {launches}")
+          f"{want} of {steps * r} frames, {n} samples, launches {launches}")
     return launches["tacotron_decode"]
 
 

@@ -1004,7 +1004,8 @@ extern "C" int tacotron_decode_clusters() {
 // wx and wx_b may be any pointer at r = 1); frames [max_iters, B, 80r],
 // stops [max_iters, B, r], aligns [max_iters, B, T_in]; the exchange
 // [tacotron_decode_scratch_floats(...)].  ``counter`` is one zeroed uint32.
-// ``variant`` picks the attention branch (k2_kernel), ``need`` the stop
+// ``variant`` picks the attention branch (k2_kernel), ``mu`` is 1 when the
+// projection has forward attention's mu column, ``need`` the stop
 // policy (1: any of the r flags, r: all), ``back``/``ahead`` the LSA window,
 // ``cw`` the LSA carry.  Returns a cudaError_t:
 // cudaErrorCooperativeLaunchTooLarge when NC clusters cannot be resident
@@ -1012,8 +1013,8 @@ extern "C" int tacotron_decode_clusters() {
 // exceeds a block's shared memory or the variant does not exist, else the
 // launch's own.
 extern "C" int tacotron_decode_launch(void* const* ptrs, unsigned* counter, int B, int T_in, int P1, int P2,
-                                      int U, int V, int A, int taps, int r, int variant, int max_iters, int NC,
-                                      int need, int back, int ahead, int dwell_first, int dwell_rest, float cw,
+                                      int U, int V, int A, int taps, int r, int mu, int variant, int max_iters,
+                                      int NC, int need, int back, int ahead, int dwell_first, int dwell_rest, float cw,
                                       float zoneout, float zoneout_keep, float drop_keep, uint32_t drop_thresh,
                                       void* stream) {
   const K2Kernel fn = k2_kernel(variant);
@@ -1025,7 +1026,7 @@ extern "C" int tacotron_decode_launch(void* const* ptrs, unsigned* counter, int 
   const K2Io io{f[0], f[1], f[2], static_cast<const int*>(ptrs[3]),
                 static_cast<float*>(ptrs[21]), static_cast<float*>(ptrs[22]), static_cast<float*>(ptrs[23]),
                 scratch, scratch + (size_t)B * 4 * U, scratch + (size_t)B * 8 * U};
-  const K2Dims d{B, T_in, P1, P2, U, V, A, taps, r, (variant & 1) ? 0 : 1};
+  const K2Dims d{B, T_in, P1, P2, U, V, A, taps, r, mu};
   const K2Plan pl = k2_plan(d, NC);
   if (pl.bpr == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
   const int smem = k2_layout(d, pl).total * (int)sizeof(float);

@@ -98,10 +98,17 @@ def check_supported(cfg: TacotronModelConfig, device=None) -> None:
         )
 
 
+def proj_mu(cfg: TacotronModelConfig) -> int:
+    """1 when the kernel's projection has forward attention's mu column,
+    0 for LSA (k2_plan, pack_weights and the launch all take it from here)."""
+    return int(cfg.attention_mode == "forward")
+
+
 def k2_variant(cfg: TacotronModelConfig) -> int:
     """The kernel instantiation of ``cfg`` (csrc/tacotron_decode.cu
-    k2_kernel): bit 0 LSA, bit 1 anti-repeat (forward attention only; for
-    LSA the flag picks the window's type), bit 2 smoothing, bit 3 the LSA
+    k2_kernel): bit 0 LSA, bit 1 anti-repeat (forward attention only: under
+    LSA the flag picks the window's type, which reaches the kernel as the
+    window's bounds, not as a bit), bit 2 smoothing, bit 3 the LSA
     synthesis window."""
     lsa = cfg.attention_mode == "lsa"
     return (int(lsa) | (int(cfg.anti_repeat and not lsa) << 1) | (int(cfg.smoothing) << 2)
@@ -140,7 +147,7 @@ def pack_weights(params: dict, cfg: TacotronModelConfig) -> dict:
     t = lambda a: a.t().contiguous()
     fw, fb = params["frame_projection"]["w"], params["frame_projection"]["b"]
     cols, bias = [fw[:, -NUM_MELS:], params["stop_projection"]["w"]], [fb[-NUM_MELS:], params["stop_projection"]["b"]]
-    if cfg.attention_mode == "forward":
+    if proj_mu(cfg):
         mu_w = att["mu_layer"]["w"]  # rows [context (V); query (u)]
         cols.append(torch.cat([mu_w[V:], mu_w[:V]], dim=0))
         bias.append(att["mu_layer"]["b"])
@@ -426,7 +433,7 @@ def decode_autoregressive_kernel(params, cfg: TacotronModelConfig, memory, mem_m
 
     dev = memory.device
     B, T_in, V = memory.shape
-    r, mu = cfg.outputs_per_step, int(cfg.attention_mode == "forward")
+    r, mu = cfg.outputs_per_step, proj_mu(cfg)
     dims = widths(cfg, V)
     P1, P2, U, _, A, taps = dims
     for name, n in (("prenet widths", P1), ("prenet widths", P2), ("decoder_lstm_units", U),
@@ -485,7 +492,7 @@ def decode_autoregressive_kernel(params, cfg: TacotronModelConfig, memory, mem_m
         ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
         with torch.cuda.device(dev):
             err = lib.tacotron_decode_launch(
-                ptrs, ptr(counter), Bg, T_in, *dims, r, k2_variant(cfg), int(max_iters), clusters,
+                ptrs, ptr(counter), Bg, T_in, *dims, r, mu, k2_variant(cfg), int(max_iters), clusters,
                 1 if cfg.stop_at_any else r, back, ahead, int(cfg.dwell_limit_first), int(cfg.dwell_limit_rest),
                 cw, float(cfg.zoneout_rate), 1.0 - float(cfg.zoneout_rate), 1.0 - rate,
                 keep_threshold(rate) if rate > 0.0 else 0xFFFFFFFF, stream_ptr(dev),

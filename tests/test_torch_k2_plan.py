@@ -426,7 +426,7 @@ def test_branch_grid_split_equals_the_plain_decode(branch):
     B, T_in, max_iters, clusters, r = 3, 70, 40, 3, cfg.outputs_per_step
     params, memory, mask = _inputs(cfg, B, T_in, seed=seed, stop_bias=stop_bias)
     dims = DK.widths(cfg, memory.shape[2])
-    plan = DK.k2_plan(B, T_in, dims, clusters, r, int(cfg.attention_mode == "forward"))
+    plan = DK.k2_plan(B, T_in, dims, clusters, r, DK.proj_mu(cfg))
     assert plan.blocks_per_row == 4
     seeds = [5, 6, 7]
     want = DK.decode_autoregressive_plain(params, cfg, memory, mask, seeds, max_iters)
@@ -469,9 +469,10 @@ def test_plan_for_each_mode_and_r(r, mode):
 
 
 def test_variants_name_the_kernel_instantiations():
-    """k2_variant: bit 0 LSA, bit 1 anti-repeat (forward only; under LSA it
-    picks the window type), bit 2 smoothing, bit 3 the LSA window; the eight
-    combinations the kernel instantiates, and no other."""
+    """k2_variant: bit 0 LSA, bit 1 anti-repeat (forward only; under LSA the
+    flag picks the window type, which reaches the kernel as its bounds),
+    bit 2 smoothing, bit 3 the LSA window; the eight combinations the kernel
+    instantiates, and no other."""
     cases = {
         (): 0, (("anti_repeat", True),): 2, (("smoothing", True),): 4,
         (("anti_repeat", True), ("smoothing", True)): 6, (("attention_mode", "lsa"),): 1,
