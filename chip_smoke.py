@@ -23,15 +23,19 @@ Phases, each printing its lines before the next starts:
            4, 16 x T_in=32, 256, 1024
   k2 branches
            each other branch of the decode kernel (anti-repeat, smoothing,
-           LSA with and without its synthesis window, r = 2, 3, 6) at full
-           width against its plain version: B=4, T_in=32, 150 steps (timed),
-           ragged B=5, T_in=37 and B=2, T_in=256 (40 steps), stop bias -30;
-           frames and alignments within 1e-3 at every step, stop lengths
+           LSA with and without its synthesis window, r = 2, 3, 6, GMM and
+           Graves attention, Graves at r = 3 under the all-frames stop) at
+           full width against its plain version: B=4, T_in=32, 150 steps
+           (timed), ragged B=5, T_in=37 and B=2, T_in=256 (40 steps), at
+           stop bias -30 and at stop biases that stop rows; frames, stop
+           logits and alignments within 1e-3 at every step, stop lengths
            equal, a row diverging only after a plain argmax near-tie (top-2
-           gap < 1e-5); each branch's text->mel through a Synthesizer with
-           the launch counter read around it; one /generate_tts request
-           through an r=2 anti-repeat artifact (WAV of stop_len x 275
-           samples); GMM and Graves raising NotImplementedError on the card
+           gap < 1e-5); GMM's and Graves' plain alignment argmax moving at
+           least 10 positions at T_in=256; GMM with 128 mixtures and Graves
+           with 128 heads once at B=4, T_in=256; each branch's text->mel
+           through a Synthesizer with the launch counter read around it;
+           one /generate_tts request each through an r=2 anti-repeat and a
+           Graves artifact that stop (WAV of stop_len x 275 samples)
   serve    full-width random weights written as an export artifact, served
            on localhost: three /generate_tts requests and one
            /generate_tts_batch, WAV headers and lengths checked, both
@@ -163,20 +167,33 @@ def wavernn_work(cfg, T: int, B: int):
 
 def decoder_work(tcfg, B: int, T_in: int, V: int, steps: int, max_iters: int):
     """(flops, bytes) of ``steps`` decoder steps for B rows (outputs for
-    all max_iters steps are written), for forward or LSA attention at r
-    frames a step: the projection has 81r outputs, and forward attention's
-    mu one more; anti-repeat's context reads at most six positions."""
+    all max_iters steps are written) at r frames a step: the projection has
+    81r outputs, and forward attention's mu one more.  Forward and LSA
+    attention: the query projection, the location conv and the energies
+    against keys of width A at every position; anti-repeat's context reads
+    at most six positions.  GMM: its dense, 3N x (u + V), and N terms a
+    position of 6 operations (difference, square, quotient, exp, product,
+    sum); Graves: layer1 u x u/4 and layer2 u/4 x 3N, and N terms at each
+    of the T_in + 1 position edges of 9 operations (difference, quotient,
+    the sigmoid's exp, sum and quotient, sum, reciprocal, product, sum); no
+    keys."""
     u, A, taps = tcfg.decoder_lstm_units, tcfg.attention_dim, tcfg.attention_kernel
     p1, p2 = tcfg.prenet_layers
-    r, forward = tcfg.outputs_per_step, tcfg.attention_mode == "forward"
-    nproj = 81 * r + int(forward)
-    ctx_pos = min(T_in, 6) if forward and tcfg.anti_repeat else T_in
-    macs_row = (80 * p1 + p1 * p2 + (p2 + V + u) * 4 * u + 2 * u * 4 * u + u * A
-                + T_in * (taps * A + A) + ctx_pos * V + (u + V) * nproj)
-    weights = 80 * p1 + p1 * p2 + (p2 + V + u) * 4 * u + 2 * u * 4 * u + u * A + taps * A \
-        + 3 * A + (u + V) * nproj + p1 + p2 + 8 * u + nproj
-    flops = 2.0 * macs_row * B * steps
-    nbytes = 4.0 * (weights + B * T_in * (A + V + 1) + max_iters * B * (81 * r + T_in))
+    mode, r = tcfg.attention_mode, tcfg.outputs_per_step
+    nproj = 81 * r + int(mode == "forward")
+    ctx_pos = min(T_in, 6) if mode == "forward" and tcfg.anti_repeat else T_in
+    macs_row = (80 * p1 + p1 * p2 + (p2 + V + u) * 4 * u + 2 * u * 4 * u + ctx_pos * V + (u + V) * nproj)
+    weights = 80 * p1 + p1 * p2 + (p2 + V + u) * 4 * u + 2 * u * 4 * u + (u + V) * nproj + p1 + p2 + 8 * u + nproj
+    if mode in ("forward", "lsa"):
+        att_macs, att_ops, att_w, key_w = u * A + T_in * (taps * A + A), 0, u * A + taps * A + 3 * A, A
+    elif mode == "gmm":
+        n = tcfg.num_attn_mixtures
+        att_macs, att_ops, att_w, key_w = 3 * n * (u + V), 6 * n * T_in, 3 * n * (u + V + 1), 0
+    else:
+        n, h = tcfg.graves_heads, u // 4
+        att_macs, att_ops, att_w, key_w = u * h + h * 3 * n, 9 * n * (T_in + 1), u * h + h + h * 3 * n + 3 * n, 0
+    flops = (2.0 * (macs_row + att_macs) + att_ops) * B * steps
+    nbytes = 4.0 * (weights + att_w + B * T_in * (key_w + V + 1) + max_iters * B * (81 * r + T_in))
     return flops, nbytes
 
 
@@ -380,7 +397,8 @@ def k2_cases(params, tcfg, dev, rng) -> None:
 
 
 # ---------------------------------------------------------------------------
-# K2's other branches: anti-repeat, smoothing, LSA and its window, r = 2-6
+# K2's other branches: anti-repeat, smoothing, LSA and its window, r = 2-6,
+# GMM and Graves
 # ---------------------------------------------------------------------------
 
 # (name, config overrides): together they launch every instantiation the
@@ -400,7 +418,16 @@ K2_BRANCHES = (
     ("r3", {"outputs_per_step": 3}),
     ("r6_stop_all", {"outputs_per_step": 6, "stop_at_any": False}),
     ("r2_anti_repeat", {"outputs_per_step": 2, "anti_repeat": True}),
+    ("gmm", {"attention_mode": "gmm"}),
+    ("graves", {"attention_mode": "graves"}),
+    ("graves_r3_stop_all", {"attention_mode": "graves", "outputs_per_step": 3, "stop_at_any": False}),
 )
+# GMM and Graves at the TPU kernel's widest mixture, once each (B=4, T_in=256)
+K2_WIDE = (
+    ("gmm_128_mixtures", {"attention_mode": "gmm", "num_attn_mixtures": 128}),
+    ("graves_128_heads", {"attention_mode": "graves", "graves_heads": 128}),
+)
+MIN_TRAVEL = 10  # positions GMM's and Graves' plain alignment argmax must move at T_in=256
 NEAR_TIE = 1e-5  # a plain argmax whose top-2 gap is below this share of the top may go the other way
 MAX_DIVERGED = 2  # rows of one branch, over all its runs, that may use the near-tie allowance
 
@@ -592,16 +619,31 @@ def k2_branch_inputs(params, tcfg, dev, rng, B: int, T_in: int):
     return memory, T.input_mask(lens, T_in), [int(v) for v in rng.integers(0, 2**31, B)]
 
 
+def argmax_travel(tag: str, aligns) -> list:
+    """Positions the plain alignment's argmax [B, steps, T_in] spans in
+    each row over the compared steps; each must be at least MIN_TRAVEL, or
+    the comparison of a mixture branch says little (its mixture may have
+    left the input and gone flat)."""
+    am = aligns.argmax(-1).cpu().numpy()
+    travel = (am.max(1) - am.min(1)).tolist()
+    check(min(travel) >= MIN_TRAVEL, f"{tag}: the plain alignment's argmax moved {travel} positions, fewer "
+          f"than {MIN_TRAVEL}")
+    phase("k2 branches", f"{tag}: the plain alignment's argmax spans {travel} positions")
+    return travel
+
+
 def run_k2_branches(cfg, dev, rng, wp, steps: int = SERVE_FRAMES, shapes=((4, 32), (5, 37), (2, 256))) -> list:
     """Each branch of K2 at full width against the plain version, at the
     first of ``shapes`` for ``steps`` steps (timed) and at the others for
     40 (the ragged B=5, T_in=37 splits a row over two blocks, T_in=256 over
     eight), each at stop bias -30 (no row stops) and again at the stop
     biases of ``run_k2_stops`` (rows stop, the grid leaves the loop early);
-    then each branch's text->mel through a Synthesizer with the launch
-    counter read around it, one /generate_tts request through an r=2
-    anti-repeat artifact that stops, and GMM and Graves raising on the
-    card.  Returns the kernels-line entries."""
+    GMM's and Graves' alignments must travel at the last shape
+    (``argmax_travel``); then each branch's text->mel through a Synthesizer
+    with the launch counter read around it, one /generate_tts request each
+    through an r=2 anti-repeat and a Graves artifact that stop, and GMM
+    and Graves at 128 mixtures or heads (K2_WIDE) at B=4, T_in=256.
+    Returns the kernels-line entries."""
     import dataclasses
 
     from tacotronv2_wavernn_chinese_tpu_torch import ops
@@ -621,6 +663,8 @@ def run_k2_branches(cfg, dev, rng, wp, steps: int = SERVE_FRAMES, shapes=((4, 32
             mem, mask, seeds = k2_branch_inputs(tp, tcfg, dev, rng, B, T_in)
             n_steps, tag = steps if j == 0 else 40, f"{name} B={B} T_in={T_in}"
             runs.append(run_k2_branch(tp, tcfg, mem, mask, seeds, n_steps, tag))
+            if tcfg.attention_mode in ("gmm", "graves") and T_in == shapes[-1][1]:
+                argmax_travel(tag, runs[-1]["p"][2])
             stop_runs, told = run_k2_stops(tp, tcfg, mem, mask, seeds, n_steps, tag, runs[-1]["p"][1])
             runs += stop_runs
             told_apart |= told
@@ -632,7 +676,7 @@ def run_k2_branches(cfg, dev, rng, wp, steps: int = SERVE_FRAMES, shapes=((4, 32
               f"{MAX_DIVERGED}")
         main = runs[0]
         B, T_in = shapes[0]
-        plan = DK.k2_plan(B, T_in, DK.widths(tcfg, 2 * tcfg.encoder_lstm_units), clusters, r, DK.proj_mu(tcfg))
+        plan = DK.k2_plan(B, T_in, DK.widths(tcfg, 2 * tcfg.encoder_lstm_units), clusters, **DK.branch(tcfg))
         bms, by = bound(*decoder_work(tcfg, B, T_in, 2 * tcfg.encoder_lstm_units, main["steps"], steps))
         # the branch's main path: text -> mel through a Synthesizer, SERVE_FRAMES frames
         synth = Synthesizer(bcfg, tp, max_iters=SERVE_FRAMES // r, device=dev)
@@ -654,29 +698,28 @@ def run_k2_branches(cfg, dev, rng, wp, steps: int = SERVE_FRAMES, shapes=((4, 32
             "shape": f"B={B} T_in={T_in} steps={main['steps']} r={r}", "variant": DK.k2_variant(tcfg),
             "diverged_rows": n_div, "stop_runs": len(runs) - len(shapes), "smem_bytes": plan.smem_bytes(),
         })
-        if name == "r2_anti_repeat":
-            entries[-1]["launches"] = serve_branch(bcfg, tp, wp, dev, text)
-    # GMM and Graves: the plain version only; on the card they raise naming their ROADMAP item
-    for mode in ("gmm", "graves"):
-        mcfg = dataclasses.replace(cfg, tacotron=dataclasses.replace(cfg.tacotron, attention_mode=mode))
-        tp = init_tacotron(40, mcfg.tacotron, device=dev)
-        mem, mask, seeds = k2_branch_inputs(tp, mcfg.tacotron, dev, rng, 2, 32)
-        for what, call in (("the decode", lambda: DK.decode_autoregressive_kernel(tp, mcfg.tacotron, mem, mask,
-                                                                                  seeds, 10)),
-                           ("a Synthesizer", lambda: Synthesizer(mcfg, tp, device=dev))):
-            try:
-                call()
-            except NotImplementedError as e:
-                check("ROADMAP.md, queue item 16" in str(e), f"{mode}: {what} raised without item 16: {e}")
-                phase("k2 branches", f"{mode}: {what} on the card raises NotImplementedError ({e})")
-            else:
-                raise SmokeFailure(f"{mode}: {what} on the card did not raise")
+        if name in ("r2_anti_repeat", "graves"):
+            entries[-1]["launches"] = serve_branch(bcfg, tp, wp, dev, text, name)
+    # GMM and Graves at 128 mixtures or heads: once, against the plain version
+    for i, (name, over) in enumerate(K2_WIDE):
+        tcfg = dataclasses.replace(cfg.tacotron, **over)
+        tp = with_stop_bias(init_tacotron(40 + i, tcfg, device=dev), -30.0)
+        B, T_in = 4, 256
+        mem, mask, seeds = k2_branch_inputs(tp, tcfg, dev, rng, B, T_in)
+        out = run_k2_branch(tp, tcfg, mem, mask, seeds, 40, f"{name} B={B} T_in={T_in}")
+        check(out["max_abs_err"] <= 1e-3 and not out["diverged"], f"k2 branches {name}: {out['max_abs_err']:.3e}")
+        argmax_travel(f"{name} B={B} T_in={T_in}", out["p"][2])
+        plan = DK.k2_plan(B, T_in, DK.widths(tcfg, 2 * tcfg.encoder_lstm_units), clusters, **DK.branch(tcfg))
+        bms, _ = bound(*decoder_work(tcfg, B, T_in, 2 * tcfg.encoder_lstm_units, out["steps"], 40))
+        dense = f", gmm_layer {'on chip' if plan.res else 'from L2'}" if tcfg.attention_mode == "gmm" else ""
+        phase("k2 branches", f"{name}: variant {DK.k2_variant(tcfg)}, {plan.smem_bytes()} bytes of shared memory"
+              f"{dense}; bound {bms:.4f} ms")
     return entries
 
 
-def serve_branch(cfg, tp, wp, dev, text: str) -> int:
-    """One /generate_tts request through an artifact of ``cfg`` (here r=2
-    with anti-repeat) whose stop bias is set near the threshold of the
+def serve_branch(cfg, tp, wp, dev, text: str, name: str) -> int:
+    """One /generate_tts request through an artifact of ``cfg`` (the
+    branch ``name``) whose stop bias is set near the threshold of the
     sentence's stop logits, so that the decode stops before max_iters: the
     WAV must hold exactly stop_len x 275 samples, stop_len the plain
     decode's.  Returns the decode kernel's launches during the request."""
@@ -697,8 +740,8 @@ def serve_branch(cfg, tp, wp, dev, text: str) -> int:
     check("exit" in cs, f"k2 branches serve: no stop bias stops the sentence before {steps} steps")
     tp = with_stop_bias(tp, -cs["exit"])
     want = int(DK.decode_autoregressive_plain(tp, tcfg, mem, mask, [seed], steps)[3][0])
-    check(want < steps * r, f"k2 branches serve: the plain decode ran to max_iters ({want} frames)")
-    art = os.path.join(HERE, "build", "chip_smoke_artifact_branch")
+    check(0 < want < steps * r, f"k2 branches serve: the plain decode stopped at frame {want} of {steps * r}")
+    art = os.path.join(HERE, "build", f"chip_smoke_artifact_{name}")
     write_artifact(cfg, tp, art, wp)
     synth = load_exported(art, max_iters=steps, device=dev)
     httpd = SRV.serve(synth.cfg, synth, "127.0.0.1", 0, max_batch=4, max_queue=8)
@@ -727,7 +770,7 @@ def serve_branch(cfg, tp, wp, dev, text: str) -> int:
     check(n == want * 275, f"k2 branches serve: {n} samples, expected the plain stop_len {want} x 275")
     check(launches["tacotron_decode"] >= 1 and launches["wavernn_sample"] >= 1,
           f"k2 branches serve: launches {launches}")
-    phase("k2 branches", f"/generate_tts through an r={r} anti-repeat artifact: {host_ms:.1f} ms host, stop_len "
+    phase("k2 branches", f"/generate_tts through a {name} artifact (r={r}): {host_ms:.1f} ms host, stop_len "
           f"{want} of {steps * r} frames, {n} samples, launches {launches}")
     return launches["tacotron_decode"]
 

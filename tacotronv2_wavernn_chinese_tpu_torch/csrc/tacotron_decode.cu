@@ -4,16 +4,18 @@
 //
 // Replaces the TPU kernel
 // tacotronv2_wavernn_chinese_tpu/ops/tacotron_decoder_kernel.py
-// (decode_autoregressive_pallas, _kernel), location-sensitive branches:
-// forward attention with or without anti-repeat, LSA with or without its
-// synthesis window, either with smoothing, r = 1-6 frames a step.  Per step
-// and row: prenet with always-on dropout (per-row seed, rng.cuh: lanes [0,
-// P1) for layer 1, [P1, P1 + P2) for layer 2) on the last frame of the
-// previous step -> LSTM1 on [prenet, context, h1] -> LSTM2 on [out1, h2] (TF
-// gate order, forget bias +1, eval-mode zoneout (1-z)*new + z*prev on the
-// carried state, out = the raw new_h) -> attention (SAME location conv with
-// the combined [taps, A] filter, tanh energy against the keys) -> context ->
-// r frames, r stop logits and, for forward attention, mu.
+// (decode_autoregressive_pallas, _kernel), every branch: forward attention
+// with or without anti-repeat, LSA with or without its synthesis window,
+// either with smoothing, GMM and Graves attention (_kernel's else branch),
+// r = 1-6 frames a step.  Per step and row: prenet with always-on dropout
+// (per-row seed, rng.cuh: lanes [0, P1) for layer 1, [P1, P1 + P2) for
+// layer 2) on the last frame of the previous step -> LSTM1 on [prenet,
+// context, h1] -> LSTM2 on [out1, h2] (TF gate order, forget bias +1,
+// eval-mode zoneout (1-z)*new + z*prev on the carried state, out = the raw
+// new_h) -> attention (forward and LSA: SAME location conv with the
+// combined [taps, A] filter, tanh energy against the keys; GMM and Graves: a
+// dense of their own and a mixture over the positions) -> context -> r
+// frames, r stop logits and, for forward attention, mu.
 //
 // The attention branches are template parameters (K2Variant), so a branch
 // adds no switch to the step loop:
@@ -31,6 +33,17 @@
 //     host).
 //   * SMOOTH: sigmoid(energy) * mask normalised by its sum, instead of the
 //     softmax.
+//   * GMM (models/attention.py gmm_step): (alpha, beta, kappa increment) =
+//     exp(dense([out2, previous context])) over N mixtures; kappa += the
+//     increment; score[t] = sum_k alpha_k / beta_k * exp(-(kappa_k - t)^2 /
+//     beta_k), softmax masked at -1e9; no keys, no conv.
+//   * Graves (graves_step): gbk = layer2(relu(layer1(out2))) over N heads; g
+//     = softmax + 1e-5, sig = softplus + 1e-5, mu += softplus; the row's
+//     alignment is the difference of sum_h g_h / (1 + sigmoid((mu_h -
+//     edge) / sig_h)) at neighbouring position edges t + 0.5, 1e-20 where
+//     masked, not normalised.
+//   Anti-repeat, smoothing and the window do not act under GMM and Graves,
+//   as in the TPU kernel: each of the two is one instantiation.
 //
 // Semantics kept exactly: finished rows keep advancing with real outputs
 // until every row is done; after that each step writes frames 0, stops 1e4
@@ -73,6 +86,20 @@
 //     computes ec of them for all rows from the rank slices of the packed
 //     weights in global memory (L2: wx, [TR_CLUSTER, 80(r-1), LKP]) and
 //     writes them out; they are off the feedback chain.
+//   * GMM's and Graves' denses.  Rank q holds the dense's columns over its
+//     inputs (GMM: its out2 K-units and its ctx K-slice, as the projection;
+//     Graves' layer1: its out2 K-units) and forms partials for its cluster's
+//     rows, merged through distributed shared memory in rank order, so every
+//     block of a row holds bit-identical mixture parameters and state (kappa
+//     or mu, [N] in each block of the row).  GMM's slice stays on chip where
+//     the plan fits (res = 1; at the default widths up to 68 mixtures at
+//     B=4, T_in=32), else rank q reads it from its packed slice in global
+//     memory (L2).
+//     Graves' layer2 splits its 3N outputs over the ranks (c3 each), gathered
+//     by the row's blocks over DSMEM: one cluster sync more than GMM.  Each
+//     Graves block evaluates the head sum at its nT + 1 position edges and
+//     differences neighbours; an edge shared by two blocks is computed alike
+//     in both.
 //   * Rows.  The attention of row b runs on bpr blocks of cluster b / rpc;
 //     bpr grows with T_in (about K2_POS positions a block) up to
 //     TR_CLUSTER / rpc, so a short input keeps its row in one block.  A
@@ -106,11 +133,12 @@ namespace {
 constexpr int NMEL = 80;
 constexpr int K2_POS = 32;  // attention positions a row block aims for
 
-enum { K2_FORWARD = 0, K2_LSA = 1 };
+enum { K2_FORWARD = 0, K2_LSA = 1, K2_GMM = 2, K2_GRAVES = 3 };
 
 struct K2Dims {
   int B, T_in, P1, P2, U, V, A, taps;
-  int r, mu;  // frames a step; 1 when the projection has the mu column (forward attention)
+  int r, mu;    // frames a step; 1 when the projection has the mu column (forward attention)
+  int mode, N;  // the attention (K2_*); GMM's mixtures or Graves' heads (0 otherwise)
 };
 
 struct K2Plan {
@@ -120,11 +148,13 @@ struct K2Plan {
   int rpc, bpr, nT;  // rows of a cluster, blocks of a row, positions of a block
   int NP, NX, ec;    // on-chip projection outputs (last frame | r stops | mu); the other frame
                      // columns; of those, a cluster's
+  int H1, c3, res;   // Graves: layer1's width (U / 4), layer2's outputs of a rank; GMM: its dense
+                     // slice on chip (1) or read from L2 (0)
 };
 
 // rpc is the smallest power of two with rpc * NC >= B; bpr = 0 when the
-// rows do not fit (B > NC * TR_CLUSTER).
-__host__ __device__ inline K2Plan k2_plan(const K2Dims& d, int NC) {
+// rows do not fit (B > NC * TR_CLUSTER).  GMM's res is set by k2_plan.
+__host__ __device__ inline K2Plan k2_plan_rows(const K2Dims& d, int NC) {
   K2Plan p;
   p.NC = NC;
   p.G = NC * TR_CLUSTER;
@@ -147,15 +177,24 @@ __host__ __device__ inline K2Plan k2_plan(const K2Dims& d, int NC) {
   p.NP = NMEL + d.r + d.mu;
   p.NX = NMEL * (d.r - 1);
   p.ec = tr_cdiv(p.NX, NC);
+  p.H1 = d.mode == K2_GRAVES ? d.U / 4 : 0;
+  p.c3 = d.mode == K2_GRAVES ? tr_cdiv(3 * d.N, TR_CLUSTER) : 0;
+  p.res = d.mode == K2_GMM;
   return p;
 }
 
 // Offsets (floats) into dynamic shared memory; mirrored term for term by
 // ops/tacotron_decoder_kernel.py (K2Plan.smem_floats).
+// A region a mode does not use has no floats: wq, wc, v, eb, pqp, pq, cum
+// and alpha are forward's and LSA's; wd, wd2, dq, dh, dg, dr and mix GMM's
+// and Graves'.
 struct K2Layout {
   int w1;     // [4uc, LK1]  l1: the rank's [pre2 | ctx | h1] inputs x the cluster's gate rows
   int w2;     // [4uc, LK2]  l2: the rank's [out1 | h2] inputs x the cluster's gate rows
   int wq;     // [Ku, A]     wq columns of the rank's K-units
+  int wd;     // GMM [3N, LKP] (res): its dense over the rank's [out2 | ctx] inputs; Graves [H1, LKQ]:
+              //             layer1 over the rank's out2 K-units
+  int wd2;    // Graves [c3, LKH]: layer2, the rank's outputs over all H1 inputs
   int wp;     // [NP, LKP]   proj: the rank's [out2 | ctx] inputs x last frame, stops, mu
   int wp1;    // [K1p, LKM]  prenet 1: the rank's outputs x the 80 mel inputs
   int wp2;    // [Kp, LKG]   prenet 2: the rank's outputs (its pre2 K-slice) x all P1 inputs
@@ -172,10 +211,17 @@ struct K2Layout {
   int mu, done;  // [B]
   int seed, key;  // [B]     each row's seed; this step's dropout key (rng_key of the seed, row 0, the step)
   int pqp;    // [rpc, A]    partial query projections of the cluster's rows (read by the cluster)
+  int dq;     // GMM [rpc, LDG], Graves [rpc, LKH]: the dense's partials for the cluster's rows (read
+              //             by the cluster)
+  int dh;     // Graves [rpc, LKH]: relu(layer1) of the cluster's rows, merged
+  int dg;     // Graves [rpc, LDG]: layer2 of the cluster's rows, the rank's c3 columns (read by the row)
+  int dr;     // [LDG]       the row's mixture parameters: GMM alpha / beta, beta; Graves gbk, then g, sig
+  int mix;    // [N]         the row's mixture state: GMM kappa, Graves mu
   int pq;     // [A]         the row's query projection + energy bias
   int cum;    // [nT + taps - 1] the conv's input over the slice and its halo: the cumulated softmax
               //             (forward), the previous or cumulated alignment (LSA)
-  int alpha, en, asm_;  // [nT] forward state; energies then the recursion; this step's softmax
+  int alpha, en, asm_;  // [nT] forward state; energies then the recursion (Graves: [nT + 1] edges);
+                        //      this step's softmax (the alignment but for forward attention)
   int ctxp;   // [V]         this block's partial context (read by the row)
   int red;    // [16]        the row's exchange: 0-1 statistics, 2 sum, 4-7 merged; 8-9 (max, index)
               //             of the block; 10-11 the row's max_attention and dwell counter
@@ -185,26 +231,31 @@ struct K2Layout {
 
 struct K2Ld {
   int LK1, LK2, LKP, LKM, LKG, LDP, LDX;
+  int LKQ, LKH, LDG;  // Graves: layer1's and layer2's input strides; GMM and Graves: 3N outputs
 };
 
 __host__ __device__ inline K2Ld k2_ld(const K2Dims& d, const K2Plan& p) {
   const int LDP = tr_up4(p.NP + 2);
   return K2Ld{tr_up4(p.Kp + p.Kv + p.Ku) + 4, tr_up4(2 * p.Ku) + 4, tr_up4(p.Ku + p.Kv) + 4,
-              tr_up4(NMEL) + 4, tr_up4(d.P1) + 4, LDP, LDP + tr_up4(p.ec)};
+              tr_up4(NMEL) + 4, tr_up4(d.P1) + 4, LDP, LDP + tr_up4(p.ec),
+              tr_up4(p.Ku) + 4, tr_up4(p.H1) + 4, tr_up4(3 * d.N)};
 }
 
 __host__ __device__ inline K2Layout k2_layout(const K2Dims& d, const K2Plan& p) {
   K2Layout L;
   const K2Ld ld = k2_ld(d, p);
-  const int ng = 4 * p.uc, A4 = tr_up4(d.A);
+  const bool loc = d.mode <= K2_LSA, gmm = d.mode == K2_GMM, graves = d.mode == K2_GRAVES;
+  const int ng = 4 * p.uc, A4 = loc ? tr_up4(d.A) : 0;
   int o = 0;
   L.w1 = o;    o += ng * ld.LK1;
   L.w2 = o;    o += ng * ld.LK2;
-  L.wq = o;    o += p.Ku * d.A;
+  L.wq = o;    o += loc ? p.Ku * d.A : 0;
+  L.wd = o;    o += gmm ? p.res * 3 * d.N * ld.LKP : p.H1 * ld.LKQ;
+  L.wd2 = o;   o += p.c3 * ld.LKH;
   L.wp = o;    o += p.NP * ld.LKP;
   L.wp1 = o;   o += p.K1p * ld.LKM;
   L.wp2 = o;   o += p.Kp * ld.LKG;
-  L.wc = o;    o += tr_up4(d.taps * d.A);
+  L.wc = o;    o += loc ? tr_up4(d.taps * d.A) : 0;
   L.b1 = o;    o += tr_up4(p.K1p);
   L.b2 = o;    o += tr_up4(p.Kp);
   L.pb = o;    o += ld.LDP;
@@ -219,17 +270,30 @@ __host__ __device__ inline K2Layout k2_layout(const K2Dims& d, const K2Plan& p) 
   L.done = o;  o += tr_up4(d.B);
   L.seed = o;  o += tr_up4(d.B);
   L.key = o;   o += tr_up4(d.B);
-  L.pqp = o;   o += p.rpc * d.A;
+  L.pqp = o;   o += loc ? p.rpc * d.A : 0;
+  L.dq = o;    o += gmm ? p.rpc * ld.LDG : graves ? p.rpc * ld.LKH : 0;
+  L.dh = o;    o += graves ? p.rpc * ld.LKH : 0;
+  L.dg = o;    o += graves ? p.rpc * ld.LDG : 0;
+  L.dr = o;    o += ld.LDG;
+  L.mix = o;   o += tr_up4(d.N);
   L.pq = o;    o += A4;
-  L.cum = o;   o += tr_up4(p.nT + d.taps - 1);
-  L.alpha = o; o += tr_up4(p.nT);
-  L.en = o;    o += tr_up4(p.nT);
+  L.cum = o;   o += loc ? tr_up4(p.nT + d.taps - 1) : 0;
+  L.alpha = o; o += loc ? tr_up4(p.nT) : 0;
+  L.en = o;    o += tr_up4(graves ? p.nT + 1 : p.nT);
   L.asm_ = o;  o += tr_up4(p.nT);
   L.ctxp = o;  o += tr_up4(d.V);
   L.red = o;   o += 16;
   L.bred = o;  o += 64;
   L.total = o;
   return L;
+}
+
+// The plan: GMM keeps its dense slice on chip where the layout then fits a
+// block's shared memory, else reads it from L2.
+__host__ __device__ inline K2Plan k2_plan(const K2Dims& d, int NC) {
+  K2Plan p = k2_plan_rows(d, NC);
+  if (p.res && k2_layout(d, p).total * (int)sizeof(float) > TR_SMEM_LIMIT) p.res = 0;
+  return p;
 }
 
 // What one block does under the plan.
@@ -338,6 +402,9 @@ __device__ __forceinline__ void k2_product(const float* x, int ldx, int nb, cons
     }
   }
 }
+
+// softplus as torch computes it (threshold 20).
+__device__ __forceinline__ float k2_softplus(float x) { return x > 20.0f ? x : log1pf(expf(x)); }
 
 // (max, sum of exp(x - max)) of two sets of energies, merged; an empty set
 // is (-inf, 0).
@@ -489,10 +556,13 @@ struct K2Weights {  // all [out, in] (ops/tacotron_decoder_kernel.py pack_weight
   const float *wq, *w_comb, *b_comb, *att_v, *att_b;  // [A, U], [taps, A], [A], [A], [A]
   const float *proj, *proj_b;                       // [NP, U + V], [NP]: last frame | stops | mu
   const float *wx, *wx_b;                           // [TR_CLUSTER, NX, LKP] rank slices, [NX]: the other frames
+  // GMM: wd [TR_CLUSTER, 3N, LKP] rank slices of gmm_layer over [out2 | ctx], wd_b [3N]; Graves: wd
+  // layer1 [H1, U], wd_b [H1], wd2 layer2 [3N, H1], wd2_b [3N]
+  const float *wd, *wd_b, *wd2, *wd2_b;
 };
 
 struct K2Io {
-  const float *keys, *values, *mask;  // [B, T_in, A], [B, T_in, V], [B, T_in]
+  const float *keys, *values, *mask;  // [B, T_in, A] (forward and LSA), [B, T_in, V], [B, T_in]
   const int* seeds;                   // [B]
   float *frames, *stops, *aligns;     // [max_iters, B, 80r], [max_iters, B, r], [max_iters, B, T_in]
   float *g1, *g2, *ctx;               // exchange: [B, 4U], [B, 4U], [B, V]
@@ -507,6 +577,8 @@ tacotron_decode_kernel(K2Weights w, K2Io io, K2Dims d, K2Plan pl, K2Layout L, K2
                        float zo_keep, float drop_keep, uint32_t drop_thresh, unsigned* counter) {
   static_assert(MODE == K2_LSA || !WIN, "the synthesis window is LSA's");
   static_assert(MODE == K2_FORWARD || !ANTI, "anti-repeat is forward attention's");
+  static_assert(MODE <= K2_LSA || !SMOOTH, "GMM and Graves do not smooth");
+  constexpr bool LOC = MODE <= K2_LSA;  // location-sensitive: keys, the location conv, wq
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   cg::cluster_group cl = cg::this_cluster();
@@ -516,7 +588,7 @@ tacotron_decode_kernel(K2Weights w, K2Io io, K2Dims d, K2Plan pl, K2Layout L, K2
   const int B = d.B, T_in = d.T_in, P1 = d.P1, P2 = d.P2, U = d.U, V = d.V, A = d.A, taps = d.taps, r = d.r;
   const int padl = (taps - 1) / 2, Ku = pl.Ku, Kp = pl.Kp, Kv = pl.Kv, K1p = pl.K1p, uc = pl.uc, ng = 4 * uc;
   const int LK1 = ld.LK1, LK2 = ld.LK2, LKP = ld.LKP, LKM = ld.LKM, LKG = ld.LKG, LDP = ld.LDP, LDX = ld.LDX;
-  const int K1 = LK1 - 4, K2 = LK2 - 4, KP = LKP - 4, NP = pl.NP, FR = NMEL * r;
+  const int K1 = LK1 - 4, K2 = LK2 - 4, KP = LKP - 4, NP = pl.NP, FR = NMEL * r, N = d.N;
   const int nku = R.ku.n(), nou = R.ou.n(), nv = R.rv.n(), bpr = pl.bpr, rank0 = R.rank0;
   const int b = R.row, t0 = R.pos.lo, n_own = R.pos.n(), nT = pl.nT;
   const Range ku = R.ku, cu = R.cu, r1 = R.r1, r2 = R.r2, rv = R.rv;
@@ -526,6 +598,8 @@ tacotron_decode_kernel(K2Weights w, K2Io io, K2Dims d, K2Plan pl, K2Layout L, K2
   float *xs = sm + L.xs, *gin = sm + L.gin, *part = sm + L.part, *fr = sm + L.fr, *mu = sm + L.mu;
   float *done = sm + L.done, *pqp = sm + L.pqp, *pqv = sm + L.pq, *cum = sm + L.cum, *alpha = sm + L.alpha;
   float *en = sm + L.en, *asm_ = sm + L.asm_, *ctxp = sm + L.ctxp, *red = sm + L.red, *bred = sm + L.bred;
+  float *wd = sm + L.wd, *wd2 = sm + L.wd2, *dq = sm + L.dq, *dh = sm + L.dh, *dg = sm + L.dg, *dr = sm + L.dr;
+  float* mix = sm + L.mix;
   uint32_t *seed = reinterpret_cast<uint32_t*>(sm + L.seed), *key = reinterpret_cast<uint32_t*>(sm + L.key);
 
   // prologue: the weight slices, for the whole decode
@@ -544,9 +618,18 @@ tacotron_decode_kernel(K2Weights w, K2Io io, K2Dims d, K2Plan pl, K2Layout L, K2
     if (k < 2 * Ku) return k - Ku < nku ? U + ku.lo + k - Ku : -1;
     return -1;
   });
-  for (int i = tid; i < Ku * A; i += TR_THREADS) {  // wq is [A, U]: the slice is its K-units' columns, [Ku, A]
-    const int u = i / A, a = i - u * A;
-    wq[i] = u < nku ? __ldg(w.wq + (size_t)a * U + ku.lo + u) : 0.0f;
+  if (LOC)
+    for (int i = tid; i < Ku * A; i += TR_THREADS) {  // wq is [A, U]: the slice is its K-units' columns, [Ku, A]
+      const int u = i / A, a = i - u * A;
+      wq[i] = u < nku ? __ldg(w.wq + (size_t)a * U + ku.lo + u) : 0.0f;
+    }
+  if (MODE == K2_GMM && pl.res)  // the rank's packed slice
+    for (int i = tid; i < 3 * N * LKP; i += TR_THREADS) wd[i] = __ldg(w.wd + (size_t)R.q * 3 * N * LKP + i);
+  if (MODE == K2_GRAVES) {
+    const int H1 = pl.H1, c3 = pl.c3, LKQ = ld.LKQ, LKH = ld.LKH;
+    tr_load_slice(wd, H1, LKQ, w.wd, U, [](int o) { return o; }, [=](int k) { return k < nku ? ku.lo + k : -1; });
+    tr_load_slice(wd2, c3, LKH, w.wd2, H1, [=](int o) { return R.q * c3 + o < 3 * N ? R.q * c3 + o : -1; },
+                  [=](int k) { return k < H1 ? k : -1; });
   }
   tr_load_slice(wp, NP, LKP, w.proj, U + V, [](int o) { return o; }, [=](int k) {
     if (k < Ku) return k < nku ? ku.lo + k : -1;
@@ -556,16 +639,19 @@ tacotron_decode_kernel(K2Weights w, K2Io io, K2Dims d, K2Plan pl, K2Layout L, K2
                 [](int k) { return k < NMEL ? k : -1; });
   tr_load_slice(wp2, Kp, LKG, w.pre_w2, P1, [=](int o) { return r2.lo + o < r2.hi ? r2.lo + o : -1; },
                 [=](int k) { return k < P1 ? k : -1; });
-  for (int i = tid; i < taps * A; i += TR_THREADS) wc[i] = __ldg(w.w_comb + i);
+  if (LOC)
+    for (int i = tid; i < taps * A; i += TR_THREADS) wc[i] = __ldg(w.w_comb + i);
   for (int i = tid; i < K1p; i += TR_THREADS) b1[i] = r1.lo + i < r1.hi ? __ldg(w.pre_b1 + r1.lo + i) : 0.0f;
   for (int i = tid; i < Kp; i += TR_THREADS) b2[i] = r2.lo + i < r2.hi ? __ldg(w.pre_b2 + r2.lo + i) : 0.0f;
   for (int i = tid; i < LDP; i += TR_THREADS) pb[i] = i < NP ? __ldg(w.proj_b + i) : 0.0f;
-  for (int a = tid; a < A; a += TR_THREADS) {
-    vsm[a] = __ldg(w.att_v + a);
-    eb[a] = __ldg(w.b_comb + a) + __ldg(w.att_b + a);
-  }
+  if (LOC)
+    for (int a = tid; a < A; a += TR_THREADS) {
+      vsm[a] = __ldg(w.att_v + a);
+      eb[a] = __ldg(w.b_comb + a) + __ldg(w.att_b + a);
+    }
   // state: LSTMs at zero, the go frame, mu 0.5, nothing done; forward attention starts alpha and cum
-  // one-hot at position 0, LSA its alignment at zeros; max_attention and the dwell counter at 0
+  // one-hot at position 0, LSA its alignment at zeros, GMM kappa and Graves mu at zeros; max_attention
+  // and the dwell counter at 0
   for (int i = tid; i < 4 * B * Ku; i += TR_THREADS) c1[i] = 0.0f;
   for (int i = tid; i < B * LK1; i += TR_THREADS) xs[i] = 0.0f;
   for (int i = tid; i < B * LDP; i += TR_THREADS) fr[i] = 0.0f;
@@ -576,8 +662,11 @@ tacotron_decode_kernel(K2Weights w, K2Io io, K2Dims d, K2Plan pl, K2Layout L, K2
     key[i] = rng_key(seed[i], 0u, 0u);
   }
   const float one0 = MODE == K2_FORWARD ? 1.0f : 0.0f;
-  for (int i = tid; i < n_own; i += TR_THREADS) alpha[i] = t0 + i == 0 ? one0 : 0.0f;
-  for (int e = tid; e < n_own + taps - 1; e += TR_THREADS) cum[e] = t0 - padl + e == 0 ? one0 : 0.0f;
+  if (LOC) {
+    for (int i = tid; i < n_own; i += TR_THREADS) alpha[i] = t0 + i == 0 ? one0 : 0.0f;
+    for (int e = tid; e < n_own + taps - 1; e += TR_THREADS) cum[e] = t0 - padl + e == 0 ? one0 : 0.0f;
+  }
+  for (int k = tid; k < N; k += TR_THREADS) mix[k] = 0.0f;
   if (tid == 0) red[10] = red[11] = __int_as_float(0);
   unsigned target = 0;
   int n_run = max_iters;  // steps run before every row was done
@@ -641,7 +730,7 @@ tacotron_decode_kernel(K2Weights w, K2Io io, K2Dims d, K2Plan pl, K2Layout L, K2
     }
     // barrier 2
     grid_barrier(counter, target += pl.G);
-    // 3. LSTM2 of the K-units -> out2 (the projection's first inputs); partial pq of the cluster's rows
+    // 3. LSTM2 of the K-units -> out2 (the projection's first inputs)
     for (int k = tid; k < B * Ku; k += TR_THREADS) {
       const int bb = k / Ku, i = k - bb * Ku;
       if (i >= nku) {
@@ -657,18 +746,104 @@ tacotron_decode_kernel(K2Weights w, K2Io io, K2Dims d, K2Plan pl, K2Layout L, K2
       h2[k] = zo_keep * nh + zo * hp;
       gin[bb * LKP + i] = nh;
     }
+    if (MODE == K2_GMM) {  // the previous context's K-slice beside out2 (this cluster's rows wrote it)
+      const int row0 = R.c * pl.rpc, nr = tr_max(0, tr_min(pl.rpc, B - row0));
+      for (int k = tid; k < nr * (LKP - Ku); k += TR_THREADS) {
+        const int bb = row0 + k / (LKP - Ku), i = k % (LKP - Ku);
+        gin[bb * LKP + Ku + i] = s > 0 && i < nv ? __ldcg(io.ctx + (size_t)bb * V + rv.lo + i) : 0.0f;
+      }
+    }
     __syncthreads();
-    for (int k = tid; k < pl.rpc * A; k += TR_THREADS) {
-      const int rr = k / A, a = k - rr * A, bb = R.c * pl.rpc + rr;
-      float acc = 0.0f;
-      if (bb < B)
-        for (int i = 0; i < nku; ++i) acc = fmaf(gin[bb * LKP + i], wq[i * A + a], acc);
-      pqp[k] = acc;
+    // 3b. partial pq (GMM: gmm_layer; Graves: layer1 -> relu -> layer2) of the cluster's rows
+    if (LOC) {
+      for (int k = tid; k < pl.rpc * A; k += TR_THREADS) {
+        const int rr = k / A, a = k - rr * A, bb = R.c * pl.rpc + rr;
+        float acc = 0.0f;
+        if (bb < B)
+          for (int i = 0; i < nku; ++i) acc = fmaf(gin[bb * LKP + i], wq[i * A + a], acc);
+        pqp[k] = acc;
+      }
+    } else {
+      const int row0 = R.c * pl.rpc, nr = tr_max(0, tr_min(pl.rpc, B - row0));
+      if (MODE == K2_GMM && pl.res) {  // two calls: each product reads one memory space
+        k2_product(gin + row0 * LKP, LKP, nr, wd, LKP, 3 * N, KP, K2Epi{EPI_STORE, dq, ld.LDG});
+      } else if (MODE == K2_GMM) {
+        k2_product(gin + row0 * LKP, LKP, nr, w.wd + (size_t)R.q * 3 * N * LKP, LKP, 3 * N, KP,
+                   K2Epi{EPI_STORE, dq, ld.LDG});
+      } else {
+        const int LKH = ld.LKH, c3 = pl.c3;
+        k2_product(gin + row0 * LKP, LKP, nr, wd, ld.LKQ, pl.H1, ld.LKQ - 4, K2Epi{EPI_STORE, dq, LKH});
+        cl.sync();
+        for (int k = tid; k < nr * LKH; k += TR_THREADS) {  // relu(layer1), merged in rank order
+          const int j = k % LKH;
+          dh[k] = j < pl.H1 ? fmaxf(tr_merge(cl, dq, k) + __ldg(w.wd_b + j), 0.0f) : 0.0f;
+        }
+        __syncthreads();
+        const Range o3 = tr_range(R.q, c3, 3 * N);  // the rank's layer2 outputs
+        k2_product(dh, LKH, nr, wd2, LKH, o3.n(), LKH - 4, K2Epi{EPI_STORE, dg + o3.lo, ld.LDG});
+      }
     }
     cl.sync();
-    // 4. attention of the rows: energies (scores) and their statistics over the slice
+    // 4. attention of the rows: energies (scores; Graves: the head sums at the edges) and their
+    // statistics over the slice
     float2 st = make_float2(-INFINITY, 0.0f);
-    if (b >= 0) {
+    if (b >= 0 && !LOC) {
+      const int rr = R.q / bpr;
+      if (MODE == K2_GMM) {  // alpha / beta, beta and kappa of the row, merged in rank order
+        for (int k = tid; k < N; k += TR_THREADS) {
+          const float al = expf(tr_merge(cl, dq, rr * ld.LDG + k) + __ldg(w.wd_b + k));
+          const float be = expf(tr_merge(cl, dq, rr * ld.LDG + N + k) + __ldg(w.wd_b + N + k));
+          mix[k] += expf(tr_merge(cl, dq, rr * ld.LDG + 2 * N + k) + __ldg(w.wd_b + 2 * N + k));
+          dr[k] = al / be;
+          dr[N + k] = be;
+        }
+      } else {  // gbk of the row from the ranks' layer2 columns; g, sig and mu by warp 0, in one order
+        for (int j = tid; j < 3 * N; j += TR_THREADS)
+          dr[j] = cl.map_shared_rank(dg, j / pl.c3)[rr * ld.LDG + j] + __ldg(w.wd2_b + j);
+        __syncthreads();
+        if (warp == 0) {
+          float m = -INFINITY, z = 0.0f;
+          for (int h = lane; h < N; h += 32) m = fmaxf(m, dr[h]);
+          m = warp_max(m);
+          for (int h = lane; h < N; h += 32) z += expf(dr[h] - m);
+          z = warp_sum(z);
+          for (int h = lane; h < N; h += 32) {
+            dr[h] = expf(dr[h] - m) / z + 1e-5f;
+            dr[N + h] = k2_softplus(dr[N + h]) + 1e-5f;
+            mix[h] += k2_softplus(dr[2 * N + h]);
+          }
+        }
+      }
+      __syncthreads();
+      const float* mask = io.mask + (size_t)b * T_in;
+      if (MODE == K2_GMM) {
+        for (int i = tid; i < n_own; i += TR_THREADS) {
+          const float t = (float)(t0 + i);
+          float sc = 0.0f;
+#pragma unroll 1
+          for (int k = 0; k < N; ++k) {
+            const float dd = mix[k] - t;
+            sc += dr[k] * expf(-(dd * dd) / dr[N + k]);
+          }
+          en[i] = __ldg(mask + t0 + i) > 0.0f ? sc : -1e9f;
+        }
+      } else {
+        for (int e = tid; e <= n_own; e += TR_THREADS) {
+          const float edge = (float)(t0 + e) + 0.5f;
+          float sc = 0.0f;
+#pragma unroll 1
+          for (int h = 0; h < N; ++h) sc += dr[h] * (1.0f / (1.0f + sigmoidf_((mix[h] - edge) / dr[N + h])));
+          en[e] = sc;
+        }
+      }
+      __syncthreads();
+      if (MODE == K2_GMM) {
+        float2 ms = make_float2(-INFINITY, 0.0f);
+        for (int i = tid; i < n_own; i += TR_THREADS) ms = k2_stats_merge(ms, make_float2(en[i], 1.0f));
+        st = k2_block_stats(ms, bred);
+      }
+    }
+    if (b >= 0 && LOC) {
       const int rr = R.q / bpr;
       for (int a = tid; a < A; a += TR_THREADS) {
         float acc = 0.0f;
@@ -733,11 +908,12 @@ tacotron_decode_kernel(K2Weights w, K2Io io, K2Dims d, K2Plan pl, K2Layout L, K2
       red[0] = st.x;
       red[1] = st.y;
     }
-    if (bpr > 1) cl.sync(); else __syncthreads();
-    // 4b. the row's softmax; forward: the recursion; LSA: the alignment itself
+    if (bpr > 1 && MODE != K2_GRAVES) cl.sync(); else __syncthreads();
+    // 4b. the row's softmax; forward: the recursion; LSA, GMM: the alignment itself; Graves: the
+    // differences of the edges
     float s2 = 0.0f;
     if (b >= 0) {
-      if (tid == 0) {
+      if (tid == 0 && MODE != K2_GRAVES) {
         float2 M = make_float2(-INFINITY, 0.0f);
         for (int j = 0; j < bpr; ++j) {
           const float* o = cl.map_shared_rank(red, rank0 + j);
@@ -750,7 +926,8 @@ tacotron_decode_kernel(K2Weights w, K2Io io, K2Dims d, K2Plan pl, K2Layout L, K2
       }
       __syncthreads();
       const float M = red[4], Zs = red[5];
-      float* al_out = io.aligns + ((size_t)s * B + b) * T_in + t0;
+      float* al_out = io.aligns + ((size_t)s * B + b) * T_in +
+                      (MODE == K2_GMM ? (size_t)(unsigned)t0 : (size_t)t0);  // GMM: a signed t0's sign word spilled
       float bv = -INFINITY, part_s = 0.0f;
       int bi = 0x7fffffff;
       if (MODE == K2_FORWARD) {
@@ -769,6 +946,13 @@ tacotron_decode_kernel(K2Weights w, K2Io io, K2Dims d, K2Plan pl, K2Layout L, K2
           } else {
             part_s += pre;
           }
+        }
+      } else if (MODE == K2_GRAVES) {
+        const float* mask = io.mask + (size_t)b * T_in + t0;
+        for (int i = tid; i < n_own; i += TR_THREADS) {
+          const float a = __ldg(mask + i) > 0.0f ? en[i + 1] - en[i] : 1e-20f;
+          asm_[i] = a;
+          al_out[i] = a;
         }
       } else {
         for (int i = tid; i < n_own; i += TR_THREADS) {
@@ -789,8 +973,8 @@ tacotron_decode_kernel(K2Weights w, K2Io io, K2Dims d, K2Plan pl, K2Layout L, K2
         }
       }
       if (MODE == K2_FORWARD && !ANTI) s2 = tr_block_sum2(part_s, 0.0f, bred).x;  // also publishes en[]
-      if (MODE == K2_LSA && !WIN) __syncthreads();                              // publishes asm_[]
-      if (!ANTI) {  // the context before (forward) or after (LSA) the row's normalisation
+      if (MODE != K2_FORWARD && !WIN) __syncthreads();                          // publishes asm_[]
+      if (!ANTI) {  // the context before (forward) or after (the others) the row's normalisation
         const float* src = MODE == K2_FORWARD ? en : asm_;
         const float* values = io.values + ((size_t)b * T_in + t0) * V;
         for (int v = tid; v < V; v += TR_THREADS) {
@@ -827,7 +1011,7 @@ tacotron_decode_kernel(K2Weights w, K2Io io, K2Dims d, K2Plan pl, K2Layout L, K2
           io.ctx[(size_t)b * V + v] = acc;
         }
       } else {
-        float S2 = 1.0f;  // LSA: the softmax is the alignment
+        float S2 = 1.0f;  // LSA, GMM, Graves: the alignment as it is
         if (MODE == K2_FORWARD) {
           if (tid == 0) {
             float sum = 0.0f;
@@ -860,13 +1044,14 @@ tacotron_decode_kernel(K2Weights w, K2Io io, K2Dims d, K2Plan pl, K2Layout L, K2
           io.ctx[(size_t)b * V + v] = MODE == K2_FORWARD ? acc / S2 : acc;
         }
       }
-      for (int e = tid; e < n_own + taps - 1; e += TR_THREADS) {  // the slice and its halo
-        const int t = t0 - padl + e;
-        if (t >= 0 && t < T_in) {
-          const int owner = t / nT, li = t - owner * nT;
-          cum[e] = at.cw * cum[e] + (owner == R.sl ? asm_[li] : cl.map_shared_rank(asm_, rank0 + owner)[li]);
+      if (LOC)
+        for (int e = tid; e < n_own + taps - 1; e += TR_THREADS) {  // the slice and its halo
+          const int t = t0 - padl + e;
+          if (t >= 0 && t < T_in) {
+            const int owner = t / nT, li = t - owner * nT;
+            cum[e] = at.cw * cum[e] + (owner == R.sl ? asm_[li] : cl.map_shared_rank(asm_, rank0 + owner)[li]);
+          }
         }
-      }
     }
     // barrier 3
     grid_barrier(counter, target += pl.G);
@@ -934,10 +1119,13 @@ using K2Kernel = void (*)(K2Weights, K2Io, K2Dims, K2Plan, K2Layout, K2Attn, int
                           unsigned*);
 
 // The instantiation of a variant: bit 0 LSA, bit 1 anti-repeat, bit 2
-// smoothing, bit 3 the synthesis window (ops/tacotron_decoder_kernel.py
-// k2_variant); nullptr for a combination the kernel does not take.
+// smoothing, bit 3 the synthesis window; 16 GMM, 32 Graves
+// (ops/tacotron_decoder_kernel.py k2_variant); nullptr for a combination the
+// kernel does not take.
 K2Kernel k2_kernel(int variant) {
   switch (variant) {
+    case 16: return tacotron_decode_kernel<K2_GMM, false, false, false>;
+    case 32: return tacotron_decode_kernel<K2_GRAVES, false, false, false>;
     case 0: return tacotron_decode_kernel<K2_FORWARD, false, false, false>;
     case 2: return tacotron_decode_kernel<K2_FORWARD, true, false, false>;
     case 4: return tacotron_decode_kernel<K2_FORWARD, false, true, false>;
@@ -950,20 +1138,27 @@ K2Kernel k2_kernel(int variant) {
   }
 }
 
+// The attention mode (K2_*) of a variant.
+int k2_mode(int variant) {
+  return variant == 16 ? K2_GMM : variant == 32 ? K2_GRAVES : (variant & 1) ? K2_LSA : K2_FORWARD;
+}
+
 }  // namespace
 
 // Bytes of shared memory per block (ops/tacotron_decoder_kernel.py k2_plan
 // computes the same; the wrapper checks before every launch).  ``mu`` is 1
-// for forward attention (the projection's mu column), 0 for LSA.
+// for forward attention (the projection's mu column), else 0; ``mode`` the
+// attention (0 forward, 1 LSA, 2 GMM, 3 Graves), ``N`` GMM's mixtures or
+// Graves' heads (0 for forward and LSA).
 extern "C" int tacotron_decode_smem_bytes(int B, int T_in, int P1, int P2, int U, int V, int A, int taps, int r,
-                                          int mu, int NC) {
-  const K2Dims d{B, T_in, P1, P2, U, V, A, taps, r, mu};
+                                          int mu, int mode, int N, int NC) {
+  const K2Dims d{B, T_in, P1, P2, U, V, A, taps, r, mu, mode, N};
   return k2_layout(d, k2_plan(d, NC)).total * (int)sizeof(float);
 }
 
 // Floats of the global exchange: g1 [B, 4U], g2 [B, 4U], ctx [B, V].
 extern "C" int tacotron_decode_scratch_floats(int B, int T_in, int P1, int P2, int U, int V, int A, int taps, int r,
-                                              int mu, int NC) {
+                                              int mu, int mode, int N, int NC) {
   return B * (8 * U + V);
 }
 
@@ -998,35 +1193,38 @@ extern "C" int tacotron_decode_clusters() {
 }
 
 // Launches the whole decode on ``stream`` as NC clusters of TR_CLUSTER
-// blocks.  ``ptrs`` holds 25 device pointers: keys [B, T_in, A], values
-// [B, T_in, V], mask [B, T_in] (f32), seeds [B] (int32); the 17 weights in
-// WEIGHT_ORDER of ops/tacotron_decoder_kernel.py (pack_weights: [out, in];
-// wx and wx_b may be any pointer at r = 1); frames [max_iters, B, 80r],
-// stops [max_iters, B, r], aligns [max_iters, B, T_in]; the exchange
-// [tacotron_decode_scratch_floats(...)].  ``counter`` is one zeroed uint32.
-// ``variant`` picks the attention branch (k2_kernel), ``mu`` is 1 when the
-// projection has forward attention's mu column, ``need`` the stop
-// policy (1: any of the r flags, r: all), ``back``/``ahead`` the LSA window,
-// ``cw`` the LSA carry.  Returns a cudaError_t:
-// cudaErrorCooperativeLaunchTooLarge when NC clusters cannot be resident
-// together or the rows do not fit, cudaErrorInvalidValue when the plan
-// exceeds a block's shared memory or the variant does not exist, else the
-// launch's own.
+// blocks.  ``ptrs`` holds 29 device pointers: keys [B, T_in, A] (any
+// pointer for GMM and Graves), values [B, T_in, V], mask [B, T_in] (f32),
+// seeds [B] (int32); the 21 weights in WEIGHT_ORDER of
+// ops/tacotron_decoder_kernel.py (pack_weights: [out, in]; a weight the
+// branch does not read, and wx and wx_b at r = 1, may be any pointer);
+// frames [max_iters, B, 80r], stops [max_iters, B, r], aligns [max_iters,
+// B, T_in]; the exchange [tacotron_decode_scratch_floats(...)].  ``counter``
+// is one zeroed uint32.  ``variant`` picks the attention branch (k2_kernel)
+// and must be of ``mode``, ``mu`` is 1 when the projection has forward
+// attention's mu column, ``N`` GMM's mixtures or Graves' heads (1-128),
+// ``need`` the stop policy (1: any of the r flags, r: all),
+// ``back``/``ahead`` the LSA window, ``cw`` the LSA carry.  Returns a
+// cudaError_t: cudaErrorCooperativeLaunchTooLarge when NC clusters cannot be
+// resident together or the rows do not fit, cudaErrorInvalidValue when the
+// plan exceeds a block's shared memory or the variant does not exist or
+// does not match mode, mu and N, else the launch's own.
 extern "C" int tacotron_decode_launch(void* const* ptrs, unsigned* counter, int B, int T_in, int P1, int P2,
-                                      int U, int V, int A, int taps, int r, int mu, int variant, int max_iters,
-                                      int NC, int need, int back, int ahead, int dwell_first, int dwell_rest, float cw,
-                                      float zoneout, float zoneout_keep, float drop_keep, uint32_t drop_thresh,
-                                      void* stream) {
+                                      int U, int V, int A, int taps, int r, int mu, int mode, int N, int variant,
+                                      int max_iters, int NC, int need, int back, int ahead, int dwell_first,
+                                      int dwell_rest, float cw, float zoneout, float zoneout_keep, float drop_keep,
+                                      uint32_t drop_thresh, void* stream) {
   const K2Kernel fn = k2_kernel(variant);
-  if (fn == nullptr || r < 1) return (int)cudaErrorInvalidValue;
+  if (fn == nullptr || r < 1 || k2_mode(variant) != mode || mu != (mode == K2_FORWARD)) return (int)cudaErrorInvalidValue;
+  if (mode <= K2_LSA ? N != 0 : N < 1 || N > 128) return (int)cudaErrorInvalidValue;
   const float* const* f = reinterpret_cast<const float* const*>(ptrs);
   const K2Weights w{f[4], f[5], f[6], f[7], f[8], f[9], f[10], f[11], f[12], f[13], f[14], f[15], f[16],
-                    f[17], f[18], f[19], f[20]};
-  float* scratch = static_cast<float*>(ptrs[24]);
+                    f[17], f[18], f[19], f[20], f[21], f[22], f[23], f[24]};
+  float* scratch = static_cast<float*>(ptrs[28]);
   const K2Io io{f[0], f[1], f[2], static_cast<const int*>(ptrs[3]),
-                static_cast<float*>(ptrs[21]), static_cast<float*>(ptrs[22]), static_cast<float*>(ptrs[23]),
+                static_cast<float*>(ptrs[25]), static_cast<float*>(ptrs[26]), static_cast<float*>(ptrs[27]),
                 scratch, scratch + (size_t)B * 4 * U, scratch + (size_t)B * 8 * U};
-  const K2Dims d{B, T_in, P1, P2, U, V, A, taps, r, mu};
+  const K2Dims d{B, T_in, P1, P2, U, V, A, taps, r, mu, mode, N};
   const K2Plan pl = k2_plan(d, NC);
   if (pl.bpr == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
   const int smem = k2_layout(d, pl).total * (int)sizeof(float);

@@ -122,10 +122,10 @@ _ARGTYPES = {
     "wavernn_sample_scratch_floats": [ctypes.c_int] * 4,
     # the cluster-grid kernels take their device pointers as one host array,
     # then the barrier counter
-    "tacotron_decode_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 18 + [ctypes.c_float] * 4
+    "tacotron_decode_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 20 + [ctypes.c_float] * 4
     + [ctypes.c_uint32, ctypes.c_void_p],
-    "tacotron_decode_smem_bytes": [ctypes.c_int] * 11,
-    "tacotron_decode_scratch_floats": [ctypes.c_int] * 11,
+    "tacotron_decode_smem_bytes": [ctypes.c_int] * 13,
+    "tacotron_decode_scratch_floats": [ctypes.c_int] * 13,
     "tacotron_decode_clusters": [],
     "tacotron_train_fwd_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p],
     "tacotron_train_bwd_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p],

@@ -22,13 +22,13 @@ launches over equal row groups, the last one padded by repeating a real row
 so its stop length and its frames up to the stop are those of one decode
 over all rows.
 
-Scope of the kernel (``check_supported``, the TPU kernel's ``supported``
-less GMM and Graves): forward attention with or without anti-repeat, LSA
-with or without the synthesis window (either type, cumulative_weights on or
-off), either with smoothing; r = 1-6 under either stop policy; two prenet
-layers; widths that are multiples of 4.  GMM and Graves attention run in the
-plain version only: on the card they raise NotImplementedError (ROADMAP.md,
-queue item 16).
+Scope of the kernel (``check_supported``, the TPU kernel's ``supported``):
+forward attention with or without anti-repeat, LSA with or without the
+synthesis window (either type, cumulative_weights on or off), either with
+smoothing, GMM attention of up to 128 mixtures and Graves attention of up to
+128 heads; r = 1-6 under either stop policy; two prenet layers; widths that
+are multiples of 4.  Beyond that the card raises NotImplementedError
+(ROADMAP.md, queue item 15); the plain version takes every configuration.
 
 Randomness: the prenet dropout of row b at step t draws
 ``hash_bits(seeds[b], 0, t, lane)`` with lanes [0, p1) for the first layer
@@ -52,10 +52,13 @@ from . import (
 NUM_MELS = 80
 STOP_FILL = 1e4  # stop logit written for steps after every row is done
 MAX_R = 6  # frames a step the kernel takes (the TPU kernel's bound)
+MAX_MIX = 128  # GMM mixtures, Graves heads the kernel takes (the TPU kernel's bound)
+MODE_IDS = {"forward": 0, "lsa": 1, "gmm": 2, "graves": 3}  # csrc/tacotron_decode.cu K2_*
 
 WEIGHT_ORDER = (
     "pre_w1", "pre_b1", "pre_w2", "pre_b2", "l1", "l1_b", "l2", "l2_b",
     "wq", "w_comb", "b_comb", "att_v", "att_b", "proj", "proj_b", "wx", "wx_b",
+    "wd", "wd_b", "wd2", "wd2_b",
 )
 
 
@@ -75,7 +78,8 @@ def row_seeds(seeds, batch: int, device) -> torch.Tensor:
 def check_supported(cfg: TacotronModelConfig, device=None) -> None:
     """Raise for a decoder configuration that cannot run on ``device``
     (None: the card).  The plain version (CPU) runs every attention mode
-    and every r; the kernel runs forward and LSA attention at r = 1-6."""
+    and every r; the kernel runs every mode at r = 1-6, GMM with up to 128
+    mixtures and Graves with up to 128 heads."""
     from ..models.attention import MODES
 
     if cfg.attention_mode not in MODES:
@@ -86,10 +90,11 @@ def check_supported(cfg: TacotronModelConfig, device=None) -> None:
         raise NotImplementedError("the decoder kernel and its plain version take exactly two prenet layers")
     if device is not None and torch.device(device).type == "cpu":
         return
-    if cfg.attention_mode in ("gmm", "graves"):
+    if n_mix(cfg) > MAX_MIX:
+        what = "num_attn_mixtures" if cfg.attention_mode == "gmm" else "graves_heads"
         raise NotImplementedError(
-            f"attention_mode={cfg.attention_mode!r}: the decode kernel runs forward and LSA attention; "
-            "GMM and Graves run in the plain version on the CPU only (ROADMAP.md, queue item 16)"
+            f"{what}={n_mix(cfg)}: the decode kernel takes up to {MAX_MIX}, as the TPU kernel does "
+            "(ROADMAP.md, queue item 15)"
         )
     if cfg.outputs_per_step > MAX_R:
         raise NotImplementedError(
@@ -100,16 +105,31 @@ def check_supported(cfg: TacotronModelConfig, device=None) -> None:
 
 def proj_mu(cfg: TacotronModelConfig) -> int:
     """1 when the kernel's projection has forward attention's mu column,
-    0 for LSA (k2_plan, pack_weights and the launch all take it from here)."""
+    else 0 (k2_plan, pack_weights and the launch all take it from here)."""
     return int(cfg.attention_mode == "forward")
+
+
+def n_mix(cfg: TacotronModelConfig) -> int:
+    """GMM's mixtures or Graves' heads; 0 for forward and LSA attention."""
+    return {"gmm": cfg.num_attn_mixtures, "graves": cfg.graves_heads}.get(cfg.attention_mode, 0)
+
+
+def branch(cfg: TacotronModelConfig) -> dict:
+    """What the grid's plan takes of ``cfg``: r, mu, the mode and N
+    (``k2_plan(..., **branch(cfg))``)."""
+    return {"r": cfg.outputs_per_step, "mu": proj_mu(cfg), "mode": MODE_IDS[cfg.attention_mode],
+            "n_mix": n_mix(cfg)}
 
 
 def k2_variant(cfg: TacotronModelConfig) -> int:
     """The kernel instantiation of ``cfg`` (csrc/tacotron_decode.cu
-    k2_kernel): bit 0 LSA, bit 1 anti-repeat (forward attention only: under
-    LSA the flag picks the window's type, which reaches the kernel as the
-    window's bounds, not as a bit), bit 2 smoothing, bit 3 the LSA
-    synthesis window."""
+    k2_kernel): 16 GMM, 32 Graves, whatever the other flags say (neither
+    reads them, as in the TPU kernel); else bit 0 LSA, bit 1 anti-repeat
+    (forward attention only: under LSA the flag picks the window's type,
+    which reaches the kernel as the window's bounds, not as a bit), bit 2
+    smoothing, bit 3 the LSA synthesis window."""
+    if cfg.attention_mode in ("gmm", "graves"):
+        return 16 if cfg.attention_mode == "gmm" else 32
     lsa = cfg.attention_mode == "lsa"
     return (int(lsa) | (int(cfg.anti_repeat and not lsa) << 1) | (int(cfg.smoothing) << 2)
             | (int(lsa and cfg.synthesis_constraint) << 3))
@@ -135,15 +155,15 @@ def pack_weights(params: dict, cfg: TacotronModelConfig) -> dict:
     """Model params -> the kernel's layout: every dense transposed to
     [out, in]; the projection outputs that stay on chip (the last frame,
     the r stop logits and, for forward attention, mu) stacked into one
-    [NP, u+V] matrix over the input [out2 | context]; the location conv and
-    location dense combined into one [taps, A] filter.  The other frame
-    columns ("wx") are packed per plan (``pack_other_frames``)."""
-    from ..models.attention import combined_location_weights
-
+    [NP, u+V] matrix over the input [out2 | context]; for forward and LSA
+    attention the location conv and location dense combined into one
+    [taps, A] filter; for GMM gmm_layer's bias (its matrix is packed per
+    rank, ``pack_rank_slices``), for Graves layer1 and layer2.  The other
+    frame columns ("wx") are packed per rank as well.  The weights a mode
+    does not have are absent."""
     att = params["attention"]
     U = cfg.decoder_lstm_units
     V = params["frame_projection"]["w"].shape[0] - U
-    w_comb, b_comb = combined_location_weights(att)
     t = lambda a: a.t().contiguous()
     fw, fb = params["frame_projection"]["w"], params["frame_projection"]["b"]
     cols, bias = [fw[:, -NUM_MELS:], params["stop_projection"]["w"]], [fb[-NUM_MELS:], params["stop_projection"]["b"]]
@@ -152,33 +172,49 @@ def pack_weights(params: dict, cfg: TacotronModelConfig) -> dict:
         cols.append(torch.cat([mu_w[V:], mu_w[:V]], dim=0))
         bias.append(att["mu_layer"]["b"])
     layers = params["prenet"]["layers"]
-    return {
+    out = {
         "pre_w1": t(layers[0]["w"]), "pre_b1": layers[0]["b"].contiguous(),
         "pre_w2": t(layers[1]["w"]), "pre_b2": layers[1]["b"].contiguous(),
         "l1": t(params["dec_lstm1"]["w"]), "l1_b": params["dec_lstm1"]["b"].contiguous(),
         "l2": t(params["dec_lstm2"]["w"]), "l2_b": params["dec_lstm2"]["b"].contiguous(),
-        "wq": t(att["query_layer"]["w"]),
-        "w_comb": w_comb.contiguous(), "b_comb": b_comb.contiguous(),
-        "att_v": att["v"].contiguous(), "att_b": att["b"].contiguous(),
         "proj": t(torch.cat(cols, dim=1)), "proj_b": torch.cat(bias).contiguous(),
         "wx_b": fb[: fb.shape[0] - NUM_MELS].contiguous(),
     }
+    if cfg.attention_mode in ("forward", "lsa"):
+        from ..models.attention import combined_location_weights
+
+        w_comb, b_comb = combined_location_weights(att)
+        out.update(wq=t(att["query_layer"]["w"]), w_comb=w_comb.contiguous(), b_comb=b_comb.contiguous(),
+                   att_v=att["v"].contiguous(), att_b=att["b"].contiguous())
+    elif cfg.attention_mode == "gmm":
+        out["wd_b"] = att["gmm_layer"]["b"].contiguous()
+    else:
+        out.update(wd=t(att["layer1"]["w"]), wd_b=att["layer1"]["b"].contiguous(),
+                   wd2=t(att["layer2"]["w"]), wd2_b=att["layer2"]["b"].contiguous())
+    return out
+
+
+def pack_rank_slices(w: torch.Tensor, plan: "K2Plan") -> torch.Tensor:
+    """Output columns of a dense ``w`` [U+V, n] over the projection's input
+    [out2 | context], [CLUSTER, n, LKP]: rank q's slice holds them over the
+    inputs it owns, in the order of its input row (its out2 K-units from 0,
+    its context K-slice from k_units; zeros elsewhere).  The frame columns
+    before the last frame (``pack_other_frames``) and GMM's gmm_layer are
+    packed so; the kernel reads the first from global memory, and the
+    second too where its slice does not fit on chip."""
+    U, Ku = plan.dims[2], plan.k_units
+    out = w.new_zeros(CLUSTER, w.shape[1], plan.lkp)
+    for q in range(CLUSTER):
+        ku, kv = plan.k_unit_range(q), plan.ctx_range(q)
+        out[q, :, : len(ku)] = w[list(ku)].t()
+        out[q, :, Ku: Ku + len(kv)] = w[[U + v for v in kv]].t()
+    return out.contiguous()
 
 
 def pack_other_frames(params: dict, plan: "K2Plan") -> torch.Tensor:
-    """The frame columns before the last frame, [CLUSTER, 80(r-1), LKP]:
-    rank q's slice holds them over the projection inputs it owns, in the
-    order of its input row (its out2 K-units from 0, its context K-slice
-    from k_units; zeros elsewhere).  The kernel reads them from global
-    memory: they only leave the kernel."""
-    fw = params["frame_projection"]["w"]
-    U, Ku = plan.dims[2], plan.k_units
-    wx = fw.new_zeros(CLUSTER, plan.NX, plan.lkp)
-    for q in range(CLUSTER):
-        ku, kv = plan.k_unit_range(q), plan.ctx_range(q)
-        wx[q, :, : len(ku)] = fw[list(ku), : plan.NX].t()
-        wx[q, :, Ku: Ku + len(kv)] = fw[[U + v for v in kv], : plan.NX].t()
-    return wx.contiguous()
+    """The frame columns before the last frame, [CLUSTER, 80(r-1), LKP]
+    (``pack_rank_slices``); they only leave the kernel."""
+    return pack_rank_slices(params["frame_projection"]["w"][:, : plan.NX], plan)
 
 
 # ---------------------------------------------------------------------------
@@ -223,7 +259,12 @@ class K2Plan:
     attention runs on blocks_per_row blocks of cluster b // rows_per_cluster,
     ``positions`` encoder positions each.  Of the projection, NP outputs
     stay on chip (the last frame, r stops, mu when ``mu``); cluster c
-    computes the other frame columns [c*ec, ...) of NX from global memory."""
+    computes the other frame columns [c*ec, ...) of NX from global memory.
+    ``mode`` is the attention (MODE_IDS) and ``n_mix`` GMM's mixtures or
+    Graves' heads: GMM's dense slice over rank q's projection inputs stays
+    on chip when ``res`` (where the plan then fits a block), else comes
+    from L2; Graves' layer1 slice over rank q's out2 K-units and its
+    layer2 outputs [q*c3, ...) stay on chip."""
 
     B: int
     T_in: int
@@ -241,6 +282,27 @@ class K2Plan:
     positions: int
     r: int = 1
     mu: int = 1
+    mode: int = 0
+    n_mix: int = 0
+    res: int = 0
+
+    @property
+    def loc(self) -> bool:
+        """Forward or LSA attention (keys, the location conv, wq)."""
+        return self.mode <= MODE_IDS["lsa"]
+
+    @property
+    def h1(self) -> int:
+        """Graves: layer1's width."""
+        return self.dims[2] // 4 if self.mode == MODE_IDS["graves"] else 0
+
+    @property
+    def c3(self) -> int:
+        """Graves: layer2 outputs a rank holds."""
+        return _cdiv(3 * self.n_mix, CLUSTER) if self.mode == MODE_IDS["graves"] else 0
+
+    def layer2_range(self, q: int) -> range:
+        return _cut(q, self.c3, 3 * self.n_mix)
 
     @property
     def NP(self) -> int:
@@ -315,11 +377,20 @@ class K2Plan:
         LK1, LK2, LKP = _up4(Kp + Kv + Ku) + 4, _up4(2 * Ku) + 4, self.lkp
         LKM, LKG = _up4(NUM_MELS) + 4, _up4(P1) + 4
         LDP, LDX = self.ldp, self.ldx
-        weights = (ng * LK1 + ng * LK2 + Ku * A + self.NP * LKP + self.pre1_k * LKM + Kp * LKG + _up4(taps * A)
-                   + _up4(self.pre1_k) + _up4(Kp) + LDP + 2 * _up4(A))
+        LKQ, LKH, LDG, rpc = _up4(Ku) + 4, _up4(self.h1) + 4, _up4(3 * self.n_mix), self.rows_per_cluster
+        gmm, graves = self.mode == MODE_IDS["gmm"], self.mode == MODE_IDS["graves"]
+        if self.loc:  # wq, the location filter, v and the energy bias
+            att_w = Ku * A + _up4(taps * A) + 2 * _up4(A)
+        else:  # GMM's dense slice (on chip or not); Graves' layer1 and layer2 slices
+            att_w = self.res * 3 * self.n_mix * LKP if gmm else self.h1 * LKQ + self.c3 * LKH
+        weights = (ng * LK1 + ng * LK2 + self.NP * LKP + self.pre1_k * LKM + Kp * LKG + _up4(self.pre1_k)
+                   + _up4(Kp) + LDP + att_w)
         rows = _up4(4 * B * Ku) + B * LK1 + B * max(LKG, LKP) + B * max(ng, LDX) + B * LDP + 4 * _up4(B)
-        attention = (self.rows_per_cluster * A + _up4(A) + _up4(nT + taps - 1) + 3 * _up4(nT) + _up4(V)
-                     + 16 + 64)
+        if self.loc:  # pqp, pq, the conv's input and halo, alpha
+            att_rows = rpc * A + _up4(A) + _up4(nT + taps - 1) + _up4(nT)
+        else:  # dq, dh, dg; the row's parameters and state
+            att_rows = (rpc * LDG if gmm else 2 * rpc * LKH + rpc * LDG) + LDG + _up4(self.n_mix)
+        attention = att_rows + _up4(nT + 1 if graves else nT) + _up4(nT) + _up4(V) + 16 + 64
         return weights + rows + attention
 
     def smem_bytes(self) -> int:
@@ -336,11 +407,15 @@ class K2Plan:
         return self.blocks_per_row > 0 and self.smem_bytes() <= SMEM_LIMIT
 
 
-def k2_plan(batch: int, t_in: int, dims: tuple, clusters: int, r: int = 1, mu: int = 1) -> K2Plan:
+def k2_plan(batch: int, t_in: int, dims: tuple, clusters: int, r: int = 1, mu: int = 1, mode: int = 0,
+            n_mix: int = 0) -> K2Plan:
     """The plan of one launch for ``clusters`` resident clusters
     (``k2_plan`` of the .cu file, term for term), r frames a step, ``mu``
-    1 for forward attention (the projection's mu column), 0 for LSA;
-    ``fits`` says whether it launches."""
+    1 for forward attention (the projection's mu column), else 0, ``mode``
+    the attention (MODE_IDS; forward and LSA share a layout) and ``n_mix``
+    GMM's mixtures or Graves' heads (``branch(cfg)`` gives all four);
+    ``fits`` says whether it launches.  GMM keeps its dense slice on chip
+    where the plan then fits (``res``)."""
     P1, P2, U, V, A, taps = dims
     rpc = 1
     while rpc * clusters < batch:
@@ -351,19 +426,24 @@ def k2_plan(batch: int, t_in: int, dims: tuple, clusters: int, r: int = 1, mu: i
         while bpr < CLUSTER // rpc and bpr * POSITIONS < t_in:
             bpr *= 2
     uc = _cdiv(U, clusters)
-    return K2Plan(batch, t_in, tuple(dims), clusters, clusters * CLUSTER, _cdiv(U, CLUSTER), uc,
+    gmm = int(mode == MODE_IDS["gmm"])
+    plan = K2Plan(batch, t_in, tuple(dims), clusters, clusters * CLUSTER, _cdiv(U, CLUSTER), uc,
                   _cdiv(uc, CLUSTER), _cdiv(P1, CLUSTER), _cdiv(P2, CLUSTER), _cdiv(V, CLUSTER),
-                  rpc, bpr, _cdiv(t_in, bpr) if bpr else 0, r, mu)
+                  rpc, bpr, _cdiv(t_in, bpr) if bpr else 0, r, mu, mode, n_mix, gmm)
+    if gmm and plan.smem_bytes() > SMEM_LIMIT:
+        plan = dataclasses.replace(plan, res=0)
+    return plan
 
 
-def rows_per_launch(t_in: int, dims: tuple, clusters: int, r: int = 1, mu: int = 1) -> int:
+def rows_per_launch(t_in: int, dims: tuple, clusters: int, r: int = 1, mu: int = 1, mode: int = 0,
+                    n_mix: int = 0) -> int:
     """The most rows one launch takes at this encoder length (the grid's
     rows, and shared memory, which grows with the rows and with a block's
     positions); 0 when not even one row fits."""
     lo, hi = 0, clusters * CLUSTER  # fits() only turns false as the rows grow
     while lo < hi:
         mid = (lo + hi + 1) // 2
-        if k2_plan(mid, t_in, dims, clusters, r, mu).fits():
+        if k2_plan(mid, t_in, dims, clusters, r, mu, mode, n_mix).fits():
             lo = mid
         else:
             hi = mid - 1
@@ -409,12 +489,14 @@ def card_clusters(device: torch.device) -> int:
     return _CLUSTERS[key]
 
 
-def launch_group(t_in: int, dims: tuple, clusters: int, r: int = 1, mu: int = 1) -> int:
+def launch_group(t_in: int, dims: tuple, clusters: int, r: int = 1, mu: int = 1, mode: int = 0,
+                 n_mix: int = 0) -> int:
     """Rows per launch; NotImplementedError when not even one row fits."""
-    group = rows_per_launch(t_in, dims, clusters, r, mu)
+    group = rows_per_launch(t_in, dims, clusters, r, mu, mode, n_mix)
     if group == 0:
         raise NotImplementedError(
-            f"T_in={t_in} with widths {dims} and r={r} is beyond the decode kernel's envelope on a card with {clusters} "
+            f"T_in={t_in} with widths {dims}, r={r} and attention mode {mode} ({n_mix} mixtures or heads) is "
+            f"beyond the decode kernel's envelope on a card with {clusters} "
             f"resident clusters of {CLUSTER} blocks: one row's weight slices and positions exceed a block's "
             f"shared memory (ROADMAP.md, queue item 15)"
         )
@@ -433,7 +515,8 @@ def decode_autoregressive_kernel(params, cfg: TacotronModelConfig, memory, mem_m
 
     dev = memory.device
     B, T_in, V = memory.shape
-    r, mu = cfg.outputs_per_step, proj_mu(cfg)
+    br = branch(cfg)
+    r, mu, N = br["r"], br["mu"], br["n_mix"]
     dims = widths(cfg, V)
     P1, P2, U, _, A, taps = dims
     for name, n in (("prenet widths", P1), ("prenet widths", P2), ("decoder_lstm_units", U),
@@ -445,8 +528,11 @@ def decode_autoregressive_kernel(params, cfg: TacotronModelConfig, memory, mem_m
     shapes = {
         "pre_w1": (P1, NUM_MELS), "pre_b1": (P1,), "pre_w2": (P2, P1), "pre_b2": (P2,),
         "l1": (4 * U, P2 + V + U), "l1_b": (4 * U,), "l2": (4 * U, 2 * U), "l2_b": (4 * U,),
-        "wq": (A, U), "w_comb": (taps, A), "b_comb": (A,), "att_v": (A,), "att_b": (A,),
         "proj": (NP, U + V), "proj_b": (NP,), "wx_b": (NUM_MELS * (r - 1),),
+        **{"forward": {"wq": (A, U), "w_comb": (taps, A), "b_comb": (A,), "att_v": (A,), "att_b": (A,)},
+           "gmm": {"wd_b": (3 * N,)},
+           "graves": {"wd": (U // 4, U), "wd_b": (U // 4,), "wd2": (3 * N, U // 4), "wd2_b": (3 * N,)},
+           }["forward" if cfg.attention_mode == "lsa" else cfg.attention_mode],
     }
     for k, shape in shapes.items():
         require_f32_contiguous(k, w[k], dev, shape)
@@ -458,28 +544,37 @@ def decode_autoregressive_kernel(params, cfg: TacotronModelConfig, memory, mem_m
         return (memory.new_empty((B, T * r, NUM_MELS)), stops, memory.new_empty((B, T, T_in)),
                 stop_lengths(stops, T, r, cfg.stop_at_any))
     clusters = card_clusters(dev)
-    group = launch_group(T_in, dims, clusters, r, mu)
+    group = launch_group(T_in, dims, clusters, **br)
     rate = float(cfg.dropout_rate)
     back, ahead = lsa_window_bounds(cfg)
     cw = 1.0 if cfg.attention_mode == "forward" or cfg.cumulative_weights else 0.0
     lib = load("tacotron_decode.cu")
+    dummy = w["wx_b"].new_zeros(4)  # the pointer of an argument the branch does not read
+    rank_plan = k2_plan(1, T_in, dims, clusters, **br)  # the rank slices depend on the widths only
+    if r > 1:
+        w["wx"] = pack_other_frames(params, rank_plan)
+        require_f32_contiguous("wx", w["wx"], dev, (CLUSTER, rank_plan.NX, rank_plan.lkp))
+    if cfg.attention_mode == "gmm":
+        w["wd"] = pack_rank_slices(params["attention"]["gmm_layer"]["w"], rank_plan)
+        require_f32_contiguous("wd", w["wd"], dev, (CLUSTER, 3 * N, rank_plan.lkp))
+    loc = cfg.attention_mode in ("forward", "lsa")
 
     def launch(mem, mask, sd):
         Bg = mem.shape[0]
-        plan = k2_plan(Bg, T_in, dims, clusters, r, mu)
-        lib_smem = lib.tacotron_decode_smem_bytes(Bg, T_in, *dims, r, mu, clusters)
-        lib_scratch = lib.tacotron_decode_scratch_floats(Bg, T_in, *dims, r, mu, clusters)
+        plan = k2_plan(Bg, T_in, dims, clusters, **br)
+        lib_smem = lib.tacotron_decode_smem_bytes(Bg, T_in, *dims, r, mu, br["mode"], N, clusters)
+        lib_scratch = lib.tacotron_decode_scratch_floats(Bg, T_in, *dims, r, mu, br["mode"], N, clusters)
         if (lib_smem, lib_scratch) != (plan.smem_bytes(), plan.scratch_floats()):
             raise RuntimeError(
                 f"tacotron_decode: the library's layout ({lib_smem} bytes of shared memory, {lib_scratch} "
                 f"exchange floats) differs from k2_plan ({plan.smem_bytes()}, {plan.scratch_floats()})"
             )
-        wx = pack_other_frames(params, plan) if r > 1 else w["wx_b"].new_zeros(4)
-        require_f32_contiguous("wx", wx, dev, (CLUSTER, plan.NX, plan.lkp) if r > 1 else (4,))
-        keys = precompute_keys(params["attention"], cfg, mem).contiguous()
+        # GMM and Graves read no keys (precompute_keys gives them the memory itself)
+        keys = precompute_keys(params["attention"], cfg, mem).contiguous() if loc else dummy
         mem = mem.contiguous()
         mask = mask.contiguous()
-        require_f32_contiguous("keys", keys, dev, (Bg, T_in, A))
+        if loc:
+            require_f32_contiguous("keys", keys, dev, (Bg, T_in, A))
         require_f32_contiguous("memory", mem, dev, (Bg, T_in, V))
         require_f32_contiguous("mem_mask", mask, dev, (Bg, T_in))
         frames = torch.empty((max_iters, Bg, NUM_MELS * r), dtype=torch.float32, device=dev)
@@ -487,12 +582,12 @@ def decode_autoregressive_kernel(params, cfg: TacotronModelConfig, memory, mem_m
         aligns = torch.empty((max_iters, Bg, T_in), dtype=torch.float32, device=dev)
         scratch = torch.empty((plan.scratch_floats(),), dtype=torch.float32, device=dev)
         counter = torch.zeros((1,), dtype=torch.int32, device=dev)
-        weights = [wx if k == "wx" else w[k] for k in WEIGHT_ORDER]
+        weights = [w.get(k, dummy) for k in WEIGHT_ORDER]
         tensors = [keys, mem, mask, sd, *weights, frames, stops, aligns, scratch]
         ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
         with torch.cuda.device(dev):
             err = lib.tacotron_decode_launch(
-                ptrs, ptr(counter), Bg, T_in, *dims, r, mu, k2_variant(cfg), int(max_iters), clusters,
+                ptrs, ptr(counter), Bg, T_in, *dims, r, mu, br["mode"], N, k2_variant(cfg), int(max_iters), clusters,
                 1 if cfg.stop_at_any else r, back, ahead, int(cfg.dwell_limit_first), int(cfg.dwell_limit_rest),
                 cw, float(cfg.zoneout_rate), 1.0 - float(cfg.zoneout_rate), 1.0 - rate,
                 keep_threshold(rate) if rate > 0.0 else 0xFFFFFFFF, stream_ptr(dev),

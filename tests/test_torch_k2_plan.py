@@ -11,10 +11,12 @@ split (K-sliced products merged in rank order, the projection and the
 prenet redundant in every cluster, per-cluster done flags, a row's
 attention over its blocks) equals ``decode_autoregressive_plain``, with
 every cluster leaving the step loop at the same step, for the default
-branch and for anti-repeat, smoothing, LSA and its window and r = 2-6 (the
-row's argmax merged over its blocks, the other frame columns from each
-cluster's share); the plan's projection outputs and shared memory for each
-mode and r; and the row-group path equals one plain decode over all rows."""
+branch and for anti-repeat, smoothing, LSA and its window, r = 2-6, GMM and
+Graves (the row's argmax merged over its blocks, the other frame columns
+from each cluster's share, GMM's and Graves' denses merged in rank order,
+Graves' edges per block); the plan's projection outputs and shared memory
+for each mode, r and mixture count, GMM's dense on chip or from L2; and the
+row-group path equals one plain decode over all rows."""
 
 import dataclasses
 
@@ -171,6 +173,15 @@ def _inputs(cfg, B, T_in, seed, stop_bias=None):
     return params, memory, mask
 
 
+def _cast(tree, dtype):
+    """Every tensor of a tree of dicts, lists and tuples in ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast(v, dtype) for v in tree)
+    return tree.to(dtype)
+
+
 def _row_argmax(x, slices):
     """The row's (max, first index) as the kernel merges it: each block's
     first maximum over its slice, then the blocks in rank order, a later
@@ -196,20 +207,28 @@ def emulate_decode(plan, params, cfg, memory, mem_mask, seeds, max_iters):
     (per-slice softmax or sigmoid statistics, normaliser and context
     partials merged in the row's rank order; anti-repeat and the LSA window
     from the row's argmax merged over its blocks, anti-repeat's alignment
-    from its support of at most six positions).  Returns the kernel's
-    outputs [T, B, ...] and each cluster's exit step."""
+    from its support of at most six positions; GMM's dense over each rank's
+    [out2 | previous context] slice (``pack_rank_slices``) and Graves'
+    layer1 over each rank's out2 K-units merged in rank order, Graves'
+    layer2 by output slices, each block's GMM scores with its softmax
+    statistics merged over the row, each block's Graves head sums at its
+    position edges, differenced).  Returns the kernel's outputs [T, B, ...]
+    and each cluster's exit step."""
     from tacotronv2_wavernn_chinese_tpu_torch.models.attention import lsa_window_bounds, precompute_keys
 
     P1, P2, U, V, A, taps = plan.dims
     B, T_in, _ = memory.shape
     NC, padl, M, r = plan.clusters, (taps - 1) // 2, DK.NUM_MELS, plan.r
     forward, lsa = cfg.attention_mode == "forward", cfg.attention_mode == "lsa"
+    gmm, graves = cfg.attention_mode == "gmm", cfg.attention_mode == "graves"
     anti, win, smooth = forward and cfg.anti_repeat, lsa and cfg.synthesis_constraint, cfg.smoothing
     cw = 0.0 if lsa and not cfg.cumulative_weights else 1.0
     back, ahead = lsa_window_bounds(cfg)
     need = 1 if cfg.stop_at_any else r
     w = DK.pack_weights(params, cfg)
     wx = DK.pack_other_frames(params, plan) if r > 1 else None
+    N = DK.n_mix(cfg)
+    wd = DK.pack_rank_slices(params["attention"]["gmm_layer"]["w"], plan) if gmm else None
     keys = precompute_keys(params["attention"], cfg, memory)
     rate = float(cfg.dropout_rate)
     s64 = DK.row_seeds(seeds, B, "cpu").to(torch.int64)[:, None]
@@ -236,6 +255,7 @@ def emulate_decode(plan, params, cfg, memory, mem_mask, seeds, max_iters):
     if forward:
         alpha[:, 0] = cum[:, 0] = 1.0
     max_att, pos_rec = [0] * B, [0] * B  # held by the row's blocks
+    mix = z(B, N)  # GMM kappa, Graves mu: held by the row's blocks
     frames, aligns = z(max_iters, B, M * r), z(max_iters, B, T_in)
     stops = torch.full((max_iters, B, r), DK.STOP_FILL)
     exits = [None] * NC
@@ -290,6 +310,11 @@ def emulate_decode(plan, params, cfg, memory, mem_mask, seeds, max_iters):
         new_ctx, new_alpha, a_sm_all = z(B, V), z(B, T_in), z(B, T_in)
         for b, slices in rows.items():
             c = b // plan.rows_per_cluster
+            if gmm or graves:
+                a_sm = _mixture_alignment(plan, w, wd, out2[c][b], ctx[b], mix, b, slices, mem_mask[b], kr, rv)
+                new_alpha[b] = a_sm
+                new_ctx[b] = sum(a_sm[r] @ memory[b, r] for r in slices)
+                continue
             pq = sum(out2[c][b, kr[q]] @ w["wq"][:, kr[q]].t() for q in range(C))
             win_in = F.pad(cum[b], (padl, taps - 1 - padl)).unfold(0, taps, 1)  # [T_in, taps]
             en = torch.tanh(keys[b] + (pq + w["b_comb"] + w["att_b"]) + win_in @ w["w_comb"]) @ w["att_v"]
@@ -363,6 +388,52 @@ def emulate_decode(plan, params, cfg, memory, mem_mask, seeds, max_iters):
     return frames, stops, aligns, exits
 
 
+def _mixture_alignment(plan, w, wd, out2, ctx_prev, mix, b, slices, mask, kr, rv):
+    """Row b's GMM or Graves alignment as the row's blocks form it (``mix``
+    [B, N] advanced in place): GMM's dense partials over each rank's
+    [out2 | previous context] slots merged in rank order, scores per block
+    with (max, sum) statistics merged over the row; Graves' layer1 partials
+    over each rank's out2 K-units merged in rank order, relu, layer2 by each
+    rank's output slice, the head sums at each block's nT + 1 edges."""
+    N, Ku = plan.n_mix, plan.k_units
+    if plan.mode == DK.MODE_IDS["gmm"]:
+        p = 0.0
+        for q in range(C):
+            slots = torch.zeros(plan.lkp)
+            slots[: len(kr[q])] = out2[list(kr[q])]
+            slots[Ku: Ku + len(rv[q])] = ctx_prev[list(rv[q])]
+            p = p + wd[q] @ slots
+        p = torch.exp(p + w["wd_b"])
+        a, beta = p[:N] / p[N:2 * N], p[N:2 * N]
+        mix[b] = mix[b] + p[2 * N:]
+        stats, sc = [], torch.zeros(len(mask))
+        for r in slices:
+            if not len(r):
+                continue
+            t = torch.arange(r.start, r.stop, dtype=torch.float32)
+            s = torch.sum(a[:, None] * torch.exp(-((mix[b][:, None] - t) ** 2) / beta[:, None]), dim=0)
+            sc[r] = torch.where(mask[r] > 0, s, torch.full_like(s, -1e9))
+            stats.append((sc[r].max(), torch.exp(sc[r] - sc[r].max()).sum()))
+        Mx = max(m for m, _ in stats)
+        return torch.exp(sc - Mx) / sum(zz * torch.exp(m - Mx) for m, zz in stats)
+    hid = torch.relu(sum(out2[list(kr[q])] @ w["wd"][:, list(kr[q])].t() for q in range(C)) + w["wd_b"])
+    gbk = torch.zeros(3 * N)
+    for q in range(C):
+        o3 = list(plan.layer2_range(q))
+        gbk[o3] = w["wd2"][o3] @ hid + w["wd2_b"][o3]
+    g = torch.softmax(gbk[:N], 0) + 1e-5
+    sig = F.softplus(gbk[N:2 * N]) + 1e-5
+    mix[b] = mix[b] + F.softplus(gbk[2 * N:])
+    align = torch.zeros(len(mask))
+    for r in slices:
+        if not len(r):
+            continue
+        edges = torch.arange(r.start, r.stop + 1, dtype=torch.float32) + 0.5
+        head = torch.sum(g[:, None] * (1.0 / (1.0 + torch.sigmoid((mix[b][:, None] - edges) / sig[:, None]))), dim=0)
+        align[r] = torch.where(mask[r] > 0, head[1:] - head[:-1], torch.full((len(r),), 1e-20))
+    return align
+
+
 @pytest.mark.parametrize("stop_bias", [None, -30.0], ids=["rows_stop", "runs_to_max_iters"])
 @pytest.mark.parametrize("t_in", [20, 70], ids=["one_block_per_row", "four_blocks_per_row"])
 @pytest.mark.parametrize("clusters", [2, 3], ids=["2_clusters", "3_clusters_ragged"])
@@ -396,7 +467,8 @@ def test_grid_split_equals_the_plain_decode(clusters, t_in, stop_bias):
 # name: (config overrides, stop bias, seed of the weights and inputs): the
 # branches K2 takes beyond the default.  With the stop bias at -30 no row
 # stops in 40 steps, and short dwell limits make anti-repeat walk across
-# the row's blocks; the other seeds stop the rows at different steps.
+# the row's blocks; the other seeds (and GMM's stop bias of -2) stop the
+# rows at different steps.
 BRANCHES = {
     "anti_repeat": (dict(anti_repeat=True, dwell_limit_first=1, dwell_limit_rest=2), -30.0, 4),
     "anti_repeat_smoothing": (dict(anti_repeat=True, smoothing=True, dwell_limit_first=2, dwell_limit_rest=3),
@@ -409,6 +481,9 @@ BRANCHES = {
     "r6": (dict(outputs_per_step=6), None, 15),
     "r2_anti_repeat": (dict(outputs_per_step=2, anti_repeat=True, dwell_limit_first=1, dwell_limit_rest=2),
                        -30.0, 4),
+    "gmm": (dict(attention_mode="gmm"), -2.0, 7),
+    "graves": (dict(attention_mode="graves"), -30.0, 4),
+    "graves_r3_stop_all": (dict(attention_mode="graves", outputs_per_step=3, stop_at_any=False), None, 19),
 }
 
 
@@ -416,22 +491,36 @@ BRANCHES = {
 def test_branch_grid_split_equals_the_plain_decode(branch):
     """The grid's split for each branch on 3 clusters at T_in=70 (a row's
     attention over four blocks of 18 positions, so the argmax, the
-    anti-repeat support and the window cross blocks), B=3, dropout 0.5,
-    40 steps: equal to the plain decode within 1e-5, with every cluster
-    leaving the loop at the step the plain decode's last row stops (or none
-    when the stop bias is -30); at r > 1 the other frame columns come from
-    each cluster's share of the per-rank packed weights."""
+    anti-repeat support, the window, GMM's softmax statistics and Graves'
+    edges cross blocks), B=3, dropout 0.5, 40 steps: equal to the plain
+    decode within 1e-5, with every cluster leaving the loop at the step the
+    plain decode's last row stops (or none when the stop bias is -30); at
+    r > 1 the other frame columns come from each cluster's share of the
+    per-rank packed weights.  GMM and Graves run in float64: Graves'
+    alignment is a difference of O(1) head sums, whose f32 cancellation
+    leaves ~2e-7 a position and ~3e-6 in the first frame of seed 4, and
+    GMM's exp of its dense amplifies the rounding of the rank-ordered merge
+    to ~3e-5 by step 20 of seed 7 in f32; in float64 both agree with the
+    plain decode to ~1e-13, so the check holds the split's arithmetic, not
+    its rounding."""
     over, stop_bias, seed = BRANCHES[branch]
     cfg = dataclasses.replace(_tiny_cfg(0.5), **over)
     B, T_in, max_iters, clusters, r = 3, 70, 40, 3, cfg.outputs_per_step
     params, memory, mask = _inputs(cfg, B, T_in, seed=seed, stop_bias=stop_bias)
     dims = DK.widths(cfg, memory.shape[2])
-    plan = DK.k2_plan(B, T_in, dims, clusters, r, DK.proj_mu(cfg))
+    plan = DK.k2_plan(B, T_in, dims, clusters, **DK.branch(cfg))
     assert plan.blocks_per_row == 4
     seeds = [5, 6, 7]
-    want = DK.decode_autoregressive_plain(params, cfg, memory, mask, seeds, max_iters)
-    frames, stops, aligns, exits = emulate_decode(plan, params, cfg, memory, mask, seeds, max_iters)
-    if stop_bias is None:
+    dtype = torch.float64 if cfg.attention_mode in ("gmm", "graves") else torch.float32
+    params, memory, mask = _cast((params, memory, mask), dtype)
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(dtype)
+    try:
+        want = DK.decode_autoregressive_plain(params, cfg, memory, mask, seeds, max_iters)
+        frames, stops, aligns, exits = emulate_decode(plan, params, cfg, memory, mask, seeds, max_iters)
+    finally:
+        torch.set_default_dtype(default)
+    if stop_bias != -30.0:
         n_run = int(want[3].max()) // r + 1
         assert n_run < max_iters and exits == [n_run] * clusters
         assert len(set((want[3] // r).tolist())) > 1  # rows stop at different steps
@@ -468,11 +557,63 @@ def test_plan_for_each_mode_and_r(r, mode):
         assert DK.k2_plan(16, t_in, DIMS, 15, r, mu).smem_bytes() <= DK.SMEM_LIMIT
 
 
+@pytest.mark.parametrize("mode", ["gmm", "graves"])
+@pytest.mark.parametrize("n", [5, 10, 128])
+def test_plan_for_each_mixture_mode(mode, n):
+    """GMM with n mixtures and Graves with n heads: no wq, location filter,
+    v, energy bias or conv halo; GMM's dense slice of 3n outputs over each
+    rank's [out2 | ctx] inputs on chip where it fits, Graves' layer1 slice
+    over each rank's out2 K-units and 3n/8 layer2 outputs a rank; every
+    serve bucket fits one launch up to the worst 500-character text on 15
+    clusters; the shared memory at B=4, T_in=32 is the .cu file's
+    (k2_layout compiled for the host with the CUDA declarations stubbed,
+    equal to this plan in 17,010 configurations; GMM 5 and 128 and Graves
+    10 and 128 read from the library on the H100)."""
+    cfg = dataclasses.replace(CFG, attention_mode=mode, num_attn_mixtures=n, graves_heads=n)
+    br = DK.branch(cfg)
+    assert br == {"r": 1, "mu": 0, "mode": DK.MODE_IDS[mode], "n_mix": n}
+    plan = DK.k2_plan(4, 32, DIMS, 15, **br)
+    library = {("gmm", 5): 154_480, ("gmm", 10): 160_624, ("gmm", 128): 151_904, ("graves", 5): 158_800,
+               ("graves", 10): 159_488, ("graves", 128): 174_736}
+    assert plan.smem_bytes() == library[mode, n] and plan.NP == 81
+    if mode == "graves":
+        assert (plan.h1, plan.c3, plan.res) == (64, _cdiv(3 * n, C), 0)
+        assert [j for q in range(C) for j in plan.layer2_range(q)] == list(range(3 * n))
+    else:
+        assert (plan.h1, plan.c3, plan.res) == (0, 0, int(n < 128))
+    t_max = _worst_case_t_in()
+    for t_in in (1, 32, 256, t_max):
+        assert DK.rows_per_launch(t_in, DIMS, 15, **br) >= 16
+        for batch in (1, 4, 16):
+            assert DK.k2_plan(batch, t_in, DIMS, 15, **br).fits()
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+@pytest.mark.parametrize("shape", [(1, 32, 75), (4, 32, 68), (16, 32, 41), (16, 2048, 37)])
+def test_gmm_dense_on_chip_where_it_fits(shape):
+    """GMM's 3K x LKP slice stays in shared memory up to the largest K whose
+    plan fits a block (75 mixtures at B=1, 68 at the serve shape B=4,
+    T_in=32, 41 at B=16), and comes from L2 beyond, where the plan is
+    smaller; both launch."""
+    B, t_in, k_max = shape
+    on = DK.k2_plan(B, t_in, DIMS, 15, 1, 0, DK.MODE_IDS["gmm"], k_max)
+    off = DK.k2_plan(B, t_in, DIMS, 15, 1, 0, DK.MODE_IDS["gmm"], k_max + 1)
+    assert (on.res, off.res) == (1, 0) and on.fits() and off.fits()
+    held = dataclasses.replace(off, res=1)
+    assert on.smem_bytes() <= DK.SMEM_LIMIT < held.smem_bytes()
+    assert held.smem_bytes() - off.smem_bytes() == 4 * 3 * (k_max + 1) * off.lkp  # the slice, and nothing else
+
+
 def test_variants_name_the_kernel_instantiations():
     """k2_variant: bit 0 LSA, bit 1 anti-repeat (forward only; under LSA the
     flag picks the window type, which reaches the kernel as its bounds),
     bit 2 smoothing, bit 3 the LSA window; the eight combinations the kernel
-    instantiates, and no other."""
+    instantiates, and no other; GMM 16 and Graves 32, whatever anti-repeat,
+    smoothing and the window say (neither reads them, as in the TPU
+    kernel)."""
     cases = {
         (): 0, (("anti_repeat", True),): 2, (("smoothing", True),): 4,
         (("anti_repeat", True), ("smoothing", True)): 6, (("attention_mode", "lsa"),): 1,
@@ -482,6 +623,10 @@ def test_variants_name_the_kernel_instantiations():
         (("attention_mode", "lsa"), ("synthesis_constraint", True), ("smoothing", True)): 13,
         (("synthesis_constraint", True),): 0,
     }
+    for mode, want in (("gmm", 16), ("graves", 32)):
+        for flags in ((), ("anti_repeat",), ("smoothing",), ("synthesis_constraint",),
+                      ("anti_repeat", "smoothing", "synthesis_constraint")):
+            cases[(("attention_mode", mode),) + tuple((f, True) for f in flags)] = want
     for over, want in cases.items():
         assert DK.k2_variant(dataclasses.replace(CFG, **dict(over))) == want
 

@@ -5,8 +5,8 @@ weights carried across by ``tacotron_from_numpy``, f32 on the CPU.
 
 The port's CPU path is the decode kernel's plain version; the JAX
 references are the XLA decode (every configuration) and the interpret-mode
-Pallas decode (LSA with the window, and r = 2).  Stop lengths must be
-equal; frames, stops and alignments within 1e-5."""
+Pallas decode (LSA with the window, r = 2, GMM and Graves).  Stop lengths
+must be equal; frames, stops and alignments within 1e-5."""
 
 import dataclasses
 
@@ -109,15 +109,23 @@ def test_plain_decode_matches_xla(case):
         assert (t[2].numpy()[:, 1:] > 1e-6).sum(-1).max() <= cfg.synthesis_window
 
 
-@pytest.mark.parametrize("case", ["lsa_window_symmetric", "r2"])
+# name: (config overrides, params seed, T_in, lengths, stop-bias shift, steps)
+PALLAS_CASES = {
+    "lsa_window_symmetric": (dict(attention_mode="lsa", synthesis_constraint=True, synthesis_window=4), 23, 40,
+                             (40, 29), -8.0, 20),
+    "r2": (dict(outputs_per_step=2), 53, 24, (24, 17), 0.0, 12),
+    "gmm": (dict(attention_mode="gmm"), 31, 40, (40, 27), 0.0, 20),
+    "graves": (dict(attention_mode="graves"), 32, 40, (40, 27), 0.0, 20),
+}
+
+
+@pytest.mark.parametrize("case", list(PALLAS_CASES))
 def test_plain_decode_matches_pallas_interpret(case):
-    """The interpret-mode Pallas decode (the TPU kernel itself) for LSA with
-    the synthesis window and for r = 2."""
-    if case == "r2":
-        cfg, seed, T_in, lens, shift, steps = _cfg(outputs_per_step=2), 53, 24, (24, 17), 0.0, 12
-    else:
-        cfg = _cfg(attention_mode="lsa", synthesis_constraint=True, synthesis_window=4)
-        seed, T_in, lens, shift, steps = 23, 40, (40, 29), -8.0, 20
+    """The interpret-mode Pallas decode (the TPU kernel itself, f32) for LSA
+    with the synthesis window, r = 2, and the TPU kernel's GMM and Graves
+    branches (_kernel's else branch)."""
+    over, seed, T_in, lens, shift, steps = PALLAS_CASES[case]
+    cfg = _cfg(**over)
     params, memory, mask = _setup(cfg, seed, T_in, lens, shift)
     j = JDK.decode_autoregressive_pallas(params, cfg, jnp.asarray(memory), jnp.asarray(mask),
                                          jax.random.PRNGKey(5), steps, chunk=steps // 2, interpret=True,
@@ -164,7 +172,8 @@ def test_forward_inference_r3_matches_jax_synthesizer():
                          ids=["lsa", "gmm", "graves", "r3"])
 def test_jax_artifact_loads_and_decodes(over, tmp_path):
     """An artifact written by the JAX exporter with another attention mode
-    or r = 3 loads into the port and decodes on the CPU, with no launch."""
+    or r = 3 loads into the port and decodes on the CPU, with no launch, and
+    its configuration is in the card's kernel's scope."""
     from tacotronv2_wavernn_chinese_tpu.serving.export import export_artifact
     from tacotronv2_wavernn_chinese_tpu_torch.serving.export import load_exported
 
@@ -178,11 +187,7 @@ def test_jax_artifact_loads_and_decodes(over, tmp_path):
     assert mels[0].shape == (stops[0], 80) and np.isfinite(mels[0]).all() and stops[0] <= 6 * r
     assert aligns[0].shape == (-(-stops[0] // r), 4)
     assert OPS.LAUNCHES["tacotron_decode"] == 0
-    if over.get("attention_mode") in ("gmm", "graves"):  # the card's kernel does not take them yet
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue item 16"):
-            TDK.check_supported(synth.cfg.tacotron, "cuda")
-    else:
-        TDK.check_supported(synth.cfg.tacotron, "cuda")
+    TDK.check_supported(synth.cfg.tacotron, "cuda")  # the card's kernel takes every mode
 
 
 def test_decoder_step_shapes_r6():

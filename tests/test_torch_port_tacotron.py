@@ -163,14 +163,20 @@ def test_row_independence_of_the_decode(setup):
 
 
 def test_unported_options_raise():
-    """On the card (device None or CUDA) GMM and Graves attention and r > 6
-    raise naming their ROADMAP item; the plain version (CPU) takes GMM and
-    Graves, and the kernel's scope takes anti-repeat, LSA and r up to 6."""
-    for mode in ("gmm", "graves"):
-        cfg = dataclasses.replace(_cfg(0.0), attention_mode=mode)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue item 16"):
+    """On the card (device None or CUDA) GMM with more than 128 mixtures,
+    Graves with more than 128 heads and r > 6 raise naming their ROADMAP
+    item (the TPU kernel's envelope); the plain version (CPU) takes them;
+    the kernel's scope takes GMM and Graves up to 128, anti-repeat, LSA and
+    r up to 6."""
+    for mode, field in (("gmm", "num_attn_mixtures"), ("graves", "graves_heads")):
+        for n in (1, 5, 10, 128):
+            cfg = dataclasses.replace(_cfg(0.0), attention_mode=mode, **{field: n})
             TDK.check_supported(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue item 16"):
+            TDK.check_supported(cfg, "cuda")
+        cfg = dataclasses.replace(_cfg(0.0), attention_mode=mode, **{field: 129})
+        with pytest.raises(NotImplementedError, match=f"{field}=129.*ROADMAP.md, queue item 15"):
+            TDK.check_supported(cfg)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue item 15"):
             TDK.check_supported(cfg, "cuda")
         TDK.check_supported(cfg, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
