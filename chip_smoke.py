@@ -40,6 +40,25 @@ Phases, each printing its lines before the next starts:
            on localhost: three /generate_tts requests and one
            /generate_tts_batch, WAV headers and lengths checked, both
            kernels' launch counters read around the requests
+  griffin-lim
+           an artifact without WaveRNN weights served on localhost: warmup
+           of every batch bucket, one /generate_tts and one 3-text
+           /generate_tts_batch (WAVs of stop_len x 275 samples, /healthz
+           "griffin_lim", K2 launched and K1 not); the card's Griffin-Lim
+           (60 iterations) against the CPU's on the same mels and injected
+           phase at B=1 and B=4; Griffin-Lim alone at B=1 x 192 and B=16 x
+           1024 frames and one request's text->mel and mel->wav by CUDA
+           events, the host inverse preemphasis by the host clock
+  preprocess + gta
+           a procedural corpus (32 formant-like utterances of 1-4 s, Biaobei
+           layout) preprocessed on the card and on the CPU (equal rows and
+           audio, mels within 1e-3); GTA at B=32 on the card (K3's eval
+           branch, launch counter read around it) against the same GTA with
+           the plain decoder core: equal labels, predicted mels within 1e-3;
+           utterances per second of each
+  cli      python -m ...infer.synthesize on the Griffin-Lim artifact's
+           weights and ...infer.wavernn_gen on a .npy mel, each a subprocess
+           on the card: exit code 0, WAV length, the kernel each launched
   train    the trainer kernels (K3 forward, K4 backward, one cluster grid
            each) against the eager loop differentiated by autograd, full
            width, B=32, T_in=128 (ragged lengths), 400 steps, zoneout
@@ -53,7 +72,7 @@ Phases, each printing its lines before the next starts:
            CUDA events
   kernels  each kernel against its plain version again at the shapes the
            serve and train paths gave it: times, bounds, errors; one JSON
-           line
+           line, with each kernel's launches on every path that ran it
 
 Any failed check exits non-zero.  The line before the last is the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
@@ -1060,6 +1079,370 @@ def run_train_phase(cfg, dev, core_shape, corpus: dict, steps: int, ckpt_every: 
 
 
 # ---------------------------------------------------------------------------
+# HTTP helpers (the serve, k2 branches and griffin-lim phases)
+# ---------------------------------------------------------------------------
+
+
+def post(port: int, path: str, payload: dict):
+    """POST JSON to the local server -> (body, host ms, CUDA-event ms)."""
+    import torch
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode("utf-8"),
+        headers={"Content-Type": "application/json"},
+    )
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    h0 = time.time()
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        body = json.loads(resp.read())
+    end.record()
+    torch.cuda.synchronize()
+    return body, (time.time() - h0) * 1e3, start.elapsed_time(end)
+
+
+def check_wav(b64: str, tag: str, samples: int) -> None:
+    """A mono 22050 Hz int16 WAV of exactly ``samples`` samples, not silent."""
+    with wave.open(io.BytesIO(base64.b64decode(b64))) as wf:
+        check(wf.getnchannels() == 1 and wf.getsampwidth() == 2 and wf.getframerate() == 22050,
+              f"{tag}: bad WAV header")
+        n = wf.getnframes()
+        pcm = np.frombuffer(wf.readframes(n), "<i2")
+    check(n == samples, f"{tag}: {n} samples, expected {samples}")
+    check(np.abs(pcm).max() > 0, f"{tag}: silent audio")
+
+
+def start_server(synth):
+    from tacotronv2_wavernn_chinese_tpu_torch.serving import server as SRV
+
+    httpd = SRV.serve(synth.cfg, synth, "127.0.0.1", 0, max_batch=4, max_queue=8)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    return httpd, th
+
+
+def stop_server(httpd, th) -> None:
+    httpd.shutdown()
+    httpd.server_close()
+    th.join(timeout=30)
+
+
+# ---------------------------------------------------------------------------
+# Griffin-Lim serving
+# ---------------------------------------------------------------------------
+
+
+def griffin_lim_flops(B: int, T: int, n_fft: int, iters: int) -> float:
+    """Operations of ``iters`` Griffin-Lim iterations over B x T frames: a
+    real FFT and an inverse of n_fft points a frame and iteration, each
+    taken as 2.5 n log2 n (the split-radix count for a real transform), one
+    more inverse for the start, and ~20 operations a bin for the phase
+    update, windowing and the normalized overlap-add."""
+    import math
+
+    bins = n_fft // 2 + 1
+    per_frame = 2 * 2.5 * n_fft * math.log2(n_fft) + 20 * bins
+    return float(B * T * ((iters + 0.5) * per_frame))
+
+
+def run_griffin_lim(cfg, dev, tp, serve_frames: int, smi: str) -> dict:
+    """An artifact without WaveRNN weights serves through Griffin-Lim on the
+    card: warmup, one /generate_tts and one 3-text /generate_tts_batch with
+    the launch counters read around them (K2 launched, K1 not); the card's
+    Griffin-Lim against the CPU's on the same mels and injected phase at
+    B=1 and at the 4-row bucket; times by CUDA events."""
+    import importlib
+
+    import torch
+
+    from tacotronv2_wavernn_chinese_tpu_torch import ops
+    from tacotronv2_wavernn_chinese_tpu_torch.dsp.spectrogram import MelPipeline
+    from tacotronv2_wavernn_chinese_tpu_torch.frontend import get_pyin
+    from tacotronv2_wavernn_chinese_tpu_torch.serving import server as SRV
+    from tacotronv2_wavernn_chinese_tpu_torch.serving.export import load_exported, write_artifact
+    from tacotronv2_wavernn_chinese_tpu_torch.utils import round_up
+
+    GL = importlib.import_module("tacotronv2_wavernn_chinese_tpu_torch.dsp.griffin_lim")
+    a = cfg.audio
+    art = os.path.join(HERE, "build", "chip_smoke_gl_artifact")
+    write_artifact(cfg, tp, art)
+    synth = load_exported(art, max_iters=serve_frames, device=dev)
+    check(synth.vocoder_params is None, "griffin-lim: the artifact loaded a vocoder")
+    ids = [synth.symbols.encode(get_pyin(t)[0]) for t in SENTENCES]
+    httpd, th = start_server(synth)
+    port = httpd.server_address[1]
+    try:
+        t0 = time.time()
+        SRV.warmup(synth, httpd.service.max_batch_hard)
+        phase("griffin-lim", f"warmup (batch buckets up to {httpd.service.max_batch_hard}, Griffin-Lim "
+              f"{a.griffin_lim_iters} iterations) {time.time() - t0:.1f} s")
+        ops.reset_launch_counts()
+        one, host1, ev1 = post(port, "/generate_tts", {"text": SENTENCES[0], "seed": 1})
+        many, host3, ev3 = post(port, "/generate_tts_batch", {"texts": SENTENCES, "seed": 2})
+        launches = dict(ops.LAUNCHES)
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+    finally:
+        stop_server(httpd, th)
+    check(one.get("status") == 0, f"griffin-lim: /generate_tts failed: {one.get('error')}")
+    check(many.get("status") == 0, f"griffin-lim: /generate_tts_batch failed: {many.get('error')}")
+    check(health["vocoder"] == "griffin_lim", f"griffin-lim: /healthz says {health['vocoder']}")
+    check(launches["tacotron_decode"] > 0, "griffin-lim: K2 was never launched on the Griffin-Lim path")
+    check(launches["wavernn_sample"] == 0, "griffin-lim: K1 was launched on the Griffin-Lim path")
+    # the stop lengths of the same rows, decoded again (the decode is
+    # deterministic per seed)
+    _, _, stop1 = synth.mel_from_ids(ids[:1], seed=[1])
+    _, _, stops = synth.mel_from_ids(ids, seed=[2, 2, 2], pad_batch=True)
+    check_wav(one["wav_b64"], "griffin-lim /generate_tts", stop1[0] * a.hop_size)
+    for j, r_ in enumerate(many["results"]):
+        check_wav(r_["wav_b64"], f"griffin-lim /generate_tts_batch[{j}]", stops[j] * a.hop_size)
+    phase("griffin-lim", f"/generate_tts: {host1:.1f} ms host, {ev1:.1f} ms CUDA events, stop_len {stop1[0]}, "
+          f"WAV {stop1[0]} x {a.hop_size} samples; /generate_tts_batch x3: {host3:.1f} ms host, {ev3:.1f} ms "
+          f"CUDA events, stop_len {stops}; kernel launches {launches}; /healthz vocoder {health['vocoder']}")
+
+    # the card against the CPU: same mels, same injected phase, 60 iterations
+    mels, _, stops = synth.mel_from_ids(ids, seed=[0, 1, 2])
+    T_pad = round_up(max(stops) + 1, 64)
+    stacked = np.full((4, T_pad, a.num_mels), -a.max_abs_value, np.float32)
+    for i, m in enumerate(mels + mels[-1:]):
+        stacked[i, : m.shape[0]] = m
+    rng = np.random.default_rng(5)
+    ph = rng.uniform(0.0, 2.0 * np.pi, (T_pad, a.n_fft // 2 + 1)).astype(np.float32)
+    pipe_cpu = MelPipeline(a, "cpu")
+    errs = {}
+    for B in (1, 4):
+        with torch.no_grad():
+            y_card = GL.inv_mel_spectrogram(stacked[:B], synth.pipe, phase=torch.as_tensor(ph, device=dev))
+            y_cpu = GL.inv_mel_spectrogram(stacked[:B], pipe_cpu, phase=torch.as_tensor(ph))
+        check(np.isfinite(y_card).all() and y_card.shape == y_cpu.shape, f"griffin-lim: card output B={B}")
+        errs[B] = float(np.abs(y_card - y_cpu).max() / max(np.abs(y_cpu).max(), 1e-12))
+        check(errs[B] <= 1e-3, f"griffin-lim: B={B} card vs CPU max|d|/max|y| {errs[B]:.3e} > 1e-3")
+    phase("griffin-lim", f"card vs CPU, {a.griffin_lim_iters} iterations, same mels and phase, B=1 and B=4 x "
+          f"{T_pad} frames: max|d| / max|y| {errs[1]:.2e}, {errs[4]:.2e} (bound 1e-3)")
+
+    # times: Griffin-Lim alone, the host inverse preemphasis, one request's split
+    times = {}
+    for B, T in ((1, T_pad), (16, 1024)):
+        with torch.no_grad():
+            mag = synth.pipe.mel_to_linear_mag(
+                torch.as_tensor(rng.uniform(-4.0, 0.0, (B, T, a.num_mels)), dtype=torch.float32, device=dev)) ** a.power
+            box = {}
+            ms = cuda_ms(lambda: box.__setitem__("y", GL.griffin_lim(mag, a.n_fft, a.hop_size, a.win_size,
+                                                                     a.griffin_lim_iters)), reps=3, warmup=True)
+            y = box["y"].cpu().numpy()
+        t0 = time.time()
+        GL.inv_preemphasis_scan(y, a.preemphasis)
+        iir_ms = (time.time() - t0) * 1e3
+        b_ms, b_by = bound(griffin_lim_flops(B, T, a.n_fft, a.griffin_lim_iters), 4.0 * B * T * (a.n_fft // 2 + 1 + a.hop_size))
+        times[(B, T)] = (ms, iir_ms, b_ms)
+        phase("griffin-lim", f"Griffin-Lim alone B={B} x {T} frames, {a.griffin_lim_iters} iterations: {ms:.2f} ms "
+              f"(CUDA events, mean of 3), bound {b_ms:.3f} ms ({b_by}); host inverse preemphasis of its "
+              f"{y.size} samples {iir_ms:.2f} ms (host clock); {smi}")
+    with torch.no_grad():
+        box = {}
+        t_mel = cuda_ms(lambda: box.__setitem__("o", synth._decode(ids[:1], 0, False)), warmup=True)
+        out = box["o"][0]
+        t_wav = cuda_ms(lambda: synth._gl_from_decode(out.mel_outputs, out.stop_lengths), warmup=True)
+    phase("griffin-lim", f"one request split (CUDA events): text->mel {t_mel:.1f} ms, mel->wav {t_wav:.1f} ms "
+          f"(mask, pad to {round_up(out.mel_outputs.shape[1] + 1, 64)} frames, Griffin-Lim, copy, host inverse "
+          f"preemphasis); {smi}")
+    return {"launches": launches, "gl_err": max(errs.values()), "times": times, "t_mel": t_mel, "t_wav": t_wav}
+
+
+# ---------------------------------------------------------------------------
+# preprocessing and GTA
+# ---------------------------------------------------------------------------
+
+CORPUS_PHRASES = ["你好", "欢迎使用语音合成系统", "今天天气很好", "我们去公园散步吧", "这是第三个测试句子",
+                  "请把窗户打开", "火车马上就要进站了", "他在图书馆看书", "明天早上八点开会", "谢谢你的帮助",
+                  "小猫在沙发上睡觉", "春天的花开得很美"]
+
+
+def formant_wav(seconds: float, sr: int, rng) -> np.ndarray:
+    """A voiced-like utterance: harmonics of a gliding f0 shaped by three
+    formant resonances that move per syllable, a syllable envelope, a breath
+    of noise and silence at both ends."""
+    from scipy import signal
+
+    n = int(seconds * sr)
+    t = np.arange(n) / sr
+    f0 = rng.uniform(100, 220) * (1 + 0.15 * np.sin(2 * np.pi * rng.uniform(0.5, 2.0) * t))
+    ph = 2 * np.pi * np.cumsum(f0) / sr
+    syll = rng.uniform(3.0, 5.0)
+    centers = [np.interp(t, np.linspace(0, seconds, 8), rng.uniform(lo, hi, 8))
+               for lo, hi in ((300, 900), (900, 2300), (2300, 3200))]
+    y = np.zeros(n)
+    for k in range(1, int(4000 / f0.min())):
+        amp = sum(np.exp(-(((k * f0) - c) / 120.0) ** 2) for c in centers)
+        y += amp * np.sin(k * ph)
+    y *= np.sin(np.pi * syll * t) ** 2
+    y += 0.003 * signal.lfilter([1.0], [1.0, -0.9], rng.standard_normal(n))
+    y = 0.6 * y / np.abs(y).max()
+    pad = np.zeros(int(0.15 * sr))
+    return np.concatenate([pad, y, pad]).astype(np.float32)
+
+
+def write_procedural_corpus(root: str, n: int, seed: int, sr: int = 22050) -> tuple:
+    """``n`` utterances of 1-4 s in the Biaobei layout (Wave/<index>.wav and
+    a transcript of text + pinyin line pairs)."""
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(seed)
+    wav_dir = os.path.join(root, "Wave")
+    os.makedirs(wav_dir, exist_ok=True)
+    lines = []
+    for i in range(n):
+        index = f"{i + 1:06d}"
+        a, b = rng.choice(len(CORPUS_PHRASES), 2, replace=False)
+        wav = formant_wav(rng.uniform(1.0, 4.0), sr, rng)
+        wavfile.write(os.path.join(wav_dir, f"{index}.wav"), sr, (wav * 32767).astype(np.int16))
+        lines += [f"{index}\t{CORPUS_PHRASES[a]}，{CORPUS_PHRASES[b]}。", "\tpinyin"]
+    transcript = os.path.join(root, "000001-%06d.txt" % n)
+    with open(transcript, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return transcript, wav_dir
+
+
+def run_preprocess_gta(cfg, dev, tp, n_utts: int = 32, batch: int = 32) -> dict:
+    """A procedural corpus preprocessed on the card and on the CPU (equal
+    rows and audio, mels within 1e-3), then GTA at B=``batch`` on the card
+    with the launch counters read around it (K3 launched), against the same
+    GTA with the decoder core swapped for its plain version (K3 not
+    launched): equal labels and file names, predicted mels within 1e-3."""
+    import torch
+
+    from tacotronv2_wavernn_chinese_tpu_torch import ops
+    from tacotronv2_wavernn_chinese_tpu_torch.data.preprocess import process_corpus, write_metadata
+    from tacotronv2_wavernn_chinese_tpu_torch.infer.gta import generate_gta
+    from tacotronv2_wavernn_chinese_tpu_torch.ops import tacotron_trainer_kernel as TK
+
+    root = os.path.join(HERE, "build", "chip_smoke_corpus")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.time()
+    transcript, wav_dir = write_procedural_corpus(root, n_utts, seed=17)
+    phase("preprocess + gta", f"wrote {n_utts} procedural utterances in {time.time() - t0:.1f} s")
+    quiet = lambda m: None
+    res = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.time()
+        rows = process_corpus(cfg, transcript, wav_dir, os.path.join(root, name), bucket_batch=16, log=quiet,
+                              device=d)
+        res[name] = (rows, time.time() - t0)
+    rows, rows_cpu = res["card"][0], res["cpu"][0]
+    check(len(rows) == n_utts and rows == rows_cpu, "preprocess: the card's metadata rows differ from the CPU's")
+    worst = 0.0
+    for audio, mel, n_samples, n_frames, _, _ in rows:
+        a_card, a_cpu = (np.load(os.path.join(root, k, audio)) for k in ("card", "cpu"))
+        check(np.array_equal(a_card, a_cpu), f"preprocess: {audio} differs between the card and the CPU")
+        m_card, m_cpu = (np.load(os.path.join(root, k, mel)) for k in ("card", "cpu"))
+        check(m_card.shape == (n_frames, cfg.audio.num_mels) and np.isfinite(m_card).all(), f"preprocess: {mel}")
+        worst = max(worst, float(np.abs(m_card - m_cpu).max()))
+    check(worst <= 1e-3, f"preprocess: card vs CPU mel max|d| {worst:.3e} > 1e-3")
+    frames = [int(r[3]) for r in rows]
+    phase("preprocess + gta", f"process_corpus: {n_utts} utterances ({min(frames)}-{max(frames)} frames), card "
+          f"{res['card'][1]:.2f} s ({n_utts / res['card'][1]:.1f} utt/s), CPU {res['cpu'][1]:.2f} s "
+          f"({n_utts / res['cpu'][1]:.1f} utt/s) (host clock, wav conditioning included); rows and audio "
+          f"equal, mel max|d| {worst:.2e} (bound 1e-3)")
+
+    meta = os.path.join(root, "train.txt")
+    write_metadata(rows, meta)
+    runs = {}
+    for name in ("kernel", "plain"):
+        orig = TK.fused_core_apply
+        if name == "plain":
+            TK.fused_core_apply = TK.fused_core_plain
+        try:
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            path = generate_gta(cfg, tp, meta, os.path.join(root, "card"), os.path.join(root, f"gta_{name}"),
+                                batch_size=batch, log=quiet, device=dev)
+            torch.cuda.synchronize()
+            runs[name] = (path, time.time() - t0, dict(ops.LAUNCHES))
+        finally:
+            TK.fused_core_apply = orig
+    k3, k3_plain = runs["kernel"][2]["tacotron_train_fwd"], runs["plain"][2]["tacotron_train_fwd"]
+    check(k3 > 0, "gta: K3 was never launched on the GTA path")
+    check(k3_plain == 0, "gta: K3 was launched with the plain core swapped in")
+    lines = {}
+    for k, (path, _, _) in runs.items():
+        with open(path, encoding="utf-8") as f:
+            lines[k] = f.read().splitlines()
+    check(lines["kernel"] == lines["plain"] and len(lines["kernel"]) == n_utts, "gta: metadata lines differ")
+    worst_gta = 0.0
+    for line in lines["kernel"]:
+        wav, gt, pred, _ = line.split("|")
+        d_k, d_p = (os.path.join(root, f"gta_{k}") for k in ("kernel", "plain"))
+        check(np.array_equal(np.load(os.path.join(d_k, wav)), np.load(os.path.join(d_p, wav))), f"gta: {wav}")
+        check(np.array_equal(np.load(os.path.join(d_k, gt)), np.load(os.path.join(d_p, gt))), f"gta: {gt}")
+        p_k, p_p = np.load(os.path.join(d_k, pred)), np.load(os.path.join(d_p, pred))
+        check(np.isfinite(p_k).all() and p_k.min() >= 0.0 and p_k.max() <= 1.0, f"gta: {pred} out of range")
+        worst_gta = max(worst_gta, float(np.abs(p_k - p_p).max()))
+    check(worst_gta <= 1e-3, f"gta: K3 eval vs plain core predicted mel max|d| {worst_gta:.3e} > 1e-3")
+    phase("preprocess + gta", f"generate_gta B={batch}: K3 {runs['kernel'][1]:.2f} s ({n_utts / runs['kernel'][1]:.1f} "
+          f"utt/s, host clock, first call, file writes included), plain core {runs['plain'][1]:.2f} s; K3 "
+          f"launches {k3} (plain run {k3_plain}); predicted mel max|d| {worst_gta:.2e} (bound 1e-3, unit range)")
+    return {"gta_launches": k3, "gta_err": worst_gta, "pre_err": worst}
+
+
+# ---------------------------------------------------------------------------
+# the command-line entry points, as subprocesses on the card
+# ---------------------------------------------------------------------------
+
+
+def run_module(module: str, args: list, tag: str) -> dict:
+    """``python -m module args`` in a subprocess (through runpy, which is
+    what ``-m`` does), then its launch counters; fails on a non-zero exit."""
+    code = ("import json, runpy, sys\n"
+            "from tacotronv2_wavernn_chinese_tpu_torch import ops\n"
+            f"sys.argv = {json.dumps([module] + args)}\n"
+            f"runpy.run_module({module!r}, run_name='__main__', alter_sys=True)\n"
+            "print('LAUNCHES ' + json.dumps(ops.LAUNCHES))\n")
+    t0 = time.time()
+    out = subprocess.run([sys.executable, "-c", code], cwd=HERE, capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"cli {tag}: exit code {out.returncode}:\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith("LAUNCHES ")]
+    check(len(line) == 1, f"cli {tag}: no launch counts printed")
+    return {"launches": json.loads(line[0][len("LAUNCHES "):]), "s": time.time() - t0}
+
+
+def run_cli(cfg, gl_artifact: str, wavernn_npz: str, serve_frames: int) -> dict:
+    """infer.synthesize on the Griffin-Lim artifact's weights and
+    infer.wavernn_gen on a .npy mel, each a subprocess on the card: exit
+    codes, WAV lengths and the kernels each launched."""
+    from scipy.io import wavfile
+
+    hop = cfg.audio.hop_size
+    out_dir = os.path.join(HERE, "build", "chip_smoke_cli")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    syn = run_module("tacotronv2_wavernn_chinese_tpu_torch.infer.synthesize",
+                     ["--params-npz", os.path.join(gl_artifact, "tacotron_params.npz"), "--text", SENTENCES[1],
+                      "--out-dir", out_dir, "--override", f"tacotron.max_iters={serve_frames}"], "synthesize")
+    wavs = [f for f in os.listdir(out_dir) if f.startswith("wav-") and f.endswith(".wav")]
+    check(len(wavs) == 1, f"cli synthesize: wrote {wavs}")
+    sr, pcm = wavfile.read(os.path.join(out_dir, wavs[0]))
+    check(sr == 22050 and pcm.dtype == np.int16 and len(pcm) == serve_frames * hop,
+          f"cli synthesize: {sr} Hz {pcm.dtype} {len(pcm)} samples, expected {serve_frames} x {hop}")
+    check(syn["launches"]["tacotron_decode"] > 0, "cli synthesize: K2 was never launched")
+    mel_frames = 40
+    mel_path = os.path.join(out_dir, "utt.npy")
+    np.save(mel_path, np.random.default_rng(9).uniform(0.0, 1.0, (mel_frames, cfg.audio.num_mels)).astype(np.float32))
+    voc_wav = os.path.join(out_dir, "utt-wavernn.wav")
+    gen = run_module("tacotronv2_wavernn_chinese_tpu_torch.infer.wavernn_gen",
+                     ["--file", mel_path, "--params-npz", wavernn_npz, "--output", voc_wav], "wavernn_gen")
+    sr, pcm = wavfile.read(voc_wav)
+    check(sr == 22050 and pcm.dtype == np.int16 and len(pcm) == mel_frames * hop,
+          f"cli wavernn_gen: {sr} Hz {len(pcm)} samples, expected {mel_frames} x {hop}")
+    check(gen["launches"]["wavernn_sample"] > 0, "cli wavernn_gen: K1 was never launched")
+    phase("cli", f"infer.synthesize (Griffin-Lim, {serve_frames} frames): exit 0 in {syn['s']:.1f} s, WAV "
+          f"{serve_frames} x {hop} samples, launches {syn['launches']}; infer.wavernn_gen ({mel_frames} frames): "
+          f"exit 0 in {gen['s']:.1f} s, WAV {mel_frames} x {hop} samples, launches {gen['launches']}")
+    return {"synthesize": syn["launches"], "wavernn_gen": gen["launches"]}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1167,10 +1550,8 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
     art = os.path.join(HERE, "build", "chip_smoke_artifact")
     write_artifact(cfg, tp_long, art, wp)
     synth = load_exported(art, max_iters=serve_frames, device=dev)
-    httpd = SRV.serve(synth.cfg, synth, "127.0.0.1", 0, max_batch=4, max_queue=8)
+    httpd, th = start_server(synth)
     port = httpd.server_address[1]
-    th = threading.Thread(target=httpd.serve_forever, daemon=True)
-    th.start()
     try:
         t0 = time.time()
         SRV.warmup(synth, httpd.service.max_batch_hard)
@@ -1180,41 +1561,17 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
         check(np.isfinite(res["wav"]).all(), "serve: non-finite audio")
         check(res["wav"].shape[0] == serve_frames * 275, f"serve: wav length {res['wav'].shape[0]}")
 
-        def post(path, payload):
-            req = urllib.request.Request(
-                f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode("utf-8"),
-                headers={"Content-Type": "application/json"},
-            )
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            start.record()
-            h0 = time.time()
-            with urllib.request.urlopen(req, timeout=600) as resp:
-                body = json.loads(resp.read())
-            end.record()
-            torch.cuda.synchronize()
-            return body, (time.time() - h0) * 1e3, start.elapsed_time(end)
-
-        def check_wav(b64: str, tag: str):
-            with wave.open(io.BytesIO(base64.b64decode(b64))) as wf:
-                check(wf.getnchannels() == 1 and wf.getsampwidth() == 2 and wf.getframerate() == 22050,
-                      f"{tag}: bad WAV header")
-                n = wf.getnframes()
-                pcm = np.frombuffer(wf.readframes(n), "<i2")
-            check(n == serve_frames * 275, f"{tag}: {n} samples, expected {serve_frames} x 275")
-            check(np.abs(pcm).max() > 0, f"{tag}: silent audio")
-
         ops.reset_launch_counts()
         for i, text in enumerate(SENTENCES):
-            body, host_ms, ev_ms = post("/generate_tts", {"text": text, "seed": i})
+            body, host_ms, ev_ms = post(port, "/generate_tts", {"text": text, "seed": i})
             check(body.get("status") == 0, f"serve: /generate_tts failed: {body.get('error')}")
-            check_wav(body["wav_b64"], f"/generate_tts #{i}")
+            check_wav(body["wav_b64"], f"/generate_tts #{i}", serve_frames * 275)
             phase("serve", f"/generate_tts #{i} ({body['pyin'][:40]}...): {host_ms:.1f} ms host, "
                   f"{ev_ms:.1f} ms CUDA events, {body['duration_s']:.2f} s audio")
-        body, host_ms, ev_ms = post("/generate_tts_batch", {"texts": SENTENCES, "seed": 5})
+        body, host_ms, ev_ms = post(port, "/generate_tts_batch", {"texts": SENTENCES, "seed": 5})
         check(body.get("status") == 0, f"serve: /generate_tts_batch failed: {body.get('error')}")
         for j, r_ in enumerate(body["results"]):
-            check_wav(r_["wav_b64"], f"/generate_tts_batch[{j}]")
+            check_wav(r_["wav_b64"], f"/generate_tts_batch[{j}]", serve_frames * 275)
         phase("serve", f"/generate_tts_batch x{len(SENTENCES)}: {host_ms:.1f} ms host, {ev_ms:.1f} ms CUDA events")
         launches = {k: ops.LAUNCHES[k] for k in ("wavernn_sample", "tacotron_decode")}
         phase("serve", f"kernel launches on the serve path: {launches}")
@@ -1238,9 +1595,23 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
         for k, v in launches.items():
             check(v > 0, f"serve: kernel {k} was never launched on the serve path")
     finally:
-        httpd.shutdown()
-        httpd.server_close()
-        th.join(timeout=30)
+        stop_server(httpd, th)
+
+    # ---------------- griffin-lim ----------------
+    t_ph = time.time()
+    gl = run_griffin_lim(cfg, dev, tp_long, serve_frames, smi)
+    phase("griffin-lim", f"took {time.time() - t_ph:.1f} s")
+
+    # ---------------- preprocess + gta ----------------
+    t_ph = time.time()
+    pg = run_preprocess_gta(cfg, dev, tp)
+    phase("preprocess + gta", f"took {time.time() - t_ph:.1f} s")
+
+    # ---------------- cli ----------------
+    t_ph = time.time()
+    cli = run_cli(cfg, os.path.join(HERE, "build", "chip_smoke_gl_artifact"),
+                  os.path.join(art, "wavernn_params.npz"), serve_frames)
+    phase("cli", f"took {time.time() - t_ph:.1f} s")
 
     # ---------------- train ----------------
     tr = run_train_phase(cfg, dev, core_shape, corpus, TRAIN_STEPS, TRAIN_CKPT_EVERY)
@@ -1289,20 +1660,27 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
          "replaces": "tacotronv2_wavernn_chinese_tpu/ops/wavernn_kernel.py:234",
          "launches": launches["wavernn_sample"], "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": bms1, "bound_by": by1,
-         "library_ms": None, "compared_steps": k1["compared"], "uncompared_steps": k1["uncompared"],
+         "library_ms": None, "launches_by_path": {"serve": launches["wavernn_sample"],
+                                                  "cli_wavernn_gen": cli["wavernn_gen"]["wavernn_sample"]},
+         "compared_steps": k1["compared"], "uncompared_steps": k1["uncompared"],
          "diverged_folds": k1["diverged"], "grid_blocks": k1_plan.blocks, "fold_tile": k1_plan.fold_tile},
         {"name": "tacotron_decode", "route": "cuda",
          "source": "tacotronv2_wavernn_chinese_tpu_torch/csrc/tacotron_decode.cu",
          "replaces": "tacotronv2_wavernn_chinese_tpu/ops/tacotron_decoder_kernel.py:627",
          "launches": launches["tacotron_decode"], "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": bms2, "bound_by": by2,
-         "library_ms": None, "grid_blocks": k2_plan.blocks, "clusters": k2_plan.clusters},
+         "library_ms": None, "launches_by_path": {
+             "serve": launches["tacotron_decode"], "griffin_lim": gl["launches"]["tacotron_decode"],
+             "cli_synthesize": cli["synthesize"]["tacotron_decode"]},
+         "grid_blocks": k2_plan.blocks, "clusters": k2_plan.clusters},
         {"name": "tacotron_train_fwd", "route": "cuda",
          "source": "tacotronv2_wavernn_chinese_tpu_torch/csrc/tacotron_train_fwd.cu",
          "replaces": "tacotronv2_wavernn_chinese_tpu/ops/tacotron_trainer_kernel.py:689",
          "launches": tr["launches"]["tacotron_train_fwd"], "max_abs_err": k34["k3_err"],
          "ms": k34["k3_ms"], "plain_ms": k34["k3_plain_ms"], "bound_ms": bms3, "bound_by": by3,
-         "library_ms": None, "grid_blocks": k34["blocks"], "clusters": k34["clusters"]},
+         "library_ms": None, "launches_by_path": {"train": tr["launches"]["tacotron_train_fwd"],
+                                                  "gta": pg["gta_launches"]},
+         "grid_blocks": k34["blocks"], "clusters": k34["clusters"]},
         {"name": "tacotron_train_bwd", "route": "cuda",
          "source": "tacotronv2_wavernn_chinese_tpu_torch/csrc/tacotron_train_bwd.cu",
          "replaces": "tacotronv2_wavernn_chinese_tpu/ops/tacotron_trainer_kernel.py:761",

@@ -1,8 +1,7 @@
 """Length-bucketed batch loader for acoustic-model training (a copy of the
 JAX package's ``data/loader.py`` Tacotron part, which uses only numpy,
-without ``batch_shapes`` (its compile prewarm has no counterpart here) and
-``sequential_batches`` (GTA, ROADMAP.md queue item 11); plus
-``read_metadata`` from its ``data/preprocess.py``).
+without ``batch_shapes``, whose compile prewarm has no counterpart here;
+plus ``read_metadata`` from its ``data/preprocess.py``).
 
 Replaces the reference's feeder-thread + tf.FIFOQueue(8)
 (tacotron/feeder.py:14-168) with a synchronous numpy iterator producing
@@ -199,6 +198,14 @@ class TacotronDataset:
             "frac_pad_mel_bucket": round(1.0 - ref_f / pad_f, 4),
             "frac_pad_inputs": round(1.0 - real_t / pad_t, 4),
         }
+
+    def sequential_batches(self, batch_size: int, indices=None, input_multiple: int | None = None,
+                           mel_multiple: int | None = None):
+        """In-order batches over the corpus (GTA generation / eval)."""
+        idx = list(indices if indices is not None else range(len(self.rows)))
+        im, mm = self._multiples(input_multiple, mel_multiple)
+        for s in range(0, len(idx), batch_size):
+            yield self._make_batch(idx[s : s + batch_size], im, mm)
 
 
 def read_metadata(path: str) -> list[list[str]]:

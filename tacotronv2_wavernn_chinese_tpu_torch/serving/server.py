@@ -14,7 +14,11 @@ Endpoints:
 
 Usage:
     python -m tacotronv2_wavernn_chinese_tpu_torch.serving.server \
-        --export-dir export/1 [--port 8500] [--max-iters 1000]
+        --export-dir export/1 [--port 8500] [--max-iters 1000] \
+        [--override a.b=c,...] [--device cpu]
+
+An artifact without WaveRNN weights serves through Griffin-Lim on the same
+device (``/healthz`` says ``"vocoder": "griffin_lim"``).
 """
 
 from __future__ import annotations
@@ -408,7 +412,8 @@ def serve(
 def warmup(synth, max_batch_hard: int, text: str = "你好。") -> None:
     """One short request per batch bucket the micro-batcher can form (the
     single path, then every power of two up to the one covering
-    ``max_batch_hard``); decode length stays bounded by synth.max_iters."""
+    ``max_batch_hard``), through the synthesizer's vocoder: WaveRNN or
+    Griffin-Lim.  Decode length stays bounded by synth.max_iters."""
     synth.synthesize(text)
     top = 1 << (max_batch_hard - 1).bit_length() if max_batch_hard > 1 else 1
     nb = 2
@@ -417,7 +422,7 @@ def warmup(synth, max_batch_hard: int, text: str = "你好。") -> None:
         nb *= 2
 
 
-def main() -> None:
+def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--export-dir", required=True,
                     help="serving artifact directory (tacotron_params.npz, wavernn_params.npz, "
@@ -434,12 +439,14 @@ def main() -> None:
     ap.add_argument("--max-iters", type=int, default=None,
                     help="decode-length cap in decoder steps (default: config max_iters)")
     ap.add_argument("--no-warmup", action="store_true")
-    args = ap.parse_args()
+    ap.add_argument("--override", default="", help="comma-separated a.b=c over the artifact's config.json")
+    args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 
     from .export import load_exported
 
-    synth = load_exported(args.export_dir, max_iters=args.max_iters, device=args.device)
+    synth = load_exported(args.export_dir, max_iters=args.max_iters, device=args.device,
+                          override=args.override)
     httpd = serve(synth.cfg, synth, args.host, args.port, max_batch=args.max_batch,
                   max_queue=args.max_queue, max_batch_hard=args.max_batch_hard)
     if not args.no_warmup:

@@ -3,9 +3,8 @@
 Keeps the JAX training loop's operational guards (reference tacotron/train.py:
 80-238): loss-explosion/NaN abort, restore-or-init from the latest
 checkpoint, rolling time/loss windows, a checkpoint every
-``checkpoint_interval`` steps with eval artifacts (alignment and mel PNGs
-of training sample 0).  The Griffin-Lim eval wav waits for Griffin-Lim
-(ROADMAP.md, queue item 7) and is logged as not yet ported.
+``checkpoint_interval`` steps with eval artifacts of training sample 0:
+its Griffin-Lim wav (on the training device) and alignment and mel PNGs.
 
 The JAX training loop's ``_prewarm_bucket_shapes`` compiles every bucketed batch
 shape before the first step; eager PyTorch has nothing to compile, so it has
@@ -30,6 +29,9 @@ import torch
 
 from ..config import Config, default_config
 from ..data.loader import TacotronDataset, read_metadata
+from ..dsp.griffin_lim import inv_mel_spectrogram
+from ..dsp.spectrogram import MelPipeline
+from ..dsp.wav import save_wav
 from ..utils import logging as infolog
 from ..utils import resolve_device
 from ..utils.checkpoints import CheckpointManager
@@ -174,21 +176,23 @@ def run_training(
 
 
 def _render_eval(cfg, params, batch, arrays, eval_dir, step, log, device):
-    """Alignment/mel PNGs from training sample 0 (reference
-    tacotron/train.py:189-218); the Griffin-Lim wav is not ported yet."""
+    """Griffin-Lim wav + alignment/mel PNGs from training sample 0
+    (reference tacotron/train.py:189-218)."""
     try:
         gen = torch.Generator(device=device)
         gen.manual_seed(0)
         aux, out = task.eval_step(params, arrays, cfg, gen)
         T = int(batch.target_lengths[0])
+        with torch.no_grad():
+            wav = inv_mel_spectrogram(out.mel_outputs[0, :T], MelPipeline(cfg.audio, device))
+        save_wav(wav, os.path.join(eval_dir, f"step-{step}-wave-from-mel.wav"), cfg.audio.sample_rate)
         mel = out.mel_outputs[0].cpu().numpy()[:T]
         align = out.alignments[0].cpu().numpy()[:T]
         wrote = plot_alignment(align, os.path.join(eval_dir, f"step-{step}-align.png"),
                                title=f"step {step}, eval loss {float(aux['loss']):.4f}")
         wrote &= plot_spectrogram(mel, os.path.join(eval_dir, f"step-{step}-mel.png"), title=f"step {step}")
-        log(f"eval render at step {step}: eval loss {float(aux['loss']):.5f}, "
-            + ("alignment and mel PNGs written" if wrote else "no PNGs (matplotlib is missing)")
-            + "; the Griffin-Lim wav is not ported yet (ROADMAP.md, queue item 7)")
+        log(f"eval render at step {step}: eval loss {float(aux['loss']):.5f}, Griffin-Lim wav and "
+            + ("alignment and mel PNGs written" if wrote else "no PNGs (matplotlib is missing)"))
     except Exception as e:  # eval artifacts must never kill training
         log(f"eval render failed: {type(e).__name__}: {e}")
 

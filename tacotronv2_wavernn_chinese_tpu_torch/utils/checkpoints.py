@@ -134,6 +134,18 @@ class CheckpointManager:
                 "opt_state": _tree_to(blob["opt_state"], dev)}
 
 
+def restore_params(ckpt_dir: str, step: int | None = None) -> Params:
+    """The params of a ``CheckpointManager`` directory's checkpoint at
+    ``step`` (default: the latest), on the CPU; FileNotFoundError when the
+    directory holds none (a missing directory is not created)."""
+    if not os.path.isdir(ckpt_dir):
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    state = CheckpointManager(ckpt_dir).restore("cpu", step=step)
+    if state is None:
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    return state["params"]
+
+
 def _tree_to(tree, device):
     return tree_map(lambda t: t.detach().to(device) if isinstance(t, torch.Tensor) else t, tree)
 

@@ -1,13 +1,15 @@
 """The slice end to end: an artifact written by the JAX package's exporter
 is loaded by the port on the CPU and synthesizes the same mels and wavs as
 the JAX package's forward_inference + generate_batch; the port's server
-answers both endpoints with valid WAVs."""
+answers both endpoints with valid WAVs; without WaveRNN weights the port
+reconstructs with Griffin-Lim."""
 
 import base64
 import dataclasses
 import functools
 import io
 import json
+import os
 import threading
 import urllib.request
 import wave
@@ -28,6 +30,7 @@ from tacotronv2_wavernn_chinese_tpu_torch.config import _config_from_dict as por
 from tacotronv2_wavernn_chinese_tpu_torch.infer.synthesizer import Synthesizer
 from tacotronv2_wavernn_chinese_tpu_torch.serving import server as TS
 from tacotronv2_wavernn_chinese_tpu_torch.serving.export import load_exported
+from tacotronv2_wavernn_chinese_tpu_torch.utils.checkpoints import CheckpointManager
 
 TEXTS = ["你好。", "今天天气很好。", "这是第3个句子。"]
 MAX_ITERS = 24
@@ -157,9 +160,18 @@ def test_server_answers_both_endpoints(artifact):
         th.join(timeout=30)
 
 
-def test_griffin_lim_path_raises(artifact):
+def test_griffin_lim_path_raises(artifact, tmp_path):
+    """Without WaveRNN weights the synthesizer reconstructs with Griffin-Lim
+    (a wav of stop_len x hop samples); a WaveRNN checkpoint directory that
+    is named but empty raises instead of falling back to Griffin-Lim."""
     cfg, params, _, _, _ = artifact
-    synth = Synthesizer(port_config(cfg.to_dict()), jax.device_get(params), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        synth.synthesize(TEXTS[0])
+    pcfg = port_config(cfg.to_dict())
+    synth = Synthesizer(pcfg, jax.device_get(params), max_iters=MAX_ITERS, device="cpu")
     assert isinstance(synth.params["embedding"], torch.Tensor)
+    res = synth.synthesize(TEXTS[0])
+    assert res["wav"].shape == (res["mel"].shape[0] * HOP,) and np.isfinite(res["wav"]).all()
+    taco_dir, voc_dir = str(tmp_path / "taco"), str(tmp_path / "voc")
+    CheckpointManager(taco_dir).save(1, synth.params, {})
+    os.makedirs(voc_dir)
+    with pytest.raises(FileNotFoundError, match="no checkpoint under"):
+        Synthesizer.from_checkpoints(pcfg, taco_dir, voc_dir, device="cpu")

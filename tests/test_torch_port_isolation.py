@@ -27,15 +27,24 @@ bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
 print(len(names))
 print(",".join(bad))
 from {PORT}.config import default_config
+from {PORT}.data.preprocess import process_corpus
+from {PORT}.dsp.spectrogram import MelPipeline
+from {PORT}.infer.gta import generate_gta
+from {PORT}.infer.wavernn_gen import gen_from_mel
 from {PORT}.infer.synthesizer import Synthesizer
 from {PORT}.serving.export import load_exported
 from {PORT}.train.tacotron_train import run_training
-from {PORT}.utils.checkpoints import init_tacotron
+from {PORT}.utils.checkpoints import init_tacotron, init_wavernn
+import numpy as np
 cfg = default_config()
 errors = 0
 for call in (lambda: Synthesizer(cfg, init_tacotron(0, cfg.tacotron)),
              lambda: load_exported("does-not-matter"),
-             lambda: run_training(cfg, "train.txt", "mels", "logs-never-written")):
+             lambda: run_training(cfg, "train.txt", "mels", "logs-never-written"),
+             lambda: MelPipeline(cfg.audio),
+             lambda: process_corpus(cfg, "t.txt", "wavs", "never-written"),
+             lambda: generate_gta(cfg, init_tacotron(0, cfg.tacotron), "m.txt", "d", "never-written"),
+             lambda: gen_from_mel(cfg, init_wavernn(0, cfg.wavernn), np.zeros((4, 80), np.float32), "x.wav")):
     try:
         call()
     except RuntimeError as e:
@@ -55,7 +64,7 @@ def probe():
 
 def test_port_imports_no_jax(probe):
     n, bad = int(probe[0]), probe[1]
-    assert n >= 28  # every module of both slices was imported
+    assert n >= 35  # every module of the port was imported
     assert bad == "", f"the port loaded {bad}"
 
 
@@ -69,9 +78,10 @@ def test_frontend_data_is_byte_identical(name):
 
 
 def test_entry_points_raise_without_gpu(probe):
-    """The synthesizer, the artifact loader and the trainer each raise
-    instead of dropping to the CPU."""
-    assert probe[2] == "3"
+    """The synthesizer, the artifact loader, the trainer, the mel pipeline,
+    preprocessing, GTA and the WaveRNN generator each raise instead of
+    dropping to the CPU."""
+    assert probe[2] == "7"
 
 
 def test_chip_smoke_fails_without_card():
