@@ -70,6 +70,26 @@ Phases, each printing its lines before the next starts:
            the eval render, the K3/K4 launch counters read around it, and a
            restart that must resume at the saved step; one step split by
            CUDA events
+  wavernn train
+           40 procedural utterances (seed 23) preprocessed and through GTA
+           with the phase's Tacotron; run_training on that GTA output at the
+           default width (RAW 10-bit, B=32, 1,375-sample windows) with the
+           native loader, 6 steps with checkpoints and a listening test (K1)
+           at 3 and 6, then a restart to step 7: native loader active,
+           losses finite, each listening-test WAV of the test mel's frames x
+           275 samples, K1 launched once per listening test; one RAW step on
+           the card against the same step on the CPU (B=4, same weights and
+           batch, the CPU's ReLUs pinned to the card's pattern), in float64
+           (the same function: 1e-10) and in f32 (loss 1e-5, grad norm 1e-4,
+           params 2e-6 where the gradients agree; the gradients within 4x
+           the CPU's f32 distance from the float64 step on that pattern,
+           at least 1e-5 of max|g|), and the card's step with TF32 on, which
+           must miss that bound; the B=32 step
+           split by CUDA events (forward, backward,
+           optimizer) beside its operations bound; one MOL step at B=32
+           (finite); MOL generation, 4 folds x 12100 samples timed, 2 folds x
+           275 against the CPU with the same injected draws (1e-3), and a
+           MOL WAV through the wavernn_gen CLI
   kernels  each kernel against its plain version again at the shapes the
            serve and train paths gave it: times, bounds, errors; one JSON
            line, with each kernel's launches on every path that ran it
@@ -182,6 +202,34 @@ def wavernn_work(cfg, T: int, B: int):
     flops = 2.0 * macs * T * B
     nbytes = 4.0 * (weights + T * B * (80 + 4 * aux) + T * B)
     return flops, nbytes
+
+
+def wavernn_train_work(cfg, B: int, seq_frames: int, n_out: int, num_mels: int = 80):
+    """(flops, bytes) of one WaveRNN train step on B windows of
+    ``seq_frames`` frames (seq_frames x hop samples): the forward's
+    multiply-adds (MelResNet per frame, the upsample smoothing, then per
+    sample I, both GRUs' input and hidden products, fc1-fc3), times 2 for
+    flops and times 3 for forward + backward (the backward's two products
+    per forward product); bytes: params, both Adam moments and the batch
+    read, params and moments written (f32; activations are not counted)."""
+    H, FC, C, pad = cfg.rnn_dims, cfg.fc_dims, cfg.compute_dims, cfg.pad
+    aux, R = cfg.res_out_dims // 4, cfg.res_out_dims
+    hop = cfg.total_upsample
+    T = seq_frames * hop
+    per_sample = ((1 + num_mels + aux) * H + 2 * H * 3 * H + (H + aux) * 3 * H + H * 3 * H
+                  + (H + aux) * FC + (FC + aux) * FC + FC * n_out)
+    per_frame = (2 * pad + 1) * num_mels * C + 2 * cfg.res_blocks * C * C + C * R
+    smooth, length = 0, seq_frames + 2 * pad
+    for s_ in cfg.upsample_factors:
+        length *= s_
+        smooth += length * num_mels * (2 * s_ + 1)
+    macs = B * (T * per_sample + seq_frames * per_frame + smooth)
+    n_params = ((1 + num_mels + aux) * H + H + 2 * (H * 3 * H + 3 * H) + (H + aux) * 3 * H + H * 3 * H
+                + 6 * H + (H + aux) * FC + FC + (FC + aux) * FC + FC + FC * n_out + n_out
+                + (2 * pad + 1) * num_mels * C + 2 * cfg.res_blocks * C * C + C * R + R
+                + 4 * C * (2 * cfg.res_blocks + 1) + sum(2 * s_ + 1 for s_ in cfg.upsample_factors))
+    nbytes = 4.0 * (6 * n_params + B * T * 2 + B * (seq_frames + 2 * pad) * num_mels)
+    return 3 * 2.0 * macs, nbytes
 
 
 def decoder_work(tcfg, B: int, T_in: int, V: int, steps: int, max_iters: int):
@@ -1443,6 +1491,332 @@ def run_cli(cfg, gl_artifact: str, wavernn_npz: str, serve_frames: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# WaveRNN training (RAW and MOL) and MOL vocoding
+# ---------------------------------------------------------------------------
+
+
+def wavernn_step_split(cfg, state, batch) -> dict:
+    """One WaveRNN train step split by CUDA events: forward + loss
+    (``loss_fn``), backward (autograd, up to the optimizer) and the
+    optimizer (``apply_gradients``: clip and Adam)."""
+    import torch
+
+    from tacotronv2_wavernn_chinese_tpu_torch.train import wavernn_task as WT
+
+    hooks = EventHooks()
+    for name in ("loss_fn", "apply_gradients"):
+        hooks.wrap(WT, name)
+    try:
+        res = {}
+        for _ in range(2):  # the second call is reported
+            hooks.marks.clear()
+            s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            s0.record()
+            WT.train_step(state, batch, cfg)
+            s1.record()
+            torch.cuda.synchronize()
+            lf, opt = hooks.marks["loss_fn"][0], hooks.marks["apply_gradients"][0]
+            res = {"forward": lf[0].elapsed_time(lf[1]), "backward": lf[1].elapsed_time(opt[0]),
+                   "optimizer": opt[0].elapsed_time(opt[1]), "step": s0.elapsed_time(s1)}
+    finally:
+        hooks.restore()
+    return res
+
+
+def relu_pattern(masks=None):
+    """A torch function mode: inside it every ``torch.relu`` records its
+    sign pattern (``masks`` None), or applies the given patterns in call
+    order as ``x * mask`` (relu's value and gradient on that pattern) and
+    counts the units whose own sign differs.  The WaveRNN step's gradients
+    jump where a ReLU changes side, so two f32 runs are compared on one
+    pattern."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    class ReluPattern(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.masks, self.flips, self.units = [], 0, 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is not torch.relu:
+                return func(*args, **(kwargs or {}))
+            x = args[0]
+            own = x > 0
+            self.units += own.numel()
+            if masks is None:
+                self.masks.append(own.cpu())
+                return func(x)
+            m = masks[len(self.masks)].to(x.device)
+            self.masks.append(m)
+            self.flips += int((own != m).sum())
+            return x * m.to(x.dtype)
+
+    return ReluPattern()
+
+
+def step_on(cfg, params, batch, dev, dtype, masks=None, precision: str = "ieee") -> dict:
+    """One RAW train step on ``dev`` in ``dtype`` from copies of
+    ``params`` and ``batch``, TF32 off ("ieee") or on ("tf32"), its ReLUs
+    recorded or pinned to ``masks``: loss, grad norm, the gradients and
+    params after the step as float64 leaves on the CPU, the ReLU patterns
+    and the units whose own sign differed from ``masks``."""
+    from tacotronv2_wavernn_chinese_tpu_torch.train import wavernn_task as WT
+    from tacotronv2_wavernn_chinese_tpu_torch.utils import tree_leaves, tree_map
+
+    p = tree_map(lambda t: t.to(dev, dtype), params)
+    b = {k: v.to(dev, dtype) if v.is_floating_point() else v.to(dev) for k, v in batch.items()}
+    state = WT.TrainState(0, p, WT.adam_init(p))
+    with WT.fp32_precision(precision), relu_pattern(masks) as relus:
+        loss, new_p, grads = WT.compute_grads(state.params, cfg, b)
+        new_state, norm = WT.apply_gradients(state, new_p, grads, cfg)
+    host = lambda tree: [t.detach().cpu().double() for t in tree_leaves(tree)]
+    return {"loss": float(loss), "grad_norm": float(norm), "grads": host(grads), "params": host(new_state.params),
+            "masks": relus.masks, "flips": relus.flips, "units": relus.units}
+
+
+# card vs CPU, one RAW step at B=4, the CPU's ReLUs pinned to the card's
+# pattern (a unit within ~1e-6 of zero may land on either side in f32, and
+# each moves its layers' weight gradients by one position's term, ~1e-3 of
+# max|g|).  float64: the same function, to rounding.  float32: loss, grad
+# norm and params against the CPU; the gradients against the float64 step
+# on the same pattern, no farther than F32_GRAD_FACTOR times the CPU's f32
+# gradients are (at least F32_GRAD_FLOOR of max|g|): what f32 allows on
+# this batch, which the CPU measures (near-constant mels, as an untrained
+# Tacotron's GTA output, make conv_in's weight gradient a small difference
+# of large terms under BatchNorm).  The card's step with TF32 on must miss
+# that bound (tools/torch_wavernn_step_precision.py).  Params are compared
+# where the two gradients agree within 1 % and exceed 1e-6, elsewhere
+# Adam's first step can move them by up to 2 lr.
+CARD_CPU_TOL = {
+    "float64": {"loss": 1e-12, "grad_norm": 1e-10, "grad": 1e-10, "params": 1e-12},
+    "float32": {"loss": 1e-5, "grad_norm": 1e-4, "params": 2e-6},
+}
+F32_GRAD_FACTOR, F32_GRAD_FLOOR = 4.0, 1e-5
+
+
+def grad_error(run: dict, ref: dict) -> float:
+    """max|d| of the gradients over max|g| of ``ref``'s."""
+    g_max = max(float(g.abs().max()) for g in ref["grads"])
+    return max(float((a - b).abs().max()) for a, b in zip(run["grads"], ref["grads"])) / g_max
+
+
+def step_errors(card: dict, host: dict) -> dict:
+    """Loss and grad norm relative, the gradients' max|d| / max|g|, params
+    after the step on the Adam-insensitive elements, and the share and
+    max|d| of the others."""
+    rel = lambda k: abs(card[k] - host[k]) / abs(host[k])
+    p_err, n_sens, n_all, sens_err = 0.0, 0, 0, 0.0
+    for a, b, ga, gb in zip(card["params"], host["params"], card["grads"], host["grads"]):
+        d = (a - b).abs()
+        sens = ((ga - gb).abs() > 0.01 * gb.abs()) | (gb.abs() < 1e-6)
+        p_err = max(p_err, float(d[~sens].max()) if (~sens).any() else 0.0)
+        sens_err = max(sens_err, float(d[sens].max()) if sens.any() else 0.0)
+        n_sens += int(sens.sum())
+        n_all += d.numel()
+    return {"loss": rel("loss"), "grad_norm": rel("grad_norm"), "grad": grad_error(card, host), "params": p_err,
+            "sensitive_share": n_sens / n_all, "sensitive_max": sens_err}
+
+
+def compare_card_cpu(cfg, params, batch, dev, dtype) -> dict:
+    """The same RAW step on the card and on the CPU in ``dtype``, the
+    CPU's ReLUs pinned to the card's pattern: ``step_errors``, the units
+    whose CPU sign differs, and in float32 the gradients' ``grad_error``
+    against the float64 step on that pattern of the card (``card_exact``),
+    the CPU (``cpu_exact``) and the card with TF32 on (``tf32_exact``)."""
+    import torch
+
+    card = step_on(cfg, params, batch, dev, dtype)
+    host = step_on(cfg, params, batch, torch.device("cpu"), dtype, masks=card["masks"])
+    out = dict(step_errors(card, host), flips=host["flips"], units=host["units"])
+    if dtype == torch.float32:
+        exact = step_on(cfg, params, batch, torch.device("cpu"), torch.float64, masks=card["masks"])
+        tf32 = step_on(cfg, params, batch, dev, dtype, card["masks"], "tf32")
+        out.update(card_exact=grad_error(card, exact), cpu_exact=grad_error(host, exact),
+                   tf32_exact=grad_error(tf32, exact))
+    return out
+
+
+def run_wavernn_train(cfg, dev, tp, smi: str, n_utts: int = 40, steps: int = 6, ckpt_every: int = 3,
+                      cmp_batch: int = 4, mol_folds: int = 4, mol_samples: int = 12100) -> dict:
+    """WaveRNN training on the port's own GTA output (RAW, default width,
+    native loader), a resumed step, one step on the card against the CPU,
+    one MOL step, and MOL vocoding.  Returns what the kernels line needs."""
+    import torch
+
+    from tacotronv2_wavernn_chinese_tpu_torch import ops
+    from tacotronv2_wavernn_chinese_tpu_torch.data.loader import VocoderDataset, read_metadata
+    from tacotronv2_wavernn_chinese_tpu_torch.data.preprocess import process_corpus, write_metadata
+    from tacotronv2_wavernn_chinese_tpu_torch.infer import wavernn_gen
+    from tacotronv2_wavernn_chinese_tpu_torch.infer.gta import generate_gta
+    from tacotronv2_wavernn_chinese_tpu_torch.models import wavernn as W
+    from tacotronv2_wavernn_chinese_tpu_torch.train import wavernn_task as WT
+    from tacotronv2_wavernn_chinese_tpu_torch.train import wavernn_train as WTR
+    from tacotronv2_wavernn_chinese_tpu_torch.utils import tree_map
+    from tacotronv2_wavernn_chinese_tpu_torch.utils.checkpoints import init_wavernn, save_params_npz
+    from tacotronv2_wavernn_chinese_tpu_torch.utils.metrics import read_scalars
+
+    tag = "wavernn train"
+    root = os.path.join(HERE, "build", "chip_smoke_wavernn")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.time()
+    transcript, wav_dir = write_procedural_corpus(os.path.join(root, "corpus"), n_utts, seed=23)
+    quiet = lambda m: None
+    rows = process_corpus(cfg, transcript, wav_dir, os.path.join(root, "pre"), bucket_batch=16, log=quiet,
+                          device=dev)
+    meta = os.path.join(root, "pre", "train.txt")
+    write_metadata(rows, meta)
+    gta_dir = os.path.join(root, "gta")
+    gta_meta = generate_gta(cfg, tp, meta, os.path.join(root, "pre"), gta_dir, batch_size=32, log=quiet, device=dev)
+    phase(tag, f"{n_utts} procedural utterances preprocessed and through GTA in {time.time() - t0:.1f} s -> "
+          f"{os.path.relpath(gta_meta, HERE)}")
+
+    wcfg = cfg.override(f"wavernn_train.test_samples=4,wavernn_train.checkpoint_every={ckpt_every},"
+                        "wavernn_train.gen_at_checkpoint=1,wavernn_train.summary_interval=1")
+    log_dir = os.path.join(root, "logs")
+    logs: list = []
+
+    def log(msg):
+        logs.append(msg)
+        phase(tag, f"  | {msg}")
+
+    ops.reset_launch_counts()
+    t0 = time.time()
+    state = WTR.run_training(wcfg, gta_meta, gta_dir, log_dir, total_steps=steps, use_native_loader=True,
+                             log=log, device=dev)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    sec_step = [float(m.split("[")[1].split(" sec/step")[0]) for m in logs if m.startswith("Step")]
+    logs_first = list(logs)
+    logs.clear()
+    state2 = WTR.run_training(wcfg, gta_meta, gta_dir, log_dir, total_steps=steps + 1, use_native_loader=True,
+                              log=log, device=dev)
+    torch.cuda.synchronize()
+    k1 = ops.LAUNCHES["wavernn_sample"]
+    ckpt_steps = [s_ for s_ in range(1, steps + 2) if s_ % ckpt_every == 0]
+    n_tests = len(ckpt_steps)
+    phase(tag, f"run_training: {state.step} steps in {wall:.1f} s wall (warm step, native loader build, "
+          f"checkpoints and listening tests included), then a restart to step {state2.step}; K1 launches "
+          f"{k1} for {n_tests} listening tests")
+    check(state.step == steps and state2.step == steps + 1, f"{tag}: ended at steps {state.step}, {state2.step}")
+    check(any(m.startswith("native C++ loader active") for m in logs_first), f"{tag}: the native loader was not active")
+    check(not any("failed" in m for m in logs_first + logs), f"{tag}: a listening test failed")
+    check(f"restored checkpoint at step {steps}" in logs, f"{tag}: the restart did not restore step {steps}")
+    scal = read_scalars(os.path.join(log_dir, "scalars.jsonl"))
+    losses = [r["loss"] for r in scal]
+    check(len(losses) == steps + 1 and all(np.isfinite(losses)) and all(np.isfinite(r["grad_norm"]) for r in scal),
+          f"{tag}: losses {losses}")
+    phase(tag, "losses " + ", ".join(f"{v:.4f}" for v in losses))
+    ds = VocoderDataset(read_metadata(gta_meta), gta_dir, wcfg)
+    check(len(ds.train_indices) >= wcfg.wavernn_train.batch_size, f"{tag}: {len(ds.train_indices)} train utterances")
+    frames = np.load(os.path.join(gta_dir, ds.rows[ds.test_indices[0]][2])).shape[0]
+    for s_ in ckpt_steps:
+        path = os.path.join(log_dir, "model_outputs", f"step{s_}_batched_sample0.wav")
+        check(os.path.exists(path), f"{tag}: no listening-test WAV at step {s_}")
+        with wave.open(path) as wf:
+            check(wf.getnframes() == frames * 275, f"{tag}: listening test at step {s_}: {wf.getnframes()} "
+                  f"samples, expected {frames} x 275")
+    check(k1 == n_tests, f"{tag}: K1 launched {k1} times for {n_tests} listening tests")
+    phase(tag, f"sec/step (run_training's rolling window, host clock): {sec_step[-1]:.3f}; listening tests "
+          f"{frames} x 275 samples at steps {ckpt_steps}")
+
+    # one RAW step on the card against the same step on the CPU
+    rs = np.random.RandomState(0)
+    small = WT.batch_to_device(ds.collate(ds.train_indices[:cmp_batch], rs), "cpu")
+    p0 = init_wavernn(31, cfg.wavernn, cfg.audio.num_mels, cfg.audio.bits, device="cpu")
+    cmps = {}
+    for dtype in (torch.float64, torch.float32):
+        t0 = time.time()
+        name = str(dtype).split(".")[1]
+        cmp, tol = compare_card_cpu(wcfg, p0, small, dev, dtype), CARD_CPU_TOL[name]
+        cmps[name] = cmp
+        phase(tag, f"card vs CPU, one RAW step B={cmp_batch}, {name} (TF32 off), the CPU's ReLUs pinned to the "
+              f"card's ({cmp['flips']} of {cmp['units']} units on the other side on their own): loss rel "
+              f"{cmp['loss']:.2e} (tol {tol['loss']:.0e}), grad norm rel {cmp['grad_norm']:.2e} (tol "
+              f"{tol['grad_norm']:.0e}), gradient max|d|/max|g| {cmp['grad']:.2e}"
+              + (f" (tol {tol['grad']:.0e})" if "grad" in tol else "") + f", params after the step max|d| "
+              f"{cmp['params']:.2e} (tol {tol['params']:.0e}) where the gradients agree within 1 % and exceed "
+              f"1e-6; the other {cmp['sensitive_share']:.2%} of elements max|d| {cmp['sensitive_max']:.2e} (tol "
+              f"2 lr = 2e-4); {time.time() - t0:.1f} s host")
+        check(all(cmp[k] <= tol[k] for k in tol) and cmp["sensitive_max"] <= 2e-4 + 1e-7,
+              f"{tag}: card vs CPU step in {name}: {cmp}")
+        if "card_exact" in cmp:
+            bound_f32 = max(F32_GRAD_FLOOR, F32_GRAD_FACTOR * cmp["cpu_exact"])
+            phase(tag, f"gradients against the float64 step on the card's ReLU pattern, max|d|/max|g|: the card in "
+                  f"f32 {cmp['card_exact']:.2e}, the CPU in f32 {cmp['cpu_exact']:.2e}, tol max({F32_GRAD_FLOOR:.0e}, "
+                  f"{F32_GRAD_FACTOR:g} x the CPU's) = {bound_f32:.2e}; the card with TF32 on "
+                  f"{cmp['tf32_exact']:.2e}, which must exceed it")
+            check(cmp["card_exact"] <= bound_f32, f"{tag}: the card's f32 gradients: {cmp}")
+            check(cmp["tf32_exact"] > bound_f32, f"{tag}: the f32 check cannot tell TF32 from f32: {cmp}")
+
+    # the RAW step at B=32 split by CUDA events, and its bound
+    b32 = WT.batch_to_device(ds.collate(ds.train_indices[:wcfg.wavernn_train.batch_size], rs), dev)
+    split = wavernn_step_split(wcfg, WT.TrainState(state2.step, state2.params, state2.opt_state), b32)
+    flops, nbytes = wavernn_train_work(cfg.wavernn, b32["x"].shape[0], wcfg.wavernn_train.seq_len_hops,
+                                       2 ** cfg.audio.bits)
+    bms, by = bound(flops, nbytes)
+    phase(tag, f"{smi}: RAW step B={b32['x'].shape[0]} x {b32['x'].shape[1]} samples (CUDA events): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+          + f"; bound {bms:.2f} ms ({by}: {flops / 1e12:.3f} TFLOP at 67 TFLOP/s f32)")
+
+    # one MOL step at B=32
+    mcfg = wcfg.override("wavernn.mode=MOL")
+    mstate = WT.init_state(5, mcfg, dev)
+    t0 = time.time()
+    mstate, mm = WT.train_step(mstate, b32, mcfg)
+    check(np.isfinite(mm["loss"]) and np.isfinite(mm["grad_norm"]) and mm["grad_norm"] > 0, f"{tag}: MOL step {mm}")
+    phase(tag, f"MOL step B={b32['x'].shape[0]} on the card: loss {mm['loss']:.4f}, grad norm "
+          f"{mm['grad_norm']:.4f}, {time.time() - t0:.2f} s host (first call)")
+
+    # MOL vocoding on the card
+    mp = mstate.params
+    hop = cfg.wavernn.total_upsample
+    rng = np.random.default_rng(29)
+    mels = torch.as_tensor(rng.uniform(0, 1, (mol_folds, mol_samples // hop + 2 * cfg.wavernn.pad, 80)),
+                           dtype=torch.float32, device=dev)
+    box = {}
+    with torch.no_grad():
+        mol_ms = cuda_ms(lambda: box.__setitem__("w", W.generate_mol(mp, mcfg.wavernn, mels, seed=3)))
+    wav = box["w"]
+    check(tuple(wav.shape) == (mol_folds, mol_samples) and bool(torch.isfinite(wav).all())
+          and float(wav.abs().max()) <= 1.0, f"{tag}: MOL generation {tuple(wav.shape)}")
+    short = rng.uniform(0, 1, (2, 1 + 2 * cfg.wavernn.pad, 80)).astype(np.float32)
+    nr_mix = mp["fc3"]["w"].shape[1] // 3
+    g = torch.as_tensor(-np.log(-np.log(rng.uniform(1e-6, 1.0, (hop, 2, nr_mix)))), dtype=torch.float32)
+    u = torch.as_tensor(rng.uniform(1e-5, 1 - 1e-5, (hop, 2)), dtype=torch.float32)
+    with torch.no_grad():
+        on_card = W.generate_mol(mp, mcfg.wavernn, short, gumbel=g.to(dev), u=u.to(dev)).cpu()
+        on_cpu = W.generate_mol(tree_map(lambda t: t.cpu(), mp), mcfg.wavernn, short, gumbel=g, u=u)
+    mol_err = float((on_card - on_cpu).abs().max())
+    check(mol_err <= 1e-3, f"{tag}: MOL generation card vs CPU max|d| {mol_err:.3e} > 1e-3")
+    npz = os.path.join(root, "mol_wavernn.npz")
+    save_params_npz(npz, mp)
+    mel_frames = 40
+    mel_path = os.path.join(root, "mol_mel.npy")
+    np.save(mel_path, rng.uniform(0, 1, (mel_frames, 80)).astype(np.float32))
+    out_wav = os.path.join(root, "mol.wav")
+    t0 = time.time()
+    w_ = mcfg.wavernn
+    override = (f"wavernn.mode=MOL,wavernn.rnn_dims={w_.rnn_dims},wavernn.fc_dims={w_.fc_dims},"
+                f"wavernn.compute_dims={w_.compute_dims},wavernn.res_out_dims={w_.res_out_dims},"
+                f"wavernn.res_blocks={w_.res_blocks}")
+    wavernn_gen.main(["--file", mel_path, "--params-npz", npz, "--output", out_wav, "--override", override,
+                      "--target", str(cfg.wavernn_gen.target), "--overlap", str(cfg.wavernn_gen.overlap),
+                      "--device", str(dev)])
+    with wave.open(out_wav) as wf:
+        n_out = wf.getnframes()
+        pcm = np.frombuffer(wf.readframes(n_out), "<i2")
+    check(n_out == mel_frames * hop and np.abs(pcm).max() > 0, f"{tag}: MOL wavernn_gen wrote {n_out} samples")
+    phase(tag, f"{smi}: MOL generation {mol_folds} folds x {mol_samples} samples {mol_ms:.1f} ms (CUDA events, "
+          f"{mol_ms / mol_samples * 1e3:.1f} us/step, plain loop); card vs CPU 2 folds x {hop} samples with the "
+          f"same injected draws max|d| {mol_err:.2e} (tol 1e-3); MOL wavernn_gen {mel_frames} frames -> "
+          f"{n_out} samples in {time.time() - t0:.1f} s host")
+    return {"k1_launches": k1, "sec_per_step": sec_step[-1], "split": split, "bound_ms": bms,
+            "card_cpu": cmps, "mol_ms": mol_ms, "mol_err": mol_err}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1471,7 +1845,8 @@ TRAIN_CORPUS = {"utts": 64, "symbols": (40, 150), "frames": (200, 600)}
 TRAIN_STEPS, TRAIN_CKPT_EVERY = 6, 3
 
 
-def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRAIN_CORPUS) -> dict:
+def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRAIN_CORPUS,
+            wavernn_train=None) -> dict:
     """Every phase on ``dev`` at the widths of ``cfg``; returns the kernels
     record.  Raises SmokeFailure on a failed check."""
     import torch
@@ -1616,6 +1991,11 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
     # ---------------- train ----------------
     tr = run_train_phase(cfg, dev, core_shape, corpus, TRAIN_STEPS, TRAIN_CKPT_EVERY)
 
+    # ---------------- wavernn train ----------------
+    t_ph = time.time()
+    wt = run_wavernn_train(cfg, dev, tp, smi, **(wavernn_train or {}))
+    phase("wavernn train", f"took {time.time() - t_ph:.1f} s")
+
     # ---------------- kernels at the serve path's shapes ----------------
     from tacotronv2_wavernn_chinese_tpu_torch.models import wavernn as W
 
@@ -1661,7 +2041,8 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
          "launches": launches["wavernn_sample"], "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": bms1, "bound_by": by1,
          "library_ms": None, "launches_by_path": {"serve": launches["wavernn_sample"],
-                                                  "cli_wavernn_gen": cli["wavernn_gen"]["wavernn_sample"]},
+                                                  "cli_wavernn_gen": cli["wavernn_gen"]["wavernn_sample"],
+                                                  "wavernn train": wt["k1_launches"]},
          "compared_steps": k1["compared"], "uncompared_steps": k1["uncompared"],
          "diverged_folds": k1["diverged"], "grid_blocks": k1_plan.blocks, "fold_tile": k1_plan.fold_tile},
         {"name": "tacotron_decode", "route": "cuda",

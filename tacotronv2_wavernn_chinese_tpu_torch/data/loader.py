@@ -1,7 +1,8 @@
-"""Length-bucketed batch loader for acoustic-model training (a copy of the
-JAX package's ``data/loader.py`` Tacotron part, which uses only numpy,
-without ``batch_shapes``, whose compile prewarm has no counterpart here;
-plus ``read_metadata`` from its ``data/preprocess.py``).
+"""Length-bucketed batch loader for acoustic-model training and the
+vocoder's random training windows (a copy of the JAX package's
+``data/loader.py``, which uses only numpy, without ``batch_shapes``, whose
+compile prewarm has no counterpart here; plus ``read_metadata`` from its
+``data/preprocess.py``).
 
 Replaces the reference's feeder-thread + tf.FIFOQueue(8)
 (tacotron/feeder.py:14-168) with a synchronous numpy iterator producing
@@ -206,6 +207,93 @@ class TacotronDataset:
         im, mm = self._multiples(input_multiple, mel_multiple)
         for s in range(0, len(idx), batch_size):
             yield self._make_batch(idx[s : s + batch_size], im, mm)
+
+
+@dataclass
+class VocoderBatch:
+    x: np.ndarray  # [B, seq_len] float32 previous samples in [-1, 1]
+    y: np.ndarray  # [B, seq_len] int32 target mu-law labels
+    mels: np.ndarray  # [B, seq_frames + 2*pad, M] float32 unit-range mels
+
+
+class VocoderDataset:
+    """WaveRNN training windows (reference wavernn/utils/dataset.py:18-133).
+
+    Metadata rows: ``wav.npy|gt_mel.npy|pred_mel.npy|text``.  Training reads
+    the Tacotron-predicted (GTA) mel — column 2 (dataset.py:70) — and a
+    random ``seq_len``-sample window per example per step.  Utterances
+    shorter than one window are filtered; a fixed-seed test set is held out
+    (dataset.py:81-85).
+    """
+
+    def __init__(self, metadata_rows: list[list[str]], data_dir: str, cfg: Config):
+        self.cfg = cfg
+        self.dir = data_dir
+        wc = cfg.wavernn_train
+        hop = cfg.audio.hop_size
+        self.seq_len = wc.seq_len_hops * hop
+        self.seq_frames = wc.seq_len_hops
+        self.pad = cfg.wavernn.pad
+        min_frames = self.seq_frames + 2 * self.pad + 2
+        self.rows = [r for r in metadata_rows if self._frames_of(r) >= min_frames]
+        rng = np.random.RandomState(wc.seed)
+        order = rng.permutation(len(self.rows))
+        n_test = min(wc.test_samples, max(0, len(self.rows) - 1))
+        self.test_indices = sorted(order[:n_test].tolist())
+        self.train_indices = sorted(order[n_test:].tolist())
+
+    def _frames_of(self, row) -> int:
+        mel = np.load(os.path.join(self.dir, row[2]), mmap_mode="r")
+        return mel.shape[0]
+
+    def example(self, row_idx: int):
+        """Returns (labels [T_samples] int, mel [T_frames, M] float)."""
+        row = self.rows[row_idx]
+        labels = np.load(os.path.join(self.dir, row[0]))
+        mel = np.load(os.path.join(self.dir, row[2]))
+        return labels, mel.astype(np.float32)
+
+    def collate(self, row_indices, rng: np.random.RandomState) -> VocoderBatch:
+        """Random-window crop per example (reference collate_vocoder,
+        dataset.py:107-133): pick a mel window of ``seq_frames + 2*pad``
+        starting at least ``pad`` frames in, take the matching
+        ``seq_len + 1`` samples, and split into (x, y)."""
+        hop = self.cfg.audio.hop_size
+        bits = self.cfg.audio.bits
+        xs, ys, ms = [], [], []
+        for i in row_indices:
+            labels, mel = self.example(i)
+            # window start bounded by BOTH the mel and the label stream, so a
+            # labels file shorter than the mel implies never forces padding
+            max_start = min(
+                mel.shape[0] - (self.seq_frames + 2 * self.pad),
+                (len(labels) - self.seq_len - 1) // hop,
+            )
+            start = rng.randint(self.pad, max(self.pad, max_start) + 1)
+            m = mel[start - self.pad: start + self.seq_frames + self.pad]
+            if m.shape[0] < self.seq_frames + 2 * self.pad:
+                m = np.pad(m, ((0, self.seq_frames + 2 * self.pad - m.shape[0]), (0, 0)))
+            # label window starts exactly at the center-frame boundary
+            sig_start = start * hop
+            sig = labels[sig_start: sig_start + self.seq_len + 1]
+            if len(sig) < self.seq_len + 1:
+                # last-resort pad with mu-law SILENCE (mid class), not class 0
+                # which expands to a -1.0 full-scale burst
+                sig = np.pad(sig, (0, self.seq_len + 1 - len(sig)), constant_values=2 ** (bits - 1))
+            xs.append(sig[:-1])
+            ys.append(sig[1:])
+            ms.append(m)
+        x = np.stack(xs).astype(np.float32)
+        x = 2.0 * x / (2 ** bits - 1.0) - 1.0  # label_2_float (dsp.py:8-9)
+        return VocoderBatch(x, np.stack(ys).astype(np.int32), np.stack(ms))
+
+    def batches(self, epoch_seed: int, batch_size: int | None = None, indices=None):
+        bs = batch_size or self.cfg.wavernn_train.batch_size
+        idx = list(indices if indices is not None else self.train_indices)
+        rng = np.random.RandomState(epoch_seed)
+        rng.shuffle(idx)
+        for s in range(0, len(idx) - bs + 1, bs):
+            yield self.collate(idx[s: s + bs], rng)
 
 
 def read_metadata(path: str) -> list[list[str]]:

@@ -2,7 +2,8 @@
 
 One padded acoustic decode per batch (the decode kernel on the card), host
 trim at each row's stop token, then either one WaveRNN sample-loop call
-over all utterances' folds or, without a vocoder, a batched Griffin-Lim
+over all utterances' folds (the RAW kernel, or the plain MOL loop for a
+MOL vocoder) or, without a vocoder, a batched Griffin-Lim
 reconstruction on the same device (the reference's default path,
 tacotron_synthesize.py:110-112).  Inputs are padded to 16-multiple lengths
 (and, for serving, power-of-2 batches), and Griffin-Lim mels to 64-frame
@@ -11,7 +12,6 @@ buckets, so a few shapes cover all traffic.
 
 from __future__ import annotations
 
-import functools
 import hashlib
 import os
 from typing import Any, Sequence
@@ -27,7 +27,6 @@ from ..frontend import default_symbols, get_pyin
 from ..models import tacotron as T
 from ..models import wavernn as W
 from ..ops import tacotron_decoder_kernel as DK
-from ..ops import wavernn_kernel as WK
 from ..utils import resolve_device, round_up
 from ..utils.checkpoints import restore_params, tacotron_from_numpy, wavernn_from_numpy
 from ..utils.plot import plot_alignment, plot_spectrogram
@@ -67,7 +66,7 @@ class Synthesizer:
         self.params = tacotron_from_numpy(params, cfg.tacotron, self.device)
         self.vocoder_params = None
         if vocoder_params is not None:
-            WK.check_supported(cfg.wavernn, cfg.audio.num_mels)
+            W.check_vocoder_supported(cfg.wavernn, cfg.audio.num_mels)
             self.vocoder_params = wavernn_from_numpy(
                 vocoder_params, cfg.wavernn, self.device, cfg.audio.num_mels, cfg.audio.bits
             )
@@ -75,8 +74,9 @@ class Synthesizer:
         self.pipe = S.MelPipeline(cfg.audio, self.device)
         # read at call time, so assigning synth.max_iters later takes effect
         self.max_iters = max_iters or cfg.tacotron.max_iters
-        # the vocoder takes each step's argmax instead of sampling; either
-        # way it runs through the sample-loop wrapper (the kernel on the card)
+        # a RAW vocoder takes each step's argmax instead of sampling; either
+        # way it runs through the sample-loop wrapper (the kernel on the card).
+        # A MOL vocoder always samples, through the plain MOL loop.
         self.greedy = False
 
     @classmethod
@@ -163,7 +163,7 @@ class Synthesizer:
             return W.generate_batch(
                 self.vocoder_params, self.cfg.wavernn, self.cfg.wavernn_gen, units, seed,
                 bits=self.cfg.audio.bits, apply_mu_law=self.cfg.audio.mu_law,
-                generate_fn=functools.partial(W.generate_kernel, greedy=self.greedy),
+                generate_fn=W.default_generate_fn(self.cfg.wavernn, self.greedy),
             )
 
     def mel_to_wav(self, mel: np.ndarray, seed: int = 0) -> np.ndarray:

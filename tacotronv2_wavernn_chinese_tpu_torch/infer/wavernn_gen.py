@@ -1,8 +1,10 @@
 """Vocode a mel .npy (or re-vocode a wav) with a trained WaveRNN.
 
 Replaces the reference wavernn_gen.py:13-135, with ``batched`` a real flag
-instead of force-overridden (:77).  The sample loop runs through its CUDA
-kernel on the card unless ``--device cpu`` is given.
+instead of force-overridden (:77).  A RAW vocoder's sample loop runs
+through its CUDA kernel on the card unless ``--device cpu`` is given; a MOL
+vocoder (``--override wavernn.mode=MOL``) samples through the plain MOL
+loop on the same device.
 
 Usage:
     python -m tacotronv2_wavernn_chinese_tpu_torch.infer.wavernn_gen \\
@@ -23,7 +25,6 @@ from ..config import default_config
 from ..dsp import spectrogram as S
 from ..dsp.wav import load_wav, save_wav
 from ..models import wavernn as W
-from ..ops import wavernn_kernel as WK
 from ..utils import logging as infolog
 from ..utils import resolve_device
 from ..utils.checkpoints import load_params_npz, restore_params, wavernn_from_numpy
@@ -41,7 +42,7 @@ def gen_from_mel(cfg, params, mel: np.ndarray, out_path: str, seed: int = 0, dev
             "vocoder contract; convert with dsp.spectrogram.mel_to_unit"
         )
     dev = resolve_device(device)
-    WK.check_supported(cfg.wavernn, cfg.audio.num_mels)
+    W.check_vocoder_supported(cfg.wavernn, cfg.audio.num_mels)
     params = wavernn_from_numpy(params, cfg.wavernn, dev, cfg.audio.num_mels, cfg.audio.bits)
     with torch.no_grad():
         wav = W.generate(params, cfg.wavernn, cfg.wavernn_gen, mel.astype(np.float32), seed,

@@ -9,7 +9,8 @@ Each function mirrors its counterpart in the JAX package's
 * dropout (always on in the prenet) takes its keep-masks from the caller,
   or draws them from an explicit ``torch.Generator``;
 * BatchNorm (TF eps 1e-3 on the Tacotron side) uses batch statistics in
-  train mode and returns the momentum-0.99 moving averages;
+  train mode and returns the momentum-0.99 moving averages (the vocoder
+  side passes torch's momentum and tracks the unbiased variance);
 * the GRU cell uses torch gate order (r, z, n).
 """
 
@@ -55,18 +56,26 @@ def batchnorm(p: Params, x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
     return (x - p["mean"]) * torch.rsqrt(p["var"] + eps) * p["scale"] + p["bias"]
 
 
-def batchnorm_train(p: Params, x: torch.Tensor, momentum: float = 0.99, eps: float = 1e-3):
+def batchnorm_train(p: Params, x: torch.Tensor, momentum: float = 0.99, eps: float = 1e-3,
+                    unbiased_ema: bool = False):
     """Train-mode BatchNorm -> (y, updated params).  Statistics are taken
     over every axis but the last, padded positions included; the moving
     averages track the biased variance (tf.layers.batch_normalization).
-    The updated statistics carry no gradient."""
+    ``unbiased_ema`` tracks the unbiased one instead, n / (n - 1) times the
+    biased variance the normalization uses (torch nn.BatchNorm1d, the
+    vocoder side).  The updated statistics carry no gradient."""
     axes = tuple(range(x.dim() - 1))
     mean = x.mean(dim=axes)
     var = x.var(dim=axes, unbiased=False)
+    track_var = var
+    if unbiased_ema:
+        n = x.numel() // x.shape[-1]
+        if n > 1:
+            track_var = var * (n / (n - 1))
     new_p = dict(
         p,
         mean=(momentum * p["mean"] + (1 - momentum) * mean).detach(),
-        var=(momentum * p["var"] + (1 - momentum) * var).detach(),
+        var=(momentum * p["var"] + (1 - momentum) * track_var).detach(),
     )
     return (x - mean) * torch.rsqrt(var + eps) * p["scale"] + p["bias"], new_p
 

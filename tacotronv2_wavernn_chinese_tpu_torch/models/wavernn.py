@@ -1,32 +1,83 @@
-"""WaveRNN vocoder (fatchord RAW variant), inference: mel -> waveform.
+"""WaveRNN vocoder (fatchord RAW and MOL variants): mel -> waveform, and
+the teacher-forced training forward.
 
 The conditioning network (MelResNet + upsample) runs as batched torch ops
-over a whole (folded) utterance; the serial sample loop is
+over a whole (folded) utterance.  The RAW serial sample loop is
 ``ops.wavernn_kernel``: the CUDA kernel on the card, its plain version on
-the CPU.  Generation splits an utterance's time axis into overlapping
-folds (reference fold_with_overlap, fatchord_version.py:293-340) that
-become the batch axis of the loop; folding, crossfade and fade-out run in
-numpy on the host.
+the CPU.  The MOL loop (``generate_mol``) is plain PyTorch on every device:
+the JAX package sends MOL to its ``lax.scan`` path, never to the Pallas
+kernel (its ``select_generate_fn`` and ``wavernn_kernel.supported``).
+Generation splits an utterance's time axis into overlapping folds
+(reference fold_with_overlap, fatchord_version.py:293-340) that become the
+batch axis of the loop; folding, crossfade and fade-out run in numpy on the
+host.
+
+Training (``forward``, ``wavernn_loss``): the two GRU recurrences run
+through torch's fused GRU (cuDNN on the card) with the params tree's
+weights, one call per layer over the whole window.  The JAX package runs
+them as ``lax.scan`` in XLA, not in Pallas; a Python loop over the 1,375
+samples of a window would issue tens of thousands of launches a step.
 """
 
 from __future__ import annotations
 
+import functools
+import warnings
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.func import functional_call
 
 from ..config import WaveRNNGenConfig, WaveRNNModelConfig
 from ..dsp.mulaw import label_2_float, mu_law_expand
+from ..ops import distribution as D
 from ..ops import wavernn_kernel as K
-from ..utils import round_up
+from ..utils import round_up, tree_leaves
 from . import layers as L
 
 Params = dict
 
 
+def check_vocoder_supported(cfg: WaveRNNModelConfig, num_mels: int = 80) -> None:
+    """Raise for a vocoder this package cannot run on every device: RAW
+    goes through the sample-loop kernel's envelope, MOL through the plain
+    loop (any geometry)."""
+    if cfg.mode == "RAW":
+        K.check_supported(cfg, num_mels)
+    elif cfg.mode != "MOL":
+        raise ValueError(f"unknown WaveRNN mode {cfg.mode!r}")
+
+
+def _check_fc3(params: Params, cfg: WaveRNNModelConfig, bits: int) -> None:
+    """fc3's width must be 2**bits mu-law classes (RAW) or 30 mixture
+    parameters, 10 x (logit, mean, log scale) (MOL; JAX ``init_wavernn``)."""
+    n_fc3 = params["fc3"]["w"].shape[1]
+    want = 2**bits if cfg.mode == "RAW" else 30
+    if n_fc3 != want:
+        what = f"bits={bits} implies {want} mu-law classes" if cfg.mode == "RAW" else f"MOL implies {want} outputs"
+        raise ValueError(f"{what} but fc3 has {n_fc3}")
+
+
 # ---------------------------------------------------------------------------
 # conditioning network: MelResNet + upsample
 # ---------------------------------------------------------------------------
+
+
+def _melresnet(params: Params, mels: torch.Tensor, bn):
+    """MelResNet (reference fatchord_version.py:13-48) with BatchNorm ``bn(p,
+    x) -> (y, new p)``: [B, T_mel, M] -> ([B, T_mel - 2*pad, res_out],
+    new resnet params)."""
+    p = params["resnet"]
+    x, bn_in = bn(p["bn_in"], L.conv1d_valid(p["conv_in"], mels))
+    x = torch.relu(x)
+    blocks = []
+    for bp in p["blocks"]:
+        y, bn1 = bn(bp["bn1"], L.conv1d_valid(bp["conv1"], x))
+        y, bn2 = bn(bp["bn2"], L.conv1d_valid(bp["conv2"], torch.relu(y)))
+        x = x + y
+        blocks.append(dict(bp, bn1=bn1, bn2=bn2))
+    return L.conv1d_valid(p["conv_out"], x), dict(p, bn_in=bn_in, blocks=blocks)
 
 
 def melresnet(params: Params, mels: torch.Tensor) -> torch.Tensor:
@@ -35,14 +86,16 @@ def melresnet(params: Params, mels: torch.Tensor) -> torch.Tensor:
     BatchNorm uses the torch eps 1e-5: the vocoder is a torch model in the
     reference (nn.BatchNorm1d, fatchord_version.py:18-36), unlike the TF
     acoustic side (1e-3)."""
-    p = params["resnet"]
-    bn = lambda pp, x: L.batchnorm(pp, x, eps=1e-5)
-    x = torch.relu(bn(p["bn_in"], L.conv1d_valid(p["conv_in"], mels)))
-    for bp in p["blocks"]:
-        y = torch.relu(bn(bp["bn1"], L.conv1d_valid(bp["conv1"], x)))
-        y = bn(bp["bn2"], L.conv1d_valid(bp["conv2"], y))
-        x = x + y
-    return L.conv1d_valid(p["conv_out"], x)
+    return _melresnet(params, mels, lambda pp, x: (L.batchnorm(pp, x, eps=1e-5), pp))[0]
+
+
+def melresnet_train(params: Params, mels: torch.Tensor):
+    """Train mode -> (features, resnet params with the new BN statistics):
+    torch's BatchNorm1d defaults, batch statistics, running averages with
+    momentum 0.1 (new = 0.9 old + 0.1 batch) of the mean and the unbiased
+    variance (JAX ``melresnet`` with ``unbiased_ema=True``)."""
+    bn = lambda pp, x: L.batchnorm_train(pp, x, momentum=0.9, eps=1e-5, unbiased_ema=True)
+    return _melresnet(params, mels, bn)
 
 
 def _stretch_smooth(x: torch.Tensor, taps: torch.Tensor, scale: int) -> torch.Tensor:
@@ -54,18 +107,94 @@ def _stretch_smooth(x: torch.Tensor, taps: torch.Tensor, scale: int) -> torch.Te
     return F.conv1d(x, k, padding=taps.shape[0] // 2, groups=C).transpose(1, 2)
 
 
-def upsample(params: Params, cfg: WaveRNNModelConfig, mels: torch.Tensor):
-    """[B, T_mel, M] -> (mels_up [B, (T_mel-2*pad)*hop, M],
-                         aux    [B, (T_mel-2*pad)*hop, res_out])
-    (reference UpsampleNetwork.forward, fatchord_version.py:82-89)."""
-    total = cfg.total_upsample
-    aux = torch.repeat_interleave(melresnet(params, mels), total, dim=1)
+def _upsample_mels(params: Params, cfg: WaveRNNModelConfig, mels: torch.Tensor) -> torch.Tensor:
+    """The mel path: stretch + smooth per scale, then trim ``pad*hop`` each side."""
     x = mels
     for taps, s in zip(params["upsample"]["kernels"], cfg.upsample_factors):
         x = _stretch_smooth(x, taps, s)
-    indent = cfg.pad * total
-    x = x[:, indent: x.shape[1] - indent, :]
-    return x, aux
+    indent = cfg.pad * cfg.total_upsample
+    return x[:, indent: x.shape[1] - indent, :]
+
+
+def upsample(params: Params, cfg: WaveRNNModelConfig, mels: torch.Tensor):
+    """[B, T_mel, M] -> (mels_up [B, (T_mel-2*pad)*hop, M],
+                         aux    [B, (T_mel-2*pad)*hop, res_out])
+    (reference UpsampleNetwork.forward, fatchord_version.py:82-89), eval mode."""
+    aux = torch.repeat_interleave(melresnet(params, mels), cfg.total_upsample, dim=1)
+    return _upsample_mels(params, cfg, mels), aux
+
+
+def upsample_train(params: Params, cfg: WaveRNNModelConfig, mels: torch.Tensor):
+    """``upsample`` in train mode -> (mels_up, aux, params with the new BN
+    statistics)."""
+    feats, resnet = melresnet_train(params, mels)
+    aux = torch.repeat_interleave(feats, cfg.total_upsample, dim=1)
+    return _upsample_mels(params, cfg, mels), aux, dict(params, resnet=resnet)
+
+
+# ---------------------------------------------------------------------------
+# teacher-forced forward and loss (training)
+# ---------------------------------------------------------------------------
+
+
+def gru_sequence(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """A GRU over [B, T, in] from a zero state -> [B, T, H], through torch's
+    fused GRU with the tree's weights (``weight_ih = wi.T``, ``weight_hh =
+    wh.T``): gates r, z, n with n = tanh(i_n + r * (h @ wh + bh)_n), as
+    the JAX ``_gru_cell``."""
+    H = p["wh"].shape[0]
+    shell = torch.nn.GRU(x.shape[-1], H, batch_first=True, device="meta")
+    weights = {"weight_ih_l0": p["wi"].t().contiguous(), "weight_hh_l0": p["wh"].t().contiguous(),
+               "bias_ih_l0": p["bi"], "bias_hh_l0": p["bh"]}
+    with warnings.catch_warnings():
+        # the weights are tensors of the tree, not one flattened buffer
+        warnings.filterwarnings("ignore", message="RNN module weights are not part")
+        out, _ = functional_call(shell, weights, (x,))
+    return out
+
+
+def forward(params: Params, cfg: WaveRNNModelConfig, x: torch.Tensor, mels: torch.Tensor, train: bool):
+    """Teacher-forced forward -> (logits [B, T, fc3 width], params with the
+    new BN statistics in train mode, else ``params``).
+
+    ``x`` [B, T] holds the previous samples as floats in [-1, 1], ``mels``
+    [B, T/hop + 2*pad, M] the unit-range mels (reference
+    fatchord_version.py:131-167)."""
+    aux_d = cfg.res_out_dims // 4
+    if train:
+        mels_up, aux, new_params = upsample_train(params, cfg, mels)
+    else:
+        (mels_up, aux), new_params = upsample(params, cfg, mels), params
+    a1, a2, a3, a4 = torch.split(aux, aux_d, dim=-1)
+    h = L.dense(params["I"], torch.cat([x[..., None], mels_up, a1], dim=-1))  # [B, T, rnn]
+    h = gru_sequence(params["gru1"], h) + h
+    h = gru_sequence(params["gru2"], torch.cat([h, a2], dim=-1)) + h
+    h = torch.relu(L.dense(params["fc1"], torch.cat([h, a3], dim=-1)))
+    h = torch.relu(L.dense(params["fc2"], torch.cat([h, a4], dim=-1)))
+    return L.dense(params["fc3"], h), new_params
+
+
+def wavernn_loss(logits: torch.Tensor, targets: torch.Tensor, mode: str = "RAW", bits: int = 10) -> torch.Tensor:
+    """RAW: cross-entropy over mu-law classes (reference wavernn_train.py:82).
+    MOL: discretized mixture-of-logistics NLL on float targets in [-1, 1];
+    integer labels are mapped by ``label_2_float`` (reference
+    wavernn_train.py:78-80)."""
+    if mode == "MOL":
+        y = targets.to(torch.float32)
+        if not torch.is_floating_point(targets):
+            y = label_2_float(targets, bits)
+        return D.discretized_mix_logistic_loss(logits, y)
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.mean(torch.gather(logp, -1, targets[..., None].long()))
+
+
+def num_params(params: Params) -> int:
+    return sum(int(t.numel()) for t in tree_leaves(params))
+
+
+# ---------------------------------------------------------------------------
+# autoregressive generation
+# ---------------------------------------------------------------------------
 
 
 def precompute_conditioning(params: Params, cfg: WaveRNNModelConfig, mels: torch.Tensor) -> torch.Tensor:
@@ -81,9 +210,7 @@ def _generate(params: Params, cfg: WaveRNNModelConfig, mels, bits: int, apply_mu
     """Conditioning for [B, T_mel, M] unit mels (padded by ``pad``), then
     ``sample(cond, packed_weights)`` -> labels [T, B] -> [B, T] float wav."""
     K.check_supported(cfg, mels.shape[-1])
-    n_fc3 = params["fc3"]["w"].shape[1]
-    if n_fc3 != 2**bits:
-        raise ValueError(f"bits={bits} implies {2 ** bits} mu-law classes but fc3 has {n_fc3}")
+    _check_fc3(params, cfg, bits)
     mels = torch.as_tensor(mels, dtype=torch.float32, device=params["fc3"]["w"].device)
     cond = precompute_conditioning(params, cfg, mels)
     labels = sample(cond, K.pack_weights(params, cfg)).t()  # [B, T]
@@ -120,6 +247,67 @@ def generate_kernel(
     default ``generate_fn`` of ``generate``/``generate_batch``."""
     return _generate(params, cfg, mels, bits, apply_mu_law,
                      lambda cond, w: K.sample_labels(cond, w, seed, greedy))
+
+
+def generate_mol(
+    params: Params,
+    cfg: WaveRNNModelConfig,
+    mels,
+    seed: int = 0,
+    bits: int = 10,
+    apply_mu_law: bool = True,
+    gumbel: torch.Tensor | None = None,
+    u: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The MOL sample loop (JAX ``generate_scan``'s MOL branch) in plain
+    PyTorch on the params' device -> [B, T] float wav in [-1, 1].
+
+    The conditioning and the mel + a1 part of the I projection are computed
+    for all steps at once; each step runs I, GRU1, GRU2, fc1-fc3 and draws
+    one sample from the mixture, which is fed back as a float.  The draws,
+    ``gumbel`` [T, B, mixtures] and ``u`` [T, B], are made before the loop
+    from a generator seeded ``seed`` on the params' device, unless both are
+    given.
+    ``bits`` only checks fc3's width and ``apply_mu_law`` is unused: MOL
+    samples floats (the ``generate_fn`` signature of ``generate_batch``)."""
+    _check_fc3(params, cfg, bits)
+    dev = params["fc3"]["w"].device
+    mels = torch.as_tensor(mels, dtype=torch.float32, device=dev)
+    mels_up, aux = upsample(params, cfg, mels)
+    a1, a2, a3, a4 = (a.transpose(0, 1) for a in torch.split(aux, cfg.res_out_dims // 4, dim=-1))
+    w_i = params["I"]["w"]  # [(1 + M + aux), rnn]; row 0 multiplies the sample
+    i_cond = (torch.cat([mels_up, a1.transpose(0, 1)], dim=-1) @ w_i[1:] + params["I"]["b"]).transpose(0, 1)
+    T, B, H = i_cond.shape
+    nr_mix = params["fc3"]["w"].shape[1] // 3
+    if gumbel is None or u is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        gumbel, u = D.draw_noise((T, B), nr_mix, gen, dev)
+    g1, g2 = params["gru1"], params["gru2"]
+    h1 = i_cond.new_zeros(B, H)
+    h2 = i_cond.new_zeros(B, H)
+    x = i_cond.new_zeros(B)
+    out = i_cond.new_empty(T, B)
+    for t in range(T):
+        xt = x[:, None] * w_i[0] + i_cond[t]
+        h1 = L.gru_step_from_gates(g1, xt @ g1["wi"] + g1["bi"], h1)
+        xt = xt + h1
+        h2 = L.gru_step_from_gates(g2, torch.cat([xt, a2[t]], dim=-1) @ g2["wi"] + g2["bi"], h2)
+        xt = xt + h2
+        y = torch.relu(L.dense(params["fc1"], torch.cat([xt, a3[t]], dim=-1)))
+        y = torch.relu(L.dense(params["fc2"], torch.cat([y, a4[t]], dim=-1)))
+        logits = L.dense(params["fc3"], y)
+        x = D.sample_from_discretized_mix_logistic(logits, gumbel=gumbel[t], u=u[t])
+        out[t] = x
+    return out.t()
+
+
+def default_generate_fn(cfg: WaveRNNModelConfig, greedy: bool = False):
+    """The sample loop of ``cfg.mode``: MOL -> ``generate_mol`` (greedy does
+    not apply: MOL always samples), RAW -> ``generate_kernel``."""
+    if cfg.mode == "MOL":
+        return generate_mol
+    return functools.partial(generate_kernel, greedy=greedy) if greedy else generate_kernel
 
 
 # ---------------------------------------------------------------------------
@@ -220,7 +408,9 @@ def generate_batch(
     """Vocode many utterances in one sample-loop call: all utterances'
     folds form one fold batch, then each utterance is crossfade-unfolded
     from its own slice.  ``gen_cfg.batched=False`` makes each utterance one
-    whole fold, padded to a shared 64-frame-bucketed length."""
+    whole fold, padded to a shared 64-frame-bucketed length.
+    ``generate_fn`` defaults to the loop of the config's mode
+    (``default_generate_fn``)."""
     hop = model_cfg.total_upsample
     if gen_cfg.batched and (gen_cfg.target % hop or gen_cfg.overlap % hop):
         raise ValueError("target and overlap must be multiples of the hop size")
@@ -244,7 +434,7 @@ def generate_batch(
             counts.append(1)
     stacked = bucket_folds(np.concatenate(all_folds, axis=0))
 
-    gen = generate_fn or generate_kernel
+    gen = generate_fn or default_generate_fn(model_cfg)
     mels_t = torch.as_tensor(stacked, device=params["fc3"]["w"].device)
     wav_folds = gen(params, model_cfg, mels_t, seed, bits, apply_mu_law).cpu().numpy()
 

@@ -60,7 +60,9 @@ def check_supported(cfg: WaveRNNModelConfig, num_mels: int = 80) -> None:
     aux 32, widths that are multiples of 4)."""
     if cfg.mode != "RAW":
         raise NotImplementedError(
-            f"WaveRNN mode {cfg.mode!r} is not ported yet (ROADMAP.md, queue item 8: MOL)"
+            f"the sample-loop kernel is RAW only; WaveRNN mode {cfg.mode!r} samples through "
+            "models.wavernn.generate_mol, as the JAX package sends MOL to its scan path "
+            "(ROADMAP.md, queue item 8: a MOL sample-loop kernel)"
         )
     if num_mels != NUM_MELS or cfg.res_out_dims // 4 != AUX:
         raise NotImplementedError(

@@ -34,6 +34,9 @@ from {PORT}.infer.wavernn_gen import gen_from_mel
 from {PORT}.infer.synthesizer import Synthesizer
 from {PORT}.serving.export import load_exported
 from {PORT}.train.tacotron_train import run_training
+from {PORT}.train import wavernn_train
+from {PORT}.models.wavernn import generate_mol
+from {PORT}.data.native_loader import NativeVocoderLoader, build_library
 from {PORT}.utils.checkpoints import init_tacotron, init_wavernn
 import numpy as np
 cfg = default_config()
@@ -41,6 +44,7 @@ errors = 0
 for call in (lambda: Synthesizer(cfg, init_tacotron(0, cfg.tacotron)),
              lambda: load_exported("does-not-matter"),
              lambda: run_training(cfg, "train.txt", "mels", "logs-never-written"),
+             lambda: wavernn_train.run_training(cfg, "gta.txt", "gta", "logs-never-written"),
              lambda: MelPipeline(cfg.audio),
              lambda: process_corpus(cfg, "t.txt", "wavs", "never-written"),
              lambda: generate_gta(cfg, init_tacotron(0, cfg.tacotron), "m.txt", "d", "never-written"),
@@ -50,6 +54,10 @@ for call in (lambda: Synthesizer(cfg, init_tacotron(0, cfg.tacotron)),
     except RuntimeError as e:
         errors += "CUDA" in str(e)
 print(errors)
+# the MOL loop runs where its params are (no device of its own to resolve)
+mol = default_config().override("wavernn.mode=MOL")
+print(tuple(generate_mol(init_wavernn(0, mol.wavernn), mol.wavernn, np.zeros((1, 5, 80), np.float32)).shape))
+print(callable(build_library) and hasattr(NativeVocoderLoader, "available"))
 """
 
 
@@ -78,10 +86,17 @@ def test_frontend_data_is_byte_identical(name):
 
 
 def test_entry_points_raise_without_gpu(probe):
-    """The synthesizer, the artifact loader, the trainer, the mel pipeline,
-    preprocessing, GTA and the WaveRNN generator each raise instead of
-    dropping to the CPU."""
-    assert probe[2] == "7"
+    """The synthesizer, the artifact loader, the Tacotron trainer, the
+    WaveRNN trainer, the mel pipeline, preprocessing, GTA and the WaveRNN
+    generator each raise instead of dropping to the CPU."""
+    assert probe[2] == "8"
+
+
+def test_new_entry_points_import_alone(probe):
+    """``generate_mol`` runs on CPU params without JAX (1 fold x 275
+    samples) and the native loader's binding imports without building."""
+    assert probe[3] == "(1, 275)"
+    assert probe[4] == "True"
 
 
 def test_chip_smoke_fails_without_card():
