@@ -90,6 +90,25 @@ Phases, each printing its lines before the next starts:
            (finite); MOL generation, 4 folds x 12100 samples timed, 2 folds x
            275 against the CPU with the same injected draws (1e-3), and a
            MOL WAV through the wavernn_gen CLI
+  train configs
+           Tacotron training in the configurations the trainer kernels do
+           not take, on the eager step loop: LSA, GMM (5 mixtures), Graves
+           (10 heads), forward attention with smoothing, scheduled sampling
+           at a fixed ratio of 0.5; and the default configuration under
+           mixed precision (K3/K4 on the bf16-rounded weights): two
+           train_steps from one state each at the train phase's batch (B=32,
+           T_in=160, T=608), losses finite, ms/step by CUDA events, K3/K4
+           launches (0 on the eager route, one each a step under mixed
+           precision); each step on the card against the CPU at B=4,
+           T_in=32, T=64 with the same masks, the CPU's ReLUs pinned to
+           the card's (loss 1e-5 relative, gradients 1e-3 of max|g|; mixed
+           precision 1e-3 and 1e-2); GTA of 8
+           utterances in one batch with an LSA model and with anti-repeat
+           (the eager eval route, K3 not launched) against the CPU with the
+           same prenet masks (1e-3);
+           the server started with --ckpt-dir and --wavernn-ckpt-dir on the
+           train phases' checkpoint directories answering one /generate_tts
+           (WAV of stop_len x 275 samples)
   kernels  each kernel against its plain version again at the shapes the
            serve and train paths gave it: times, bounds, errors; one JSON
            line, with each kernel's launches on every path that ran it
@@ -1123,7 +1142,8 @@ def run_train_phase(cfg, dev, core_shape, corpus: dict, steps: int, ckpt_every: 
     phase("train", f"step split (CUDA events, B={B_} T_in={T_in_} T={T_}): "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items()))
     return {"core": r1, "launches": launches, "sec_per_step": sec_step[-1], "split": split,
-            "main_shape": (B_, T_, T_in_), "params": state2.params}
+            "main_shape": (B_, T_, T_in_), "params": state2.params, "batch": batch,
+            "ckpt_dir": os.path.join(log_dir, "taco_pretrained")}
 
 
 # ---------------------------------------------------------------------------
@@ -1813,7 +1833,257 @@ def run_wavernn_train(cfg, dev, tp, smi: str, n_utts: int = 40, steps: int = 6, 
           f"same injected draws max|d| {mol_err:.2e} (tol 1e-3); MOL wavernn_gen {mel_frames} frames -> "
           f"{n_out} samples in {time.time() - t0:.1f} s host")
     return {"k1_launches": k1, "sec_per_step": sec_step[-1], "split": split, "bound_ms": bms,
-            "card_cpu": cmps, "mol_ms": mol_ms, "mol_err": mol_err}
+            "card_cpu": cmps, "mol_ms": mol_ms, "mol_err": mol_err, "meta": meta,
+            "pre_dir": os.path.join(root, "pre"), "ckpt_dir": os.path.join(log_dir, "checkpoints")}
+
+
+# ---------------------------------------------------------------------------
+# Tacotron training in the other configurations (the eager route and mixed
+# precision), GTA on the eager eval route, the server from checkpoint dirs
+# ---------------------------------------------------------------------------
+
+# name -> config override; every eager configuration runs neither K3 nor K4
+TRAIN_CONFIGS = {
+    "lsa": "tacotron.attention_mode=lsa",  # cumulative weights (the default)
+    "gmm": "tacotron.attention_mode=gmm",  # 5 mixtures
+    "graves": "tacotron.attention_mode=graves",  # 10 heads
+    "forward_smoothing": "tacotron.smoothing=true",
+    "scheduled_0.5": "tacotron_train.teacher_forcing_ratio=0.5",
+    "mixed_precision": "tacotron_train.mixed_precision=true",
+}
+KERNEL_CONFIGS = ("mixed_precision",)  # forward attention at ratio 1: K3/K4, one launch each a step
+# card vs CPU: f32 as the trainer's gates (PERF.md section 2); mixed
+# precision rounds the first encoder convolution's activations to bf16,
+# where cuDNN and the CPU accumulate in other orders, so an element may
+# land one bf16 ulp apart and carry that through its BatchNorm
+TRAIN_CFG_TOL = {"f32": (1e-5, 1e-3), "bf16": (1e-3, 1e-2)}  # (loss relative, gradient / max|g|)
+
+
+def tc_small_batch(cfg, dev, seed: int, B: int = 4, T_in: int = 32, T: int = 64) -> dict:
+    """A train batch from a numpy seed: ragged inputs and targets, mels in
+    [-4, 4], stop targets from the lengths."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    lens = np.linspace(T_in, T_in // 2, B).astype(np.int64)
+    tl = np.linspace(T, T // 2, B).astype(np.int64)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return {"inputs": t(rng.integers(1, cfg.tacotron.vocab_size, (B, T_in))), "input_lengths": t(lens),
+            "mel_targets": t(rng.uniform(-4, 4, (B, T, 80)).astype(np.float32)), "target_lengths": t(tl),
+            "stop_targets": t((np.arange(T)[None, :] >= tl[:, None] - 1).astype(np.float32)),
+            "loss_frames": t(np.full(B, T, np.int64))}
+
+
+def leaf_names(tree, path=()) -> list:
+    """'/'-joined key paths of a params tree, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items() for n in leaf_names(v, path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in leaf_names(v, path + (str(i),))]
+    return ["/".join(path)]
+
+
+def tc_loss_and_grads(cfg, params, batch, rand, ratio: float, dev, relus=None) -> dict:
+    """One loss and its gradients on ``dev`` with the masks ``rand``, its
+    ReLUs recorded (``relus`` None) or pinned to ``relus`` (``relu_pattern``:
+    a prenet unit fed the model's own prediction, or any other, within
+    ~1e-7 of zero may land on either side in f32 and move its layer's
+    gradients by one position's term)."""
+    import torch
+
+    from tacotronv2_wavernn_chinese_tpu_torch.train import tacotron_task as task
+    from tacotronv2_wavernn_chinese_tpu_torch.utils import tree_leaves, tree_map
+
+    move = lambda x: None if x is None else (tuple(move(m) for m in x) if isinstance(x, tuple) else x.to(dev))
+    leaves = tree_map(lambda p: p.detach().to(dev).requires_grad_(True), params)
+    b = {k: v.to(dev) for k, v in batch.items()}
+    with relu_pattern(relus) as pattern:
+        loss, _ = task.loss_fn(leaves, cfg, b, None, True, ratio, rand=type(rand)(*(move(f) for f in rand)))
+        grads = torch.autograd.grad(loss, tree_leaves(leaves), allow_unused=True)
+    return {"loss": float(loss.detach()), "grads": [None if g is None else g.detach().cpu() for g in grads],
+            "names": leaf_names(params), "relus": pattern.masks, "flips": pattern.flips, "units": pattern.units}
+
+
+def tc_grad_error(card: dict, host: dict, zero_by_construction) -> tuple:
+    """-> (the largest max|d| / max|g| over the leaves, that leaf's name).
+    A leaf whose gradient is 0 in exact arithmetic (a bias straight before
+    a train-mode BatchNorm, which subtracts it again) holds only rounding
+    noise on each device: it is held to the largest gradient of all
+    leaves instead of its own."""
+    g_all = max(float(b.abs().max()) for b in host["grads"] if b is not None)
+    worst, at = 0.0, ""
+    for a, b, name in zip(card["grads"], host["grads"], host["names"]):
+        if b is None or float(b.abs().max()) == 0.0:
+            continue
+        scale = g_all if name in zero_by_construction else float(b.abs().max())
+        e = float((a - b).abs().max()) / scale
+        if e > worst:
+            worst, at = e, name
+    return worst, at
+
+
+def run_train_configs(cfg, dev, smi: str, batch: dict, taco_params, taco_ckpt: str, wavernn_ckpt: str,
+                      corpus_meta: str, corpus_dir: str, steps: int = 2, gta_utts: int = 8,
+                      server_override: str = "") -> dict:
+    """Two train steps from one state in each of TRAIN_CONFIGS at the train
+    phase's batch (CUDA events, losses, K3/K4 launches: 0 on the eager
+    route, one each a step under mixed precision); each against the CPU at
+    B=4, T_in=32, T=64 with the same masks; GTA with an LSA model and with
+    anti-repeat on the card against the CPU (K3 not launched); the server
+    started from the train phases' checkpoint directories answering one
+    /generate_tts.  Returns what the kernels line needs."""
+    import torch
+
+    from tacotronv2_wavernn_chinese_tpu_torch import ops
+    from tacotronv2_wavernn_chinese_tpu_torch.frontend import default_symbols, get_pyin
+    from tacotronv2_wavernn_chinese_tpu_torch.infer.gta import generate_gta
+    from tacotronv2_wavernn_chinese_tpu_torch.models import tacotron as T
+    from tacotronv2_wavernn_chinese_tpu_torch.serving import server as SRV
+    from tacotronv2_wavernn_chinese_tpu_torch.train import tacotron_task as task
+    from tacotronv2_wavernn_chinese_tpu_torch.utils import tree_map
+
+    tag = "train configs"
+    cpu = torch.device("cpu")
+    B, T_in = batch["inputs"].shape
+    T_out = batch["mel_targets"].shape[1]
+    out = {"launches": {}, "ms": {}}
+    for i, (name, over) in enumerate(TRAIN_CONFIGS.items()):
+        ccfg = cfg.override(over)
+        ratio = task.teacher_forcing_schedule(ccfg, 0)
+        route = T.core_route(ccfg.tacotron, True, ratio)
+        check(route == ("kernel" if name in KERNEL_CONFIGS else "eager"), f"{tag}: {name} takes the {route} route")
+        state = task.init_state(40 + i, ccfg, dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        ops.reset_launch_counts()
+        losses, ms = [], []
+        s = state
+        for _ in range(steps):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            e0.record()
+            s, metrics = task.train_step(s, batch, gen, ccfg)
+            e1.record()
+            torch.cuda.synchronize()
+            losses.append(metrics["loss"])
+            ms.append(e0.elapsed_time(e1))
+        launches = {k: ops.LAUNCHES[k] for k in ("tacotron_train_fwd", "tacotron_train_bwd")}
+        check(all(np.isfinite(losses)), f"{tag}: {name} losses {losses}")
+        want = steps if name in KERNEL_CONFIGS else 0
+        check(launches["tacotron_train_fwd"] == want and launches["tacotron_train_bwd"] == want,
+              f"{tag}: {name} launched K3/K4 {launches} in {steps} steps, expected {want} each")
+        out["launches"][name], out["ms"][name] = launches, ms
+
+        # the same step on the card and on the CPU, with the same masks
+        small = tc_small_batch(ccfg, cpu, 60 + i)
+        p_cpu = tree_map(lambda t: t.detach().cpu(), state.params)
+        g_cpu = torch.Generator().manual_seed(7)
+        rand = T.draw_train_rand(p_cpu, ccfg.tacotron, 4, 32, 64, g_cpu, True, ratio)
+        card = tc_loss_and_grads(ccfg, p_cpu, small, rand, ratio, dev)
+        host = tc_loss_and_grads(ccfg, p_cpu, small, rand, ratio, cpu, relus=card["relus"])
+        loss_rel = abs(card["loss"] - host["loss"]) / abs(host["loss"])
+        # the last postnet convolution is linear, straight into BatchNorm
+        g_err, g_at = tc_grad_error(card, host, {f"postnet/layers/{ccfg.tacotron.postnet_layers - 1}/conv/b"})
+        kind = "bf16" if name == "mixed_precision" else "f32"
+        tol_loss, tol_grad = TRAIN_CFG_TOL[kind]
+        why = (" (bf16 gates: the first encoder convolution's bf16 activations round apart between cuDNN "
+               "and the CPU)" if kind == "bf16" else "")
+        phase(tag, f"{smi}: {name} ({route} route, ratio {ratio}): B={B} T_in={T_in} T={T_out} losses "
+              + ", ".join(f"{v:.4f}" for v in losses) + " ; ms/step (CUDA events) "
+              + ", ".join(f"{v:.1f}" for v in ms) + f"; K3/K4 launches {launches['tacotron_train_fwd']}/"
+              f"{launches['tacotron_train_bwd']}; card vs CPU at B=4 T_in=32 T=64: loss {card['loss']!r} / "
+              f"{host['loss']!r}, {loss_rel:.2e} relative (tol {tol_loss:g}), gradient max|d|/max|g| {g_err:.2e} "
+              f"at {g_at} (tol {tol_grad:g}), the CPU's ReLUs pinned to the card's ({host['flips']} of "
+              f"{host['units']} units on the other side){why}")
+        check(loss_rel <= tol_loss, f"{tag}: {name} card vs CPU loss {loss_rel:.3e} > {tol_loss}")
+        check(g_err <= tol_grad, f"{tag}: {name} card vs CPU gradient {g_err:.3e} > {tol_grad}")
+        out.setdefault("card_cpu", {})[name] = {"loss": loss_rel, "grad": g_err}
+        if name == "lsa":
+            lsa_cfg, lsa_params = ccfg, s.params
+
+    # GTA on the eager eval route: LSA, and forward attention with anti-repeat.
+    # generate_gta draws its prenet dropout from a generator on its device;
+    # here every draw comes from one CPU stream moved to the device, so the
+    # card and the CPU decode with the same masks
+    draw = T.draw_train_rand
+
+    def draw_on_cpu(params, tcfg, *a, **kw):
+        gen_dev = a[3]
+        rand = draw(params, tcfg, *a[:3], torch.Generator().manual_seed(0), *a[4:], **kw)
+        return type(rand)(*(None if f is None else tuple(m.to(gen_dev.device) for m in f)
+                            if isinstance(f, tuple) else f.to(gen_dev.device) for f in rand))
+
+    quiet = lambda m: None
+    with open(corpus_meta, encoding="utf-8") as f:
+        shards = max(1, len(f.read().splitlines()) // gta_utts)
+    for name, gcfg, gparams in (("lsa", lsa_cfg, lsa_params),
+                                ("anti_repeat", cfg.override("tacotron.anti_repeat=true"), taco_params)):
+        check(T.core_route(gcfg.tacotron, False, 1.0) == "eager", f"{tag}: GTA {name} takes the kernel route")
+        runs = {}
+        for dname, d in (("card", dev), ("cpu", cpu)):
+            out_dir = os.path.join(HERE, "build", f"chip_smoke_gta_{name}_{dname}")
+            shutil.rmtree(out_dir, ignore_errors=True)
+            ops.reset_launch_counts()
+            t0 = time.time()
+            T.draw_train_rand = draw_on_cpu
+            try:
+                path = generate_gta(gcfg, tree_map(lambda t: t.detach().cpu(), gparams), corpus_meta, corpus_dir,
+                                    out_dir, batch_size=gta_utts, num_shards=shards, log=quiet, device=d)
+            finally:
+                T.draw_train_rand = draw
+            with open(path, encoding="utf-8") as f:
+                runs[dname] = (out_dir, f.read().splitlines(), ops.LAUNCHES["tacotron_train_fwd"], time.time() - t0)
+        lines = runs["card"][1]
+        check(0 < len(lines) <= gta_utts and lines == runs["cpu"][1], f"{tag}: GTA {name} metadata rows differ")
+        worst = 0.0
+        for line in lines:
+            pred = line.split("|")[2]
+            a, b = (np.load(os.path.join(runs[k][0], pred)) for k in ("card", "cpu"))
+            check(np.isfinite(a).all(), f"{tag}: GTA {name} {pred} not finite")
+            worst = max(worst, float(np.abs(a - b).max()))
+        k3 = runs["card"][2]
+        phase(tag, f"GTA ({name}, eager eval route) {len(lines)} utterances in one batch: card {runs['card'][3]:.2f} s, "
+              f"CPU {runs['cpu'][3]:.2f} s (host clock); card vs CPU predicted mel max|d| {worst:.2e} (tol 1e-3, "
+              f"unit range); K3 launches {k3}")
+        check(worst <= 1e-3, f"{tag}: GTA {name}: card vs CPU max|d| {worst:.3e} > 1e-3")
+        check(k3 == 0, f"{tag}: GTA {name} launched K3 {k3} times")
+        out.setdefault("gta", {})[name] = {"err": worst, "k3": k3}
+
+    # the server from the train phases' checkpoint directories: main's own
+    # server is captured (its serve_forever returns at once and main closes
+    # it); a server on the synthesizer main built answers the request
+    seen = {}
+    real_serve = SRV.serve
+
+    def capture(*a, **kw):
+        httpd = real_serve(*a, **kw)
+        httpd.serve_forever = lambda: None
+        seen["synth"] = httpd.service.synth
+        return httpd
+
+    SRV.serve = capture
+    try:
+        SRV.main(["--ckpt-dir", taco_ckpt, "--wavernn-ckpt-dir", wavernn_ckpt, "--host", "127.0.0.1",
+                  "--port", "0", "--no-warmup", "--max-iters", str(SERVE_FRAMES), "--device", str(dev)]
+                 + (["--override", server_override] if server_override else []))
+    finally:
+        SRV.serve = real_serve
+    synth = seen["synth"]
+    check(synth.vocoder_params is not None, f"{tag}: --wavernn-ckpt-dir restored no vocoder")
+    httpd, th = start_server(synth)
+    try:
+        text, seed = SENTENCES[0], 3
+        want = synth.mel_from_ids([default_symbols().encode(get_pyin(text)[0])], seed=[seed])[2][0]
+        body, host_ms, _ = post(httpd.server_address[1], "/generate_tts", {"text": text, "seed": seed})
+        check(body.get("status") == 0, f"{tag}: --ckpt-dir server /generate_tts failed: {body.get('error')}")
+        check(want >= 1, f"{tag}: --ckpt-dir server decoded {want} frames")
+        check_wav(body["wav_b64"], f"{tag}: --ckpt-dir /generate_tts", want * 275)
+    finally:
+        stop_server(httpd, th)
+    phase(tag, f"server --ckpt-dir {os.path.relpath(taco_ckpt, HERE)} --wavernn-ckpt-dir "
+          f"{os.path.relpath(wavernn_ckpt, HERE)}: /generate_tts {host_ms:.1f} ms host, {want} frames, "
+          f"WAV of {want} x 275 samples")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1846,7 +2116,7 @@ TRAIN_STEPS, TRAIN_CKPT_EVERY = 6, 3
 
 
 def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRAIN_CORPUS,
-            wavernn_train=None) -> dict:
+            wavernn_train=None, train_configs=None) -> dict:
     """Every phase on ``dev`` at the widths of ``cfg``; returns the kernels
     record.  Raises SmokeFailure on a failed check."""
     import torch
@@ -1996,6 +2266,12 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
     wt = run_wavernn_train(cfg, dev, tp, smi, **(wavernn_train or {}))
     phase("wavernn train", f"took {time.time() - t_ph:.1f} s")
 
+    # ---------------- train configs ----------------
+    t_ph = time.time()
+    tc = run_train_configs(cfg, dev, smi, tr["batch"], tr["params"], tr["ckpt_dir"], wt["ckpt_dir"], wt["meta"],
+                           wt["pre_dir"], **(train_configs or {}))
+    phase("train configs", f"took {time.time() - t_ph:.1f} s")
+
     # ---------------- kernels at the serve path's shapes ----------------
     from tacotronv2_wavernn_chinese_tpu_torch.models import wavernn as W
 
@@ -2059,8 +2335,12 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
          "replaces": "tacotronv2_wavernn_chinese_tpu/ops/tacotron_trainer_kernel.py:689",
          "launches": tr["launches"]["tacotron_train_fwd"], "max_abs_err": k34["k3_err"],
          "ms": k34["k3_ms"], "plain_ms": k34["k3_plain_ms"], "bound_ms": bms3, "bound_by": by3,
-         "library_ms": None, "launches_by_path": {"train": tr["launches"]["tacotron_train_fwd"],
-                                                  "gta": pg["gta_launches"]},
+         "library_ms": None, "launches_by_path": {
+             "train": tr["launches"]["tacotron_train_fwd"], "gta": pg["gta_launches"],
+             "train_mixed_precision": tc["launches"]["mixed_precision"]["tacotron_train_fwd"],
+             "train_configs_eager": sum(v["tacotron_train_fwd"] for k, v in tc["launches"].items()
+                                        if k not in KERNEL_CONFIGS),
+             "gta_eager": sum(v["k3"] for v in tc["gta"].values())},
          "grid_blocks": k34["blocks"], "clusters": k34["clusters"]},
         {"name": "tacotron_train_bwd", "route": "cuda",
          "source": "tacotronv2_wavernn_chinese_tpu_torch/csrc/tacotron_train_bwd.cu",
@@ -2068,7 +2348,12 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
          "launches": tr["launches"]["tacotron_train_bwd"], "max_abs_err": k34["k4_err"],
          "max_rel_err": k34["k4_rel"],
          "ms": k34["k4_ms"], "plain_ms": k34["k4_plain_ms"], "bound_ms": bms4, "bound_by": by4,
-         "library_ms": None, "grid_blocks": k34["blocks"], "clusters": k34["clusters"]},
+         "library_ms": None, "launches_by_path": {
+             "train": tr["launches"]["tacotron_train_bwd"],
+             "train_mixed_precision": tc["launches"]["mixed_precision"]["tacotron_train_bwd"],
+             "train_configs_eager": sum(v["tacotron_train_bwd"] for k, v in tc["launches"].items()
+                                        if k not in KERNEL_CONFIGS)},
+         "grid_blocks": k34["blocks"], "clusters": k34["clusters"]},
         *branch_entries,
     ]}
     phase("kernels", f"shapes: K1 T={k1['T']} folds={k1['B']}; K2 B={mem_s.shape[0]} "

@@ -11,8 +11,11 @@ GTA work) and emit the triplet WaveRNN trains on:
 
 plus ``wavernn_training_data.txt`` rows ``wav|gt_mel|pred_mel|text``.
 
-Each batch is one ``tacotron_task.eval_step``: on the card the decoder core
-runs through the trainer's forward kernel in its eval (EMA zoneout) mode.
+Each batch is one ``tacotron_task.eval_step``.  With forward attention
+(without smoothing or anti-repeat) the decoder core runs through the
+trainer's forward kernel in its eval (EMA zoneout) mode on the card; every
+other configuration (LSA, GMM, Graves, smoothing, anti-repeat) takes the
+eager step loop on every device (``models.tacotron.core_route``).
 The utterance list is sharded by (shard_index, num_shards), so N processes
 each write 1/N of the corpus and ``merge_shards`` joins their metadata.
 

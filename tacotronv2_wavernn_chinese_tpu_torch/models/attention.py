@@ -1,18 +1,21 @@
-"""The four attention mechanisms of the decoder, for inference, on torch
-tensors, with one superset state.
+"""The four attention mechanisms of the decoder, on torch tensors, with
+one superset state.
 
 * ``forward`` — forward + location-sensitive hybrid (the default mode,
   reference tacotron/models/attention.py:66-231), with the inference-time
   anti-repeat / dwell-limit machinery of forward_attention.py:171-215.
 * ``lsa`` — vanilla location-sensitive attention with the optional
   synthesis window (location_sensitive_attention.py:95-226).
-* ``gmm`` — GMM (v0) attention (gmm_attention.py:9-67), inference only (no
-  attention dropout).
+* ``gmm`` — GMM (v0) attention (gmm_attention.py:9-67), with its 0.2
+  dropout on [query, previous context] in train mode.
 * ``graves`` — discretized Graves attention (graves_attention.py:10-110).
 
-Every mode can smooth its location-sensitive softmax into a normalised
-sigmoid (``cfg.smoothing``).  Masking uses additive -1e9 energies (softmax
-modes) or 1e-20 floors (graves), as the reference's sequence masks do.
+Every step takes ``train``: anti-repeat and the LSA synthesis window act
+only at eval/inference, GMM's dropout only in training (from a keep-mask
+the caller draws), Graves has no train/eval difference.  Every mode can
+smooth its location-sensitive softmax into a normalised sigmoid
+(``cfg.smoothing``).  Masking uses additive -1e9 energies (softmax modes)
+or 1e-20 floors (graves), as the reference's sequence masks do.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from . import layers as L
 
 NEG_INF = -1e9
 MODES = ("forward", "lsa", "gmm", "graves")
+GMM_DROPOUT = 0.2  # reference gmm_attention.py:28
 
 
 class AttentionState(NamedTuple):
@@ -155,11 +159,13 @@ def lsa_window_valid(prev_max: torch.Tensor, T: int, cfg: TacotronModelConfig) -
     return (pos >= prev - back) & (pos < prev + ahead)
 
 
-def forward_step(params, cfg, query, state: AttentionState, keys, values, mask, w_comb=None, b_comb=None):
+def forward_step(params, cfg, query, state: AttentionState, keys, values, mask, w_comb=None, b_comb=None,
+                 train: bool = False):
     """Forward attention (reference attention.py:119-231): the location
     energy over the cumulated alignments, the forward recursion with a
-    zero-filled shift and the 1e-10 inside the product, anti-repeat between
-    the recursion and the renormalisation, and mu from [context, query]."""
+    zero-filled shift and the 1e-10 inside the product, anti-repeat (not in
+    training) between the recursion and the renormalisation, and mu from
+    [context, query]."""
     energy = location_energy(params, query, state.cumulated, keys, w_comb, b_comb)
     align_sm = masked_softmax(energy, mask, cfg.smoothing)
     cumulated = state.cumulated + align_sm
@@ -167,7 +173,7 @@ def forward_step(params, cfg, query, state: AttentionState, keys, values, mask, 
     shift_alpha = torch.nn.functional.pad(alpha, (1, 0))[:, :-1]
     align = ((1.0 - mu) * alpha + mu * shift_alpha + 1e-10) * align_sm
     max_att, pos_rec = argmax_first(align), state.pos_rec
-    if cfg.anti_repeat:
+    if cfg.anti_repeat and not train:
         align, max_att, pos_rec = anti_repeat_constrain(align, max_att, state.max_attention, state.pos_rec, cfg)
     align = align / torch.sum(align, dim=-1, keepdim=True)
     context = torch.einsum("bt,btv->bv", align, values)
@@ -175,13 +181,14 @@ def forward_step(params, cfg, query, state: AttentionState, keys, values, mask, 
     return context, align, AttentionState(context, align, cumulated, align, new_mu, max_att, pos_rec)
 
 
-def lsa_step(params, cfg, query, state: AttentionState, keys, values, mask, w_comb=None, b_comb=None):
+def lsa_step(params, cfg, query, state: AttentionState, keys, values, mask, w_comb=None, b_comb=None,
+             train: bool = False):
     """Vanilla location-sensitive attention (reference
     location_sensitive_attention.py:169-226): the location energy over the
     previous (or cumulated) alignments, energies outside the synthesis
-    window at -1e9."""
+    window at -1e9 (not in training)."""
     energy = location_energy(params, query, state.alignments, keys, w_comb, b_comb)
-    if cfg.synthesis_constraint:
+    if cfg.synthesis_constraint and not train:
         valid = lsa_window_valid(state.max_attention, energy.shape[-1], cfg)
         energy = torch.where(valid, energy, torch.full_like(energy, NEG_INF))
     align = masked_softmax(energy, mask, cfg.smoothing)
@@ -191,10 +198,16 @@ def lsa_step(params, cfg, query, state: AttentionState, keys, values, mask, w_co
                                           cumulated=state.cumulated + align, max_attention=argmax_first(align))
 
 
-def gmm_step(params, cfg, query, state: AttentionState, values, mask):
-    """GMM (v0) attention (reference gmm_attention.py:25-67), inference:
-    (alpha, beta, kappa increment) = exp(dense([query, context]))."""
-    p = torch.exp(L.dense(params["gmm_layer"], torch.cat([query, state.context], dim=-1)))
+def gmm_step(params, cfg, query, state: AttentionState, values, mask, train: bool = False, drop_mask=None):
+    """GMM (v0) attention (reference gmm_attention.py:25-67):
+    (alpha, beta, kappa increment) = exp(dense([query, context])), the
+    dense's input under inverted dropout at ``GMM_DROPOUT`` from the
+    boolean keep-mask ``drop_mask`` [B, q + v] in training (JAX
+    ``gmm_dropout_mask``)."""
+    inputs = torch.cat([query, state.context], dim=-1)
+    if train and drop_mask is not None:
+        inputs = L.dropout(inputs, GMM_DROPOUT, mask=drop_mask)
+    p = torch.exp(L.dense(params["gmm_layer"], inputs))
     K = cfg.num_attn_mixtures
     alpha_m, beta, kappa_d = p[:, :K], p[:, K:2 * K], p[:, 2 * K:]
     kappa = state.extra + kappa_d
@@ -231,17 +244,19 @@ def graves_step(params, cfg, query, state: AttentionState, values, mask):
 
 
 def step(params, cfg: TacotronModelConfig, query, state: AttentionState, keys, values, mask,
-         w_comb=None, b_comb=None):
+         w_comb=None, b_comb=None, train: bool = False, drop_mask=None):
     """One attention step of ``cfg.attention_mode`` -> (context [B, V],
     alignment [B, T], new state).  ``w_comb``/``b_comb``: the combined
-    location filter, when the caller hoisted it out of its loop."""
+    location filter, when the caller hoisted it out of its loop;
+    ``train`` selects training (JAX ``step``), ``drop_mask`` is GMM's
+    dropout keep-mask then."""
     mode = cfg.attention_mode
     if mode == "forward":
-        return forward_step(params, cfg, query, state, keys, values, mask, w_comb, b_comb)
+        return forward_step(params, cfg, query, state, keys, values, mask, w_comb, b_comb, train)
     if mode == "lsa":
-        return lsa_step(params, cfg, query, state, keys, values, mask, w_comb, b_comb)
+        return lsa_step(params, cfg, query, state, keys, values, mask, w_comb, b_comb, train)
     if mode == "gmm":
-        return gmm_step(params, cfg, query, state, values, mask)
+        return gmm_step(params, cfg, query, state, values, mask, train, drop_mask)
     if mode == "graves":
         return graves_step(params, cfg, query, state, values, mask)
     raise ValueError(f"unknown attention mode {mode!r}")

@@ -9,12 +9,20 @@ Inference: the autoregressive decode runs as one CUDA kernel on the card
 (``ops.tacotron_decoder_kernel``); ``decoder_step`` below is the step the
 plain version loops over.
 
-Training (``forward_teacher_forced``, ``tacotron_loss``): full teacher
-forcing, with the prenet batched over every step before the decoder core
-and the frame/stop projections batched after it; the core runs K3/K4 on the
-card (``ops.tacotron_trainer_kernel``).  All randomness of one forward
-(encoder and postnet dropout, zoneout, prenet dropout) is drawn up front
-into a ``TrainRand`` from an explicit ``torch.Generator``, or handed in.
+Training and GTA (``forward_teacher_forced``, ``tacotron_loss``): the
+teacher-forced decode takes one of two routes (``core_route``).  Forward
+attention without smoothing under full teacher forcing (and without
+anti-repeat at eval) batches the prenet over every step before the
+decoder core and the frame/stop projections after it, and the core runs
+K3/K4 on the card (``ops.tacotron_trainer_kernel``).  Every other
+configuration (LSA, GMM, Graves, smoothing, anti-repeat at eval,
+scheduled sampling) runs an eager loop over ``decoder_step`` on every
+device, the counterpart of the JAX package's ``lax.scan``: the JAX package
+trains these through XLA too, not through its Pallas kernel.  All
+randomness of one forward (encoder and postnet dropout, zoneout, prenet
+dropout, GMM attention dropout, the scheduled-sampling draws) is drawn up
+front into a ``TrainRand`` from an explicit ``torch.Generator``, or handed
+in.
 """
 
 from __future__ import annotations
@@ -58,27 +66,46 @@ class TrainRand(NamedTuple):
     z1: tuple | None  # decoder LSTM1 (cell, hidden) zoneout, [T_dec, B, u]
     z2: tuple | None  # decoder LSTM2
     post_drop: tuple | None  # per postnet layer, [B, T_out, C]
+    att: torch.Tensor | None = None  # GMM attention dropout (train), [T_dec, B, u + 2*units]
+    use_gt: torch.Tensor | None = None  # scheduled sampling: feed the ground truth, [T_dec, B, 1]
+
+
+def full_teacher_forcing(teacher_forcing_ratio) -> bool:
+    """A static ratio >= 1: every step's input is the ground-truth frame
+    (the JAX package's ``always_gt``)."""
+    return isinstance(teacher_forcing_ratio, (int, float)) and teacher_forcing_ratio >= 1.0
 
 
 def draw_train_rand(params: Params, cfg: TacotronModelConfig, batch: int, t_in: int, t_out: int,
-                    generator: torch.Generator, train: bool = True) -> TrainRand:
+                    generator: torch.Generator, train: bool = True,
+                    teacher_forcing_ratio: float = 1.0) -> TrainRand:
     """All masks of one forward, drawn from ``generator`` on its device.
-    The prenet dropout is always on; the others only in train mode."""
+    The prenet dropout is always on; the scheduled-sampling draws (a row
+    takes the ground truth at a step with probability ``teacher_forcing_ratio``)
+    whenever the ratio is below 1; the others only in train mode."""
     B, t_dec = batch, t_out // cfg.outputs_per_step
     rate, zr = cfg.dropout_rate, cfg.zoneout_rate
     pre = L.prenet_masks(params["prenet"], rate, (t_dec, B), generator)
-    if not train:
-        return TrainRand(None, None, None, pre, None, None, None)
     keep = lambda shape, r: L.keep_mask(shape, r, generator)
-    pair = lambda shape: (keep(shape, zr), keep(shape, zr)) if zr > 0.0 else None
-    drops = lambda n, T, C: tuple(keep((B, T, C), rate) for _ in range(n)) if rate > 0.0 else None
-    return TrainRand(
-        drops(cfg.enc_conv_layers, t_in, cfg.enc_conv_channels),
-        pair((t_in, B, cfg.encoder_lstm_units)), pair((t_in, B, cfg.encoder_lstm_units)),
-        pre,
-        pair((t_dec, B, cfg.decoder_lstm_units)), pair((t_dec, B, cfg.decoder_lstm_units)),
-        drops(cfg.postnet_layers, t_out, cfg.postnet_channels),
-    )
+    rand = TrainRand(None, None, None, pre, None, None, None)
+    if train:
+        pair = lambda shape: (keep(shape, zr), keep(shape, zr)) if zr > 0.0 else None
+        drops = lambda n, T, C: tuple(keep((B, T, C), rate) for _ in range(n)) if rate > 0.0 else None
+        att = None
+        if cfg.attention_mode == "gmm":
+            att = keep((t_dec, B, cfg.decoder_lstm_units + 2 * cfg.encoder_lstm_units), ATT.GMM_DROPOUT)
+        rand = TrainRand(
+            drops(cfg.enc_conv_layers, t_in, cfg.enc_conv_channels),
+            pair((t_in, B, cfg.encoder_lstm_units)), pair((t_in, B, cfg.encoder_lstm_units)),
+            pre,
+            pair((t_dec, B, cfg.decoder_lstm_units)), pair((t_dec, B, cfg.decoder_lstm_units)),
+            drops(cfg.postnet_layers, t_out, cfg.postnet_channels),
+            att,
+        )
+    if not full_teacher_forcing(teacher_forcing_ratio):
+        u = torch.rand((t_dec, B, 1), generator=generator, device=generator.device)
+        rand = rand._replace(use_gt=u < teacher_forcing_ratio)
+    return rand
 
 
 def encode(params: Params, cfg: TacotronModelConfig, inputs: torch.Tensor, input_lengths: torch.Tensor):
@@ -123,10 +150,20 @@ def init_decoder_carry(cfg: TacotronModelConfig, batch: int, mem_len: int, value
     return DecoderCarry(z(), z(), z(), z(), ATT.init_state(cfg, batch, mem_len, value_dim, device))
 
 
+def projections(params: Params, proj_in: torch.Tensor):
+    """The frame and stop projections as one dense over [out2, context]
+    -> (frames [..., 80r], stops [..., r])."""
+    w = torch.cat([params["frame_projection"]["w"], params["stop_projection"]["w"]], dim=1)
+    b = torch.cat([params["frame_projection"]["b"], params["stop_projection"]["b"]])
+    out = proj_in @ w + b
+    n_frame = params["frame_projection"]["w"].shape[1]
+    return out[..., :n_frame], out[..., n_frame:]
+
+
 def decoder_step(
     params: Params,
     cfg: TacotronModelConfig,
-    prev_frame: torch.Tensor,  # [B, M]
+    prev_frame: torch.Tensor | None,  # [B, M]; unused when ``pre`` is given
     carry: DecoderCarry,
     keys: torch.Tensor,
     values: torch.Tensor,
@@ -134,24 +171,40 @@ def decoder_step(
     prenet_masks=None,
     w_comb=None,
     b_comb=None,
+    *,
+    train: bool = False,
+    zoneout_masks=None,
+    att_mask=None,
+    pre: torch.Tensor | None = None,
+    project: bool = True,
 ):
-    """One inference decoder step (reference Architecture_wrappers.py:175-218):
-    prenet -> concat(context) -> 2x zoneout LSTM -> attention of
-    ``cfg.attention_mode`` -> projections.  Returns (frames [B, 80r],
-    stops [B, r], align [B, T_in], new carry)."""
-    pre = L.prenet(params["prenet"], prev_frame, cfg.dropout_rate, masks=prenet_masks)
+    """One decoder step (reference Architecture_wrappers.py:175-218, JAX
+    ``decoder_step``): prenet -> concat(context) -> 2x zoneout LSTM ->
+    attention of ``cfg.attention_mode`` -> projections.  Returns (frames
+    [B, 80r], stops [B, r], align [B, T_in], new carry).
+
+    ``train`` selects the attention's training behaviour; ``zoneout_masks``
+    ((cell, hidden) of LSTM1, (cell, hidden) of LSTM2) select train-mode
+    zoneout, None the eval-mode EMA; ``att_mask`` is GMM's dropout
+    keep-mask.  ``pre`` is the step's prenet output computed outside the
+    loop (full teacher forcing), and ``project=False`` returns (out2,
+    context, align, carry) for projections batched after the loop."""
+    if pre is None:
+        pre = L.prenet(params["prenet"], prev_frame, cfg.dropout_rate, masks=prenet_masks)
+    z1, z2 = (None, None) if zoneout_masks is None else zoneout_masks
     x = torch.cat([pre, carry.att.context], dim=-1)
-    c1, h1, out1 = L.zoneout_lstm_step(params["dec_lstm1"], x, carry.c1, carry.h1, cfg.zoneout_rate)
-    c2, h2, out2 = L.zoneout_lstm_step(params["dec_lstm2"], out1, carry.c2, carry.h2, cfg.zoneout_rate)
+    c1, h1, out1 = L.zoneout_lstm_step(params["dec_lstm1"], x, carry.c1, carry.h1, cfg.zoneout_rate, masks=z1)
+    c2, h2, out2 = L.zoneout_lstm_step(params["dec_lstm2"], out1, carry.c2, carry.h2, cfg.zoneout_rate,
+                                       masks=z2)
     context, align, att_state = ATT.step(
-        params["attention"], cfg, out2, carry.att, keys, values, mem_mask, w_comb, b_comb
+        params["attention"], cfg, out2, carry.att, keys, values, mem_mask, w_comb, b_comb,
+        train=train, drop_mask=att_mask,
     )
-    proj_in = torch.cat([out2, context], dim=-1)
-    w = torch.cat([params["frame_projection"]["w"], params["stop_projection"]["w"]], dim=1)
-    b = torch.cat([params["frame_projection"]["b"], params["stop_projection"]["b"]])
-    out = proj_in @ w + b
-    n_frame = params["frame_projection"]["w"].shape[1]
-    return out[:, :n_frame], out[:, n_frame:], align, DecoderCarry(c1, h1, c2, h2, att_state)
+    new_carry = DecoderCarry(c1, h1, c2, h2, att_state)
+    if not project:
+        return out2, context, align, new_carry
+    frames, stops = projections(params, torch.cat([out2, context], dim=-1))
+    return frames, stops, align, new_carry
 
 
 def decode_autoregressive(
@@ -218,22 +271,31 @@ def forward_inference(
 # ---------------------------------------------------------------------------
 
 
+def core_route(cfg: TacotronModelConfig, train: bool, teacher_forcing_ratio) -> str:
+    """Which route a teacher-forced decode takes: "kernel" for forward
+    attention without smoothing under full teacher forcing, in training or
+    at eval without anti-repeat (the configurations K3/K4 compute, as the
+    JAX package's trainer kernel does); "eager" for every other
+    configuration, on every device (the JAX package's XLA scan).  K3 has no
+    anti-repeat branch, so an eval decode with anti-repeat (GTA, the eval
+    renders) takes the eager route; training ignores anti-repeat."""
+    if (full_teacher_forcing(teacher_forcing_ratio) and cfg.attention_mode == "forward"
+            and not cfg.smoothing and (train or not cfg.anti_repeat)):
+        return "kernel"
+    return "eager"
+
+
 def _decoder_core(params, cfg, pre_all, masks, keys, memory, mem_mask, fused_decoder: str):
-    """Route the teacher-forced core: on the card only K3/K4 run it (any
-    batch size the shape envelope takes); on the CPU "off" is the eager
-    loop, anything else the same autograd Function with the kernels' plain
+    """The kernel route's core: on the card only K3/K4 run it (any batch
+    size the shape envelope takes); on the CPU "off" is the eager loop,
+    anything else the same autograd Function with the kernels' plain
     versions."""
     B, T_in = memory.shape[0], memory.shape[1]
-    if cfg.attention_mode != "forward" or cfg.smoothing:
-        raise NotImplementedError(
-            f"attention_mode={cfg.attention_mode!r}, smoothing={cfg.smoothing}: training runs forward "
-            "attention without smoothing (ROADMAP.md, queue item 6)"
-        )
     if memory.device.type == "cuda":
         if fused_decoder == "off":
             raise NotImplementedError(
-                "fused_decoder='off' is the eager loop, the kernels' plain version: on the card "
-                "the teacher-forced core runs only through K3/K4 (ROADMAP.md, queue item 6)"
+                "fused_decoder='off' is the kernels' plain version: on the card forward attention "
+                "under full teacher forcing runs only through K3/K4 (ROADMAP.md, queue item 5)"
             )
         if not TK.train_supported(cfg):
             raise NotImplementedError(
@@ -251,6 +313,48 @@ def _decoder_core(params, cfg, pre_all, masks, keys, memory, mem_mask, fused_dec
     return TK.fused_core_apply(params, cfg, pre_all, masks, keys, memory, mem_mask)
 
 
+def _eager_decode(params, cfg, keys, memory, mem_mask, dec_inputs_t, train: bool, rand: TrainRand, use_gt):
+    """The eager route: a loop over ``decoder_step`` (JAX
+    ``decode_teacher_forced``'s scan bodies) -> (frames [T, B, 80r], stops
+    [T, B, r], aligns [T, B, T_in]).  Under full teacher forcing
+    (``use_gt`` None) the prenet runs batched before the loop and the
+    projections after it; under scheduled sampling each step feeds a row
+    its ground-truth frame where ``use_gt`` is set, else the last frame
+    the model predicted at the step before (not detached: gradients flow
+    through the model's own predictions, as in the JAX package), and the
+    prenet and the projections run inside the step."""
+    T, B, M = dec_inputs_t.shape
+    carry = init_decoder_carry(cfg, B, memory.shape[1], memory.shape[2], memory.device)
+    att = params["attention"]
+    w_comb = b_comb = None
+    if "location_conv" in att:  # hoisted out of the loop
+        w_comb, b_comb = ATT.combined_location_weights(att)
+    zone = None
+    if train and cfg.zoneout_rate > 0.0:
+        zone = lambda t: ((rand.z1[0][t], rand.z1[1][t]), (rand.z2[0][t], rand.z2[1][t]))
+    step = lambda t, carry, frame=None, prenet_masks=None, **kw: decoder_step(
+        params, cfg, frame, carry, keys, memory, mem_mask, prenet_masks, w_comb, b_comb, train=train,
+        zoneout_masks=None if zone is None else zone(t),
+        att_mask=None if rand.att is None or not train else rand.att[t], **kw)
+    outs = []
+    if use_gt is None:
+        pre_all = L.prenet(params["prenet"], dec_inputs_t, cfg.dropout_rate, masks=rand.pre)
+        for t in range(T):
+            out2, ctx, align, carry = step(t, carry, pre=pre_all[t], project=False)
+            outs.append((out2, ctx, align))
+        out2, ctx, aligns = (torch.stack(v) for v in zip(*outs))
+        frames, stops = projections(params, torch.cat([out2, ctx], dim=-1))
+        return frames, stops, aligns
+    prev = dec_inputs_t.new_zeros(B, M)
+    for t in range(T):
+        frame_in = torch.where(use_gt[t], dec_inputs_t[t], prev)
+        masks = None if rand.pre is None else tuple(m[t] for m in rand.pre)
+        frames, stops, align, carry = step(t, carry, frame_in, masks)
+        outs.append((frames, stops, align))
+        prev = frames[:, -M:]
+    return tuple(torch.stack(v) for v in zip(*outs))
+
+
 def decode_teacher_forced(
     params: Params,
     cfg: TacotronModelConfig,
@@ -262,34 +366,38 @@ def decode_teacher_forced(
     teacher_forcing_ratio: float = 1.0,
     fused_decoder: str = "auto",
 ):
-    """Teacher-forced decode under full teacher forcing (reference
-    helpers.py:136-142): every step's input is the ground-truth frame, so
-    the prenet runs over all steps at once before the core and the
-    frame/stop projections over all steps after it.  Returns (frames
+    """Teacher-forced decode (reference helpers.py:136-142): each step's
+    input is the ground-truth frame, or under scheduled sampling (ratio
+    < 1, ``rand.use_gt``) the model's own previous frame where the draw
+    says so.  The route is ``core_route``'s: the kernel route batches the
+    prenet before the core (K3/K4 on the card) and the projections after
+    it; the eager route loops over ``decoder_step``.  Returns (frames
     [B, T_out, M], stops [B, T_out], alignments [B, T_dec, T_in])."""
-    if not (isinstance(teacher_forcing_ratio, (int, float)) and teacher_forcing_ratio >= 1.0):
-        raise NotImplementedError(
-            f"teacher_forcing_ratio={teacher_forcing_ratio}: scheduled sampling is not ported yet "
-            "(ROADMAP.md, queue item 6)"
-        )
     B, T_out, M = mel_targets.shape
     r = cfg.outputs_per_step
     keys = ATT.precompute_keys(params["attention"], cfg, memory)
     # <GO> zero frame, then the target frames strided by r, shifted one step
     strided = mel_targets[:, r - 1::r, :]
     dec_inputs = torch.cat([mel_targets.new_zeros(B, 1, M), strided[:, :-1, :]], dim=1)
-    pre_all = L.prenet(params["prenet"], dec_inputs.transpose(0, 1), cfg.dropout_rate, masks=rand.pre)
-    masks = None
-    if train and cfg.zoneout_rate > 0.0:
-        masks = (rand.z1[0], rand.z1[1], rand.z2[0], rand.z2[1])
-    out2, ctx, aligns = _decoder_core(params, cfg, pre_all, masks, keys, memory, mem_mask, fused_decoder)
-    proj_in = torch.cat([out2, ctx], dim=-1)  # [T, B, u+V]
-    w = torch.cat([params["frame_projection"]["w"], params["stop_projection"]["w"]], dim=1)
-    b = torch.cat([params["frame_projection"]["b"], params["stop_projection"]["b"]])
-    out = proj_in @ w + b
-    n_frame = params["frame_projection"]["w"].shape[1]
-    frames = out[..., :n_frame].transpose(0, 1).reshape(B, T_out, M)
-    stops = out[..., n_frame:].transpose(0, 1).reshape(B, T_out)
+    dec_inputs_t = dec_inputs.transpose(0, 1)
+    if core_route(cfg, train, teacher_forcing_ratio) == "kernel":
+        pre_all = L.prenet(params["prenet"], dec_inputs_t, cfg.dropout_rate, masks=rand.pre)
+        masks = None
+        if train and cfg.zoneout_rate > 0.0:
+            masks = (rand.z1[0], rand.z1[1], rand.z2[0], rand.z2[1])
+        out2, ctx, aligns = _decoder_core(params, cfg, pre_all, masks, keys, memory, mem_mask, fused_decoder)
+        frames, stops = projections(params, torch.cat([out2, ctx], dim=-1))  # [T, B, ...]
+    else:
+        use_gt = None  # full teacher forcing ignores any scheduled-sampling draws
+        if not full_teacher_forcing(teacher_forcing_ratio):
+            use_gt = rand.use_gt
+            if use_gt is None:
+                raise ValueError(f"teacher_forcing_ratio={teacher_forcing_ratio} needs rand.use_gt "
+                                 "(draw_train_rand draws it)")
+        frames, stops, aligns = _eager_decode(params, cfg, keys, memory, mem_mask, dec_inputs_t, train, rand,
+                                              use_gt)
+    frames = frames.transpose(0, 1).reshape(B, T_out, M)
+    stops = stops.transpose(0, 1).reshape(B, T_out)
     return frames, stops, aligns.transpose(0, 1)
 
 
@@ -305,16 +413,17 @@ def forward_teacher_forced(
     teacher_forcing_ratio: float = 1.0,
     fused_decoder: str = "auto",
 ):
-    """Full teacher-forced forward -> (TacotronOutput, params with the
-    updated BN statistics; eval mode returns them unchanged).  The masks come
-    from ``rand``, else are drawn from ``generator`` (required then)."""
+    """Teacher-forced forward -> (TacotronOutput, params with the updated
+    BN statistics; eval mode returns them unchanged).  The masks (and the
+    scheduled-sampling draws when ``teacher_forcing_ratio`` < 1) come from
+    ``rand``, else are drawn from ``generator`` (required then)."""
     if cfg.predict_linear:
         raise NotImplementedError("the CBHG mel->linear head is not ported yet (ROADMAP.md, queue item 12)")
     if rand is None:
         if generator is None:
             raise ValueError("forward_teacher_forced needs rand or a torch.Generator")
         rand = draw_train_rand(params, cfg, inputs.shape[0], inputs.shape[1], mel_targets.shape[1],
-                               generator, train)
+                               generator, train, teacher_forcing_ratio)
     if train:
         memory, new_convs = encode_train(params, cfg, inputs, input_lengths, rand)
     else:

@@ -14,11 +14,15 @@ Endpoints:
 
 Usage:
     python -m tacotronv2_wavernn_chinese_tpu_torch.serving.server \
-        --export-dir export/1 [--port 8500] [--max-iters 1000] \
-        [--override a.b=c,...] [--device cpu]
+        (--export-dir export/1 | --ckpt-dir logs-tacotron/taco_pretrained \
+         [--wavernn-ckpt-dir logs-wavernn/checkpoints]) [--port 8500] \
+        [--max-iters 1000] [--override a.b=c,...] [--device cpu]
 
-An artifact without WaveRNN weights serves through Griffin-Lim on the same
-device (``/healthz`` says ``"vocoder": "griffin_lim"``).
+``--ckpt-dir`` starts from the trainers' checkpoint directories under the
+default config plus ``--override``.  An artifact without WaveRNN weights,
+or ``--ckpt-dir`` without ``--wavernn-ckpt-dir``, serves through
+Griffin-Lim on the same device (``/healthz`` says ``"vocoder":
+"griffin_lim"``).
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from ..config import Config
+from ..config import Config, default_config
 
 _log = logging.getLogger(__name__)
 
@@ -424,9 +428,14 @@ def warmup(synth, max_batch_hard: int, text: str = "你好。") -> None:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--export-dir", required=True,
+    ap.add_argument("--export-dir", default=None,
                     help="serving artifact directory (tacotron_params.npz, wavernn_params.npz, "
                          "config.json, symbols.txt)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="Tacotron checkpoint directory (latest step), under the default config "
+                         "and --override; instead of --export-dir")
+    ap.add_argument("--wavernn-ckpt-dir", default=None,
+                    help="WaveRNN checkpoint directory with --ckpt-dir (without it: Griffin-Lim)")
     ap.add_argument("--device", default=None, help="default: the CUDA card; 'cpu' runs the plain path")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8500)
@@ -439,14 +448,30 @@ def main(argv=None) -> None:
     ap.add_argument("--max-iters", type=int, default=None,
                     help="decode-length cap in decoder steps (default: config max_iters)")
     ap.add_argument("--no-warmup", action="store_true")
-    ap.add_argument("--override", default="", help="comma-separated a.b=c over the artifact's config.json")
+    ap.add_argument("--override", default="",
+                    help="comma-separated a.b=c over the artifact's config.json (or the default config)")
     args = ap.parse_args(argv)
+    if (args.export_dir is None) == (args.ckpt_dir is None):
+        ap.error("exactly one of --export-dir / --ckpt-dir is required")
+    if args.export_dir and args.wavernn_ckpt_dir:
+        ap.error("--wavernn-ckpt-dir goes with --ckpt-dir, not --export-dir")
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 
-    from .export import load_exported
+    if args.export_dir:
+        from .export import load_exported
 
-    synth = load_exported(args.export_dir, max_iters=args.max_iters, device=args.device,
-                          override=args.override)
+        synth = load_exported(args.export_dir, max_iters=args.max_iters, device=args.device,
+                              override=args.override)
+    else:
+        from ..infer.synthesizer import Synthesizer
+
+        cfg = default_config()
+        if args.override:
+            cfg = cfg.override(args.override)
+        # a named WaveRNN directory without a checkpoint raises
+        # FileNotFoundError: it never falls back to Griffin-Lim
+        synth = Synthesizer.from_checkpoints(cfg, args.ckpt_dir, args.wavernn_ckpt_dir,
+                                             max_iters=args.max_iters, device=args.device)
     httpd = serve(synth.cfg, synth, args.host, args.port, max_batch=args.max_batch,
                   max_queue=args.max_queue, max_batch_hard=args.max_batch_hard)
     if not args.no_warmup:

@@ -6,11 +6,13 @@ Optimization recipe per reference tacotron.py:255-313: Adam(0.9, 0.999,
 clipping.  Fine-tune mode freezes embedding + encoder (reference
 tacotron.py:167-169).
 
-One step: teacher-forced forward (the decoder core through K3 on the card)
-+ loss, autograd backward (K4), clipping, Adam, and the BN moving
-statistics of the forward written back, as the JAX package's
+One step: teacher-forced forward (the decoder core through K3 on the card
+where ``models.tacotron.core_route`` allows, else the eager step loop) +
+loss, autograd backward (K4 on the kernel route), clipping, Adam, and the
+BN moving statistics of the forward written back, as the JAX package's
 ``optax.apply_updates(new_params, updates)`` does.  The step returns a new
-params tree (tensors are not updated in place).
+params tree (tensors are not updated in place).  ``mixed_precision``
+casts the weights to bf16 inside the loss (``utils/precision.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from ..config import Config
 from ..models import tacotron as T
+from ..utils import precision as P
 from ..utils import tree_leaves, tree_map
 from ..utils.checkpoints import init_tacotron
 
@@ -50,8 +53,8 @@ def lr_schedule(cfg: Config):
 
 def teacher_forcing_schedule(cfg: Config, step: int) -> float:
     """Teacher-forcing ratio at ``step``: constant, or cosine decay from the
-    initial to the final ratio (reference helpers.py:153-186).  A ratio
-    below 1 (scheduled sampling) is not ported: the decoder raises."""
+    initial to the final ratio (reference helpers.py:153-186).  A Python
+    float, so a ratio of 1 keeps the batched route (``T.core_route``)."""
     tc = cfg.tacotron_train
     if tc.teacher_forcing_mode == "constant":
         return float(tc.teacher_forcing_ratio)
@@ -119,19 +122,25 @@ def _reg_weight(cfg: Config) -> float:
 
 def loss_fn(params, cfg: Config, batch: dict, generator: torch.Generator, train: bool = True,
             teacher_forcing_ratio: float = 1.0, rand=None):
-    """-> (loss, (aux, params with updated BN statistics, TacotronOutput))."""
+    """-> (loss, (aux, params with updated BN statistics, TacotronOutput)).
+    Under ``mixed_precision`` the forward runs on bf16 weights
+    (``utils/precision.py``), the returned params are the merged f32 master,
+    the loss is taken in f32, and its L2 term over the master."""
     tc = cfg.tacotron_train
+    master = params
     if tc.mixed_precision:
-        raise NotImplementedError(
-            "mixed_precision=True needs utils/precision.py, not ported yet (ROADMAP.md, queue item 12)"
-        )
+        params = P.cast_params(params)
     out, new_params = T.forward_teacher_forced(
         params, cfg.tacotron, batch["inputs"], batch["input_lengths"], batch["mel_targets"], train,
         rand=rand, generator=generator, teacher_forcing_ratio=teacher_forcing_ratio,
         fused_decoder=tc.fused_decoder,
     )
+    if tc.mixed_precision:
+        new_params = P.merge_master(master, new_params)
+        out = P.cast_to_float32(out)
     loss, aux = T.tacotron_loss(
-        out, batch["mel_targets"], batch["stop_targets"], batch["target_lengths"], params, cfg.tacotron,
+        out, batch["mel_targets"], batch["stop_targets"], batch["target_lengths"],
+        new_params if tc.mixed_precision else params, cfg.tacotron,
         reg_weight=_reg_weight(cfg), mask_decoder=tc.mask_decoder, stop_pos_weight=tc.stop_pos_weight,
         loss_frames=batch.get("loss_frames"),
     )
@@ -140,7 +149,8 @@ def loss_fn(params, cfg: Config, batch: dict, generator: torch.Generator, train:
 
 def compute_grads(params, cfg: Config, batch: dict, generator: torch.Generator, step: int):
     """Loss and gradient of every params leaf (zeros where the loss does not
-    depend on it, as for the BN moving statistics)."""
+    depend on it, as for the BN moving statistics), at the teacher-forcing
+    ratio the schedule gives ``step``."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
     loss, (aux, new_params, _) = loss_fn(
         leaves, cfg, batch, generator, True, teacher_forcing_schedule(cfg, step)

@@ -37,6 +37,7 @@ import torch
 
 from ..config import Config
 from ..models import wavernn as W
+from ..utils import precision as P
 from ..utils import tree_leaves, tree_map
 from ..utils.checkpoints import init_wavernn
 from .tacotron_task import TrainState, adam_init, clip_by_global_norm
@@ -83,12 +84,17 @@ def optax_adam(grads, state: dict, lr: float, b1: float = 0.9, b2: float = 0.999
 
 
 def loss_fn(params, cfg: Config, batch: dict, train: bool = True):
-    """-> (loss, (params with the forward's BN statistics, logits))."""
+    """-> (loss, (params with the forward's BN statistics, logits)).  Under
+    ``mixed_precision`` the forward runs on bf16 weights (BN statistics
+    f32; ``utils/precision.py``), the returned params are the merged f32
+    master and the loss is taken on f32 logits."""
+    master = params
     if cfg.wavernn_train.mixed_precision:
-        raise NotImplementedError(
-            "mixed_precision=True needs utils/precision.py, not ported yet (ROADMAP.md, queue item 12)"
-        )
+        params = P.cast_params(params)
     logits, new_params = W.forward(params, cfg.wavernn, batch["x"], batch["mels"], train)
+    if cfg.wavernn_train.mixed_precision:
+        new_params = P.merge_master(master, new_params)
+        logits = logits.float()
     loss = W.wavernn_loss(logits, batch["y"], mode=cfg.wavernn.mode, bits=cfg.audio.bits)
     return loss, (new_params, logits)
 

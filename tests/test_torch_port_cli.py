@@ -2,7 +2,9 @@
 ``main(argv)`` on ``--device cpu`` at a tiny width: the export CLI (round
 trip through npz files and through checkpoint directories, and its
 argument errors), the server's ``--override`` over an artifact's config
-with a Griffin-Lim artifact answering requests, the synthesis CLI, the
+with a Griffin-Lim artifact answering requests, the server started from
+checkpoint directories (``--ckpt-dir``, exclusive with ``--export-dir``),
+the synthesis CLI, the
 WaveRNN CLI on a ``.npy`` mel and on a ``.wav``, and ``FileNotFoundError``
 for an empty checkpoint directory wherever one can be named."""
 
@@ -110,7 +112,7 @@ def test_export_cli_argument_errors(capsys, argv, message):
 
 
 @pytest.mark.parametrize("entry", ["from_checkpoints", "from_checkpoints_wavernn", "export", "synthesize",
-                                   "wavernn_gen", "missing_dir"])
+                                   "wavernn_gen", "missing_dir", "server"])
 def test_empty_checkpoint_dir_raises(weights, tmp_path, entry):
     """An empty directory raises FileNotFoundError; a named WaveRNN
     directory never falls back to Griffin-Lim."""
@@ -128,6 +130,8 @@ def test_empty_checkpoint_dir_raises(weights, tmp_path, entry):
                                             "--text", TEXT, "--override", TINY, "--device", "cpu"]),
         "wavernn_gen": lambda: WG.main(["--file", mel, "--ckpt-dir", empty, "--device", "cpu"]),
         "missing_dir": lambda: Synthesizer.from_checkpoints(cfg, str(tmp_path / "nowhere"), device="cpu"),
+        "server": lambda: SRV.main(["--ckpt-dir", paths["taco_ckpt"], "--wavernn-ckpt-dir", empty,
+                                    "--override", TINY + "," + VOC, "--device", "cpu", "--no-warmup"]),
     }
     with pytest.raises(FileNotFoundError, match="no checkpoint under"):
         calls[entry]()
@@ -199,6 +203,68 @@ def test_server_override_and_griffin_lim_artifact(weights, tmp_path, monkeypatch
         httpd.server_close()
         th.join(timeout=30)
     assert not th.is_alive()
+
+
+def _captured_server(monkeypatch):
+    """Make ``server.serve`` return its server with a ``serve_forever``
+    that returns at once; -> (the real ``serve``, dict the server lands in)."""
+    real_serve, seen = SRV.serve, {}
+
+    def serve(*a, **kw):
+        httpd = real_serve(*a, **kw)
+        httpd.serve_forever = lambda: None
+        seen["httpd"] = httpd
+        return httpd
+
+    monkeypatch.setattr(SRV, "serve", serve)
+    return real_serve, seen
+
+
+@pytest.mark.parametrize("vocoder", ["griffin_lim", "wavernn"])
+def test_server_from_checkpoint_dirs(weights, monkeypatch, vocoder):
+    """``--ckpt-dir`` (and ``--wavernn-ckpt-dir``) start the server from the
+    trainers' checkpoint directories under the default config plus
+    ``--override``: the restored weights equal the saved ones, and one
+    /generate_tts answers with a WAV of STEPS frames x hop samples."""
+    cfg, taco, voc, paths = weights
+    real_serve, seen = _captured_server(monkeypatch)
+    argv = ["--ckpt-dir", paths["taco_ckpt"], "--device", "cpu", "--host", "127.0.0.1", "--port", "0",
+            "--no-warmup", "--max-iters", str(STEPS), "--override", TINY + "," + VOC]
+    if vocoder == "wavernn":
+        argv += ["--wavernn-ckpt-dir", paths["voc_ckpt"]]
+    SRV.main(argv)
+    seen["httpd"].server_close()
+    synth = seen["httpd"].service.synth
+    assert synth.cfg == cfg and synth.max_iters == STEPS
+    _equal_trees(synth.params, taco)
+    if vocoder == "wavernn":
+        _equal_trees(synth.vocoder_params, voc)
+    else:
+        assert synth.vocoder_params is None
+    httpd = real_serve(synth.cfg, synth, "127.0.0.1", 0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        port = httpd.server_address[1]
+        one = _post(port, "/generate_tts", {"text": TEXT, "seed": 1})
+        assert one["status"] == 0 and _frames(one["wav_b64"]) == STEPS * cfg.audio.hop_size
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=30) as r:
+            assert json.loads(r.read())["vocoder"] == vocoder
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+
+
+@pytest.mark.parametrize("argv,message", [
+    ([], "exactly one of --export-dir / --ckpt-dir is required"),
+    (["--export-dir", "a", "--ckpt-dir", "b"], "exactly one of --export-dir / --ckpt-dir is required"),
+    (["--export-dir", "a", "--wavernn-ckpt-dir", "b"], "--wavernn-ckpt-dir goes with --ckpt-dir"),
+])
+def test_server_cli_argument_errors(capsys, argv, message):
+    with pytest.raises(SystemExit):
+        SRV.main(argv + ["--device", "cpu"])
+    assert message in capsys.readouterr().err
 
 
 def test_synthesize_cli_writes_griffin_lim_wav(weights, tmp_path):

@@ -26,6 +26,7 @@ bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
              or k == "tacotronv2_wavernn_chinese_tpu" or k.startswith("tacotronv2_wavernn_chinese_tpu."))
 print(len(names))
 print(",".join(bad))
+print(int("tacotronv2_wavernn_chinese_tpu_torch.utils.precision" in names))
 from {PORT}.config import default_config
 from {PORT}.data.preprocess import process_corpus
 from {PORT}.dsp.spectrogram import MelPipeline
@@ -72,7 +73,8 @@ def probe():
 
 def test_port_imports_no_jax(probe):
     n, bad = int(probe[0]), probe[1]
-    assert n >= 35  # every module of the port was imported
+    assert n >= 45  # every module of the port was imported, utils/precision.py among them
+    assert probe[2] == "1"
     assert bad == "", f"the port loaded {bad}"
 
 
@@ -89,14 +91,14 @@ def test_entry_points_raise_without_gpu(probe):
     """The synthesizer, the artifact loader, the Tacotron trainer, the
     WaveRNN trainer, the mel pipeline, preprocessing, GTA and the WaveRNN
     generator each raise instead of dropping to the CPU."""
-    assert probe[2] == "8"
+    assert probe[3] == "8"
 
 
 def test_new_entry_points_import_alone(probe):
     """``generate_mol`` runs on CPU params without JAX (1 fold x 275
     samples) and the native loader's binding imports without building."""
-    assert probe[3] == "(1, 275)"
-    assert probe[4] == "True"
+    assert probe[4] == "(1, 275)"
+    assert probe[5] == "True"
 
 
 def test_chip_smoke_fails_without_card():

@@ -285,14 +285,6 @@ def test_train_step_many_is_steps_in_a_row():
     torch.testing.assert_close(s1.opt_state["nu"]["fc3"]["w"], s2.opt_state["nu"]["fc3"]["w"], rtol=0, atol=0)
 
 
-def test_mixed_precision_raises_naming_item_12():
-    _, tcfg = _cfgs()
-    tcfg = dataclasses.replace(tcfg, wavernn_train=dataclasses.replace(tcfg.wavernn_train, mixed_precision=True))
-    p = TTask.init_state(0, tcfg, "cpu")
-    with pytest.raises(NotImplementedError, match="queue item 12"):
-        TTask.train_step(p, _t(_batch(tcfg, 0)), tcfg)
-
-
 def _write_vocoder_corpus(root, n=6, frames=(14, 24), hop=275, seed=0):
     """GTA-layout rows ``wav|gt_mel|pred_mel|text``: mu-law labels of
     frames x hop samples (some shorter than their mel implies) and unit mels."""
