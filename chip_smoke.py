@@ -109,6 +109,27 @@ Phases, each printing its lines before the next starts:
            the server started with --ckpt-dir and --wavernn-ckpt-dir on the
            train phases' checkpoint directories answering one /generate_tts
            (WAV of stop_len x 275 samples)
+  cbhg + variants
+           the CBHG mel->linear head (tacotron.predict_linear): a full-width
+           artifact with the head and WaveRNN weights served on localhost,
+           one /generate_tts (WAV of stop_len x 275 samples, K2 and K1
+           launched); the head on the request's postnet mel on the card in
+           IEEE f32 against the CPU (1e-4 of max|linear|; TF32 must read
+           farther) and alone by CUDA events at B=1 x the request's frames
+           and B=16 x 1024; text->mel with and without the head; two
+           train_steps with the head at the train phase's batch (B=32,
+           T_in=160, T=608, seeded linear targets: losses and the linear
+           term finite, K3/K4 one launch each a step) beside two without
+           it; the head's step on the card against the CPU at B=4,
+           T_in=32, T=64 with the same masks, the CPU's ReLUs pinned to the
+           card's, in f32 and mixed precision (the train configs
+           tolerances, the head's BN statistics 1e-5 / 1e-2); GTA of 8
+           utterances with the head (K3 launched once); the DeepMind
+           WaveRNN at hidden 896: loss and gradients at B=4, T=1,000 card
+           against CPU (1e-5 relative, 1e-3 of max|g|), generation of 2 x
+           2,000 samples with the same injected Gumbel draws (equal, a row
+           diverging only after a CPU top-2 gap < 1e-5 of the top), us a
+           sample
   kernels  each kernel against its plain version again at the shapes the
            serve and train paths gave it: times, bounds, errors; one JSON
            line, with each kernel's launches on every path that ran it
@@ -1888,7 +1909,8 @@ def tc_loss_and_grads(cfg, params, batch, rand, ratio: float, dev, relus=None) -
     ReLUs recorded (``relus`` None) or pinned to ``relus`` (``relu_pattern``:
     a prenet unit fed the model's own prediction, or any other, within
     ~1e-7 of zero may land on either side in f32 and move its layer's
-    gradients by one position's term)."""
+    gradients by one position's term); also the aux terms and the BN
+    statistics the forward returns."""
     import torch
 
     from tacotronv2_wavernn_chinese_tpu_torch.train import tacotron_task as task
@@ -1898,10 +1920,14 @@ def tc_loss_and_grads(cfg, params, batch, rand, ratio: float, dev, relus=None) -
     leaves = tree_map(lambda p: p.detach().to(dev).requires_grad_(True), params)
     b = {k: v.to(dev) for k, v in batch.items()}
     with relu_pattern(relus) as pattern:
-        loss, _ = task.loss_fn(leaves, cfg, b, None, True, ratio, rand=type(rand)(*(move(f) for f in rand)))
+        loss, (aux, new, _) = task.loss_fn(leaves, cfg, b, None, True, ratio,
+                                           rand=type(rand)(*(move(f) for f in rand)))
         grads = torch.autograd.grad(loss, tree_leaves(leaves), allow_unused=True)
+    stats = {n: t.detach().cpu() for n, t in zip(leaf_names(new), tree_leaves(new))
+             if n.endswith(("bn/mean", "bn/var"))}
     return {"loss": float(loss.detach()), "grads": [None if g is None else g.detach().cpu() for g in grads],
-            "names": leaf_names(params), "relus": pattern.masks, "flips": pattern.flips, "units": pattern.units}
+            "names": leaf_names(params), "relus": pattern.masks, "flips": pattern.flips, "units": pattern.units,
+            "aux": {k: float(v.detach()) for k, v in aux.items()}, "stats": stats}
 
 
 def tc_grad_error(card: dict, host: dict, zero_by_construction) -> tuple:
@@ -2087,6 +2113,267 @@ def run_train_configs(cfg, dev, smi: str, batch: dict, taco_params, taco_ckpt: s
 
 
 # ---------------------------------------------------------------------------
+# the CBHG mel->linear head and the DeepMind WaveRNN
+# ---------------------------------------------------------------------------
+
+
+def cbhg_work(tcfg, frames: int) -> float:
+    """Operations (2 x multiply-adds) of the CBHG head's forward over
+    ``frames`` frames: the bank, both projections, the highways, the BiGRU
+    (input and recurrent products) and the linear projection."""
+    M, K, C = 80, tcfg.cbhg_kernels, tcfg.cbhg_conv_channels
+    Pj, H, G = tcfg.cbhg_projection, tcfg.cbhg_highway_units, tcfg.cbhg_rnn_units
+    macs = (K * (K + 1) // 2 * M * C + 3 * K * C * Pj + 3 * Pj * M + M * H
+            + 2 * tcfg.cbhg_highwaynet_layers * H * H + 2 * 3 * G * (H + G) + 2 * G * 1025)
+    return 2.0 * macs * frames
+
+
+def top2_gap(z) -> float:
+    """(top - second) / |top| of a logit vector."""
+    a, b = np.sort(np.asarray(z, np.float64))[-2:][::-1]
+    return float((a - b) / max(abs(a), 1e-30))
+
+
+# card vs CPU of the head's train step at B=4, T_in=32, T=64: as TRAIN_CFG_TOL,
+# and the head's BN statistics as tests/torch_train_parity.py holds them:
+# |d| <= tol x |x| + 1e-6, under mixed precision also + tol x max|x| of the
+# vector (a batch mean of near-zero outputs is a small difference of sums)
+CBHG_STAT_TOL = {"f32": 1e-5, "bf16": 1e-2}
+CBHG_SERVE_TOL = 1e-4  # the head on the card vs the CPU, max|d linear| / max|linear|
+DM_TOL = (1e-5, 1e-3)  # DeepMind loss relative, gradient / max|g| of each leaf
+
+
+def run_cbhg_variants(cfg, dev, smi: str, batch: dict, wavernn_params, corpus_meta: str, corpus_dir: str,
+                      serve_frames: int, steps: int = 2, gta_utts: int = 8, head_shapes=((16, 1024),),
+                      dm_hidden: int = 896, dm_train=(4, 1000), dm_gen=(2, 2000)) -> dict:
+    """The CBHG mel->linear head (``tacotron.predict_linear``) served,
+    trained and through GTA, and the DeepMind WaveRNN, card against CPU.
+    Returns what the kernels line needs."""
+    import torch
+
+    from tacotronv2_wavernn_chinese_tpu_torch import ops
+    from tacotronv2_wavernn_chinese_tpu_torch.frontend import get_pyin
+    from tacotronv2_wavernn_chinese_tpu_torch.infer.gta import generate_gta
+    from tacotronv2_wavernn_chinese_tpu_torch.infer.synthesizer import Synthesizer
+    from tacotronv2_wavernn_chinese_tpu_torch.models import tacotron as T
+    from tacotronv2_wavernn_chinese_tpu_torch.models import wavernn_deepmind as DM
+    from tacotronv2_wavernn_chinese_tpu_torch.serving.export import load_exported, write_artifact
+    from tacotronv2_wavernn_chinese_tpu_torch.train import tacotron_task as task
+    from tacotronv2_wavernn_chinese_tpu_torch.utils import precision as P
+    from tacotronv2_wavernn_chinese_tpu_torch.utils import tree_leaves, tree_map
+    from tacotronv2_wavernn_chinese_tpu_torch.utils.checkpoints import init_tacotron
+
+    tag = "cbhg + variants"
+    cpu = torch.device("cpu")
+    to_cpu = lambda tree: tree_map(lambda t: t.detach().cpu(), tree)
+    hcfg = cfg.override("tacotron.predict_linear=true")
+    tcfg = hcfg.tacotron
+    rng = np.random.default_rng(71)
+    out = {}
+
+    # -- serve: a predict_linear artifact with WaveRNN weights --------------
+    tp = with_stop_bias(init_tacotron(70, tcfg, device=dev), -30.0)
+    art = os.path.join(HERE, "build", "chip_smoke_cbhg_artifact")
+    write_artifact(hcfg, tp, art, wavernn_params)
+    synth = load_exported(art, max_iters=serve_frames, device=dev)
+    check(synth.cfg.tacotron.predict_linear and synth.vocoder_params is not None,
+          f"{tag}: the artifact lost the head or the vocoder")
+    text, seed = SENTENCES[1], 4
+    ids = synth.symbols.encode(get_pyin(text)[0])
+    want = synth.mel_from_ids([ids], seed=[seed])[2][0]
+    httpd, th = start_server(synth)
+    try:
+        ops.reset_launch_counts()
+        body, host_ms, ev_ms = post(httpd.server_address[1], "/generate_tts", {"text": text, "seed": seed})
+        launches = {k: ops.LAUNCHES[k] for k in ("wavernn_sample", "tacotron_decode")}
+    finally:
+        stop_server(httpd, th)
+    check(body.get("status") == 0, f"{tag}: /generate_tts failed: {body.get('error')}")
+    check_wav(body["wav_b64"], f"{tag}: /generate_tts", want * 275)
+    check(launches["tacotron_decode"] >= 1 and launches["wavernn_sample"] >= 1,
+          f"{tag}: the predict_linear request launched {launches}")
+    out["serve_launches"] = launches
+    phase(tag, f"{smi}: predict_linear /generate_tts {host_ms:.1f} ms host, {ev_ms:.1f} ms CUDA events, {want} "
+          f"frames, WAV of {want} x 275 samples; launches {launches}")
+
+    # the head alone, on the request's postnet mel: card (IEEE f32, and TF32
+    # as a control) against the CPU, and times by CUDA events
+    inputs = torch.as_tensor([ids], device=dev)
+    lens = torch.as_tensor([len(ids)], device=dev)
+    mel = T.forward_inference(synth.params, tcfg, inputs, lens, [seed], serve_frames).mel_outputs
+    check(mel.shape[1] == want, f"{tag}: forward_inference gave {mel.shape[1]} frames, the request {want}")
+    lin_cpu = T.apply_cbhg(to_cpu(synth.params), tcfg, mel.cpu())
+    errs = {}
+    for mode in ("ieee", "tf32"):
+        with P.fp32_precision(mode):
+            lin = T.apply_cbhg(synth.params, tcfg, mel)
+        check(bool(torch.isfinite(lin).all()) and lin.shape == (1, want, 1025), f"{tag}: head output {lin.shape}")
+        errs[mode] = float((lin.cpu() - lin_cpu).abs().max() / lin_cpu.abs().max())
+    check(errs["ieee"] <= CBHG_SERVE_TOL, f"{tag}: head card vs CPU {errs['ieee']:.3e} > {CBHG_SERVE_TOL}")
+    check(errs["tf32"] > errs["ieee"], f"{tag}: the head check cannot tell TF32 from IEEE f32: {errs}")
+    times = {}
+    w_bytes = 4 * sum(t.numel() for t in tree_leaves([synth.params["cbhg"], synth.params["linear_projection"]]))
+    with P.fp32_precision():
+        for Bh, Th in ((1, want),) + tuple(head_shapes):
+            x = mel if Bh == 1 else torch.as_tensor(rng.uniform(-4, 4, (Bh, Th, 80)).astype(np.float32), device=dev)
+            ms = cuda_ms(lambda: T.apply_cbhg(synth.params, tcfg, x), reps=5, warmup=True)
+            times[f"{Bh}x{Th}"] = (ms, *bound(cbhg_work(tcfg, Bh * Th), w_bytes + 4 * Bh * Th * (80 + 1025)))
+    # one request's text->mel with and without the head, same weights
+    plain_params = {k: v for k, v in synth.params.items() if k not in ("cbhg", "linear_projection")}
+    nohead = Synthesizer(cfg, plain_params, max_iters=serve_frames, device=dev)
+    t2m = {name: cuda_ms(lambda s=s: s.mel_from_ids([ids], seed=[seed]), reps=3, warmup=True)
+           for name, s in (("head", synth), ("no head", nohead))}
+    out.update(serve_err=errs, head_ms=times, text_to_mel_ms=t2m)
+    phase(tag, f"{smi}: head card vs CPU on the request's postnet mel max|d|/max|linear| {errs['ieee']:.2e} "
+          f"(tol {CBHG_SERVE_TOL:g}; TF32 control {errs['tf32']:.2e}); head alone (CUDA events) "
+          + ", ".join(f"B x T = {k}: {v[0]:.3f} ms (bound {v[1]:.3f}, {v[2]})" for k, v in times.items())
+          + f"; text->mel {t2m['head']:.2f} ms with the head, {t2m['no head']:.2f} without")
+
+    # -- train: two steps with the head, beside two without ----------------
+    B, T_in = batch["inputs"].shape
+    T_out = batch["mel_targets"].shape[1]
+    lin_t = torch.as_tensor(rng.uniform(-4, 4, (B, T_out, 1025)).astype(np.float32), device=dev)
+    step_ms = {}
+    for name, ccfg, b in (("head", hcfg, dict(batch, linear_targets=lin_t)), ("no head", cfg, batch)):
+        check(T.core_route(ccfg.tacotron, True, 1.0) == "kernel", f"{tag}: {name} left the kernel route")
+        s = task.init_state(80, ccfg, dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        ops.reset_launch_counts()
+        ms, metrics = [], []
+        for _ in range(steps):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            e0.record()
+            s, m = task.train_step(s, b, gen, ccfg)
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+            metrics.append(m)
+        k34 = {k: ops.LAUNCHES[k] for k in ("tacotron_train_fwd", "tacotron_train_bwd")}
+        step_ms[name] = ms
+        if name == "head":
+            head_params, out["train_launches"] = s.params, k34
+            check(all(np.isfinite([m["loss"], m["linear"]]).all() for m in metrics),
+                  f"{tag}: head step metrics {metrics}")
+            check(k34["tacotron_train_fwd"] == steps and k34["tacotron_train_bwd"] == steps,
+                  f"{tag}: {steps} head steps launched K3/K4 {k34}")
+        phase(tag, f"{smi}: train_step {name} B={B} T_in={T_in} T={T_out}: losses "
+              + ", ".join(f"{m['loss']:.4f}" for m in metrics)
+              + ("; linear " + ", ".join(f"{m['linear']:.4f}" for m in metrics) if name == "head" else "")
+              + " ; ms/step (CUDA events) " + ", ".join(f"{v:.1f}" for v in ms) + f"; K3/K4 launches {k34}")
+    out["step_ms"] = step_ms
+
+    # card vs CPU at B=4, f32 and mixed precision, the CPU's ReLUs pinned
+    zero = {f"postnet/layers/{tcfg.postnet_layers - 1}/conv/b", "cbhg/proj2/conv/b"}  # linear into BatchNorm
+    for kind, ccfg in (("f32", hcfg), ("bf16", hcfg.override("tacotron_train.mixed_precision=true"))):
+        small = dict(tc_small_batch(ccfg, cpu, 90),
+                     linear_targets=torch.as_tensor(rng.uniform(-4, 4, (4, 64, 1025)).astype(np.float32)))
+        p_cpu = to_cpu(head_params)
+        rand = T.draw_train_rand(p_cpu, ccfg.tacotron, 4, 32, 64, torch.Generator().manual_seed(7), True, 1.0)
+        with P.fp32_precision():
+            card = tc_loss_and_grads(ccfg, p_cpu, small, rand, 1.0, dev)
+            host = tc_loss_and_grads(ccfg, p_cpu, small, rand, 1.0, cpu, relus=card["relus"])
+        loss_rel = abs(card["loss"] - host["loss"]) / abs(host["loss"])
+        g_err, g_at = tc_grad_error(card, host, zero)
+        tol_loss, tol_grad = TRAIN_CFG_TOL[kind]
+        st = CBHG_STAT_TOL[kind]
+        # the largest |d| / (the gate's allowance) over the head's statistics: <= 1 passes
+        s_err, s_at = max((float(((card["stats"][k] - v).abs() / (st * v.abs() + 1e-6 + (
+            st * v.abs().max() if kind == "bf16" else 0.0))).max()), k)
+            for k, v in host["stats"].items() if k.startswith("cbhg/"))
+        s_rel = max(float((card["stats"][k] - v).abs().max() / v.abs().max()) for k, v in host["stats"].items()
+                    if k.startswith("cbhg/"))
+        phase(tag, f"{smi}: head step card vs CPU ({kind}) at B=4 T_in=32 T=64: loss {card['loss']!r} / "
+              f"{host['loss']!r} (linear {card['aux']['linear']:.6f} / {host['aux']['linear']:.6f}), "
+              f"{loss_rel:.2e} relative (tol {tol_loss:g}), gradient max|d|/max|g| {g_err:.2e} at {g_at} "
+              f"(tol {tol_grad:g}), the head's BN statistics at {s_err:.2f} of their gate ({s_at}; |d| <= "
+              f"{st:g} |x| + 1e-6{' + %g max|x|' % st if kind == 'bf16' else ''}; max|d| / max|x| of a vector "
+              f"{s_rel:.2e}), "
+              f"{host['flips']} of {host['units']} CPU ReLU units pinned to the card's side")
+        check(loss_rel <= tol_loss, f"{tag}: {kind} card vs CPU loss {loss_rel:.3e} > {tol_loss}")
+        check(g_err <= tol_grad, f"{tag}: {kind} card vs CPU gradient {g_err:.3e} > {tol_grad} at {g_at}")
+        check(s_err <= 1.0, f"{tag}: {kind} card vs CPU BN statistic {s_at} at {s_err:.3f} of its gate")
+        out.setdefault("card_cpu", {})[kind] = {"loss": loss_rel, "grad": g_err, "stats": s_err, "stats_rel": s_rel}
+
+    # GTA of one batch with the head: K3's eval branch, then the head
+    with open(corpus_meta, encoding="utf-8") as f:
+        shards = max(1, len(f.read().splitlines()) // gta_utts)
+    gta_dir = os.path.join(HERE, "build", "chip_smoke_gta_cbhg")
+    shutil.rmtree(gta_dir, ignore_errors=True)
+    ops.reset_launch_counts()
+    t0 = time.time()
+    path = generate_gta(hcfg, to_cpu(head_params), corpus_meta, corpus_dir, gta_dir, batch_size=gta_utts,
+                        num_shards=shards, log=lambda m: None, device=dev)
+    gta_s, k3 = time.time() - t0, ops.LAUNCHES["tacotron_train_fwd"]
+    with open(path, encoding="utf-8") as f:
+        lines = f.read().splitlines()
+    check(0 < len(lines) <= gta_utts, f"{tag}: GTA wrote {len(lines)} rows")
+    for line in lines:
+        check(np.isfinite(np.load(os.path.join(gta_dir, line.split("|")[2]))).all(), f"{tag}: GTA {line}")
+    check(k3 == 1, f"{tag}: GTA with the head launched K3 {k3} times, expected 1")
+    out["gta_k3"] = k3
+    phase(tag, f"GTA with the head: {len(lines)} utterances in one batch, {gta_s:.2f} s host, K3 launches {k3}")
+
+    # -- the DeepMind WaveRNN ----------------------------------------------
+    dmp = DM.init_deepmind_wavernn(91, dm_hidden)
+    Bt, Tt = dm_train
+    coarse, fine = DM.split_signal_16bit(torch.as_tensor(rng.uniform(-0.9, 0.9, (Bt, Tt + 1)).astype(np.float32)))
+
+    def dm_loss_grads(d, relus=None):
+        leaves = tree_map(lambda t: t.to(d).requires_grad_(True), dmp)
+        with P.fp32_precision(), relu_pattern(relus) as pattern:
+            loss = DM.loss(leaves, coarse.to(d), fine.to(d))
+            grads = torch.autograd.grad(loss, tree_leaves(leaves))
+        return float(loss.detach()), [g.cpu() for g in grads], pattern
+
+    t0 = time.time()
+    l_card, g_card, pat = dm_loss_grads(dev)
+    card_s = time.time() - t0
+    l_host, g_host, pat_host = dm_loss_grads(cpu, pat.masks)
+    loss_rel = abs(l_card - l_host) / abs(l_host)
+    g_err = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(g_card, g_host))
+    check(loss_rel <= DM_TOL[0] and g_err <= DM_TOL[1],
+          f"{tag}: DeepMind loss {loss_rel:.3e} / gradients {g_err:.3e} card vs CPU beyond {DM_TOL}")
+    phase(tag, f"{smi}: DeepMind WaveRNN hidden {dm_hidden} loss and gradients at B={Bt} T={Tt}: card "
+          f"{card_s:.2f} s host; card vs CPU loss {loss_rel:.2e} relative, gradients max|d|/max|g| {g_err:.2e} "
+          f"(tol {DM_TOL[0]:g}, {DM_TOL[1]:g}), {pat_host.flips} of {pat_host.units} CPU ReLU units pinned")
+
+    Bg, n = dm_gen
+    gumbel = DM.draw_gumbel(n, Bg, torch.Generator().manual_seed(92), cpu)
+    p_dev, g_dev = tree_map(lambda t: t.to(dev), dmp), gumbel.to(dev)
+    with P.fp32_precision():
+        DM.generate(p_dev, 8, batch=Bg, gumbel=g_dev[:8])
+        box = {}
+        dm_ms = cuda_ms(lambda: box.__setitem__("wav", DM.generate(p_dev, n, batch=Bg, gumbel=g_dev)))
+    host = DM.generate(dmp, n, batch=Bg, gumbel=gumbel)
+    to_u = lambda w: np.rint((w.cpu().numpy().astype(np.float64) + 1.0) * 32767.5).astype(np.int64)
+    u_card, u_host = to_u(box["wav"]), to_u(host)
+    diverged = 0
+    for b in range(Bg):
+        bad = np.nonzero(u_card[b] != u_host[b])[0]
+        if bad.size == 0:
+            continue
+        t = int(bad[0])
+        # the CPU's logits at step t, teacher-forced along the common prefix
+        c, f = u_card[b] // 256, u_card[b] % 256
+        seq = lambda v: torch.as_tensor(np.concatenate([[0], v]).astype(np.float32)[None] / 255.0)
+        oc, of = DM.train_forward(dmp, seq(c), seq(f))
+        coarse_off = c[t] != u_host[b, t] // 256
+        z = (oc if coarse_off else of)[0, t] + gumbel[t, 0 if coarse_off else 1, b]
+        gap = top2_gap(z.detach().numpy())
+        phase(tag, f"DeepMind generate row {b}: first mismatch at step {t} ({'coarse' if coarse_off else 'fine'}), "
+              f"CPU top-2 gap {gap:.3e} of the top")
+        check(gap < NEAR_TIE, f"{tag}: DeepMind row {b} diverged at step {t} with top-2 gap {gap:.3e}")
+        diverged += 1
+    out["deepmind"] = {"loss": loss_rel, "grad": g_err, "us_per_sample": dm_ms / n * 1e3, "diverged": diverged}
+    phase(tag, f"{smi}: DeepMind generate {Bg} x {n} samples (CUDA events) {dm_ms:.1f} ms, "
+          f"{dm_ms / n * 1e3:.1f} us a sample; card vs CPU with the same Gumbel draws: "
+          f"{Bg - diverged} of {Bg} rows equal, {diverged} diverged after a near-tie")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2116,7 +2403,7 @@ TRAIN_STEPS, TRAIN_CKPT_EVERY = 6, 3
 
 
 def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRAIN_CORPUS,
-            wavernn_train=None, train_configs=None) -> dict:
+            wavernn_train=None, train_configs=None, cbhg=None) -> dict:
     """Every phase on ``dev`` at the widths of ``cfg``; returns the kernels
     record.  Raises SmokeFailure on a failed check."""
     import torch
@@ -2272,6 +2559,11 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
                            wt["pre_dir"], **(train_configs or {}))
     phase("train configs", f"took {time.time() - t_ph:.1f} s")
 
+    # ---------------- cbhg + variants ----------------
+    t_ph = time.time()
+    cb = run_cbhg_variants(cfg, dev, smi, tr["batch"], wp, wt["meta"], wt["pre_dir"], serve_frames, **(cbhg or {}))
+    phase("cbhg + variants", f"took {time.time() - t_ph:.1f} s")
+
     # ---------------- kernels at the serve path's shapes ----------------
     from tacotronv2_wavernn_chinese_tpu_torch.models import wavernn as W
 
@@ -2318,7 +2610,8 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": bms1, "bound_by": by1,
          "library_ms": None, "launches_by_path": {"serve": launches["wavernn_sample"],
                                                   "cli_wavernn_gen": cli["wavernn_gen"]["wavernn_sample"],
-                                                  "wavernn train": wt["k1_launches"]},
+                                                  "wavernn train": wt["k1_launches"],
+                                                  "cbhg_serve": cb["serve_launches"]["wavernn_sample"]},
          "compared_steps": k1["compared"], "uncompared_steps": k1["uncompared"],
          "diverged_folds": k1["diverged"], "grid_blocks": k1_plan.blocks, "fold_tile": k1_plan.fold_tile},
         {"name": "tacotron_decode", "route": "cuda",
@@ -2328,7 +2621,8 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": bms2, "bound_by": by2,
          "library_ms": None, "launches_by_path": {
              "serve": launches["tacotron_decode"], "griffin_lim": gl["launches"]["tacotron_decode"],
-             "cli_synthesize": cli["synthesize"]["tacotron_decode"]},
+             "cli_synthesize": cli["synthesize"]["tacotron_decode"],
+             "cbhg_serve": cb["serve_launches"]["tacotron_decode"]},
          "grid_blocks": k2_plan.blocks, "clusters": k2_plan.clusters},
         {"name": "tacotron_train_fwd", "route": "cuda",
          "source": "tacotronv2_wavernn_chinese_tpu_torch/csrc/tacotron_train_fwd.cu",
@@ -2340,7 +2634,8 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
              "train_mixed_precision": tc["launches"]["mixed_precision"]["tacotron_train_fwd"],
              "train_configs_eager": sum(v["tacotron_train_fwd"] for k, v in tc["launches"].items()
                                         if k not in KERNEL_CONFIGS),
-             "gta_eager": sum(v["k3"] for v in tc["gta"].values())},
+             "gta_eager": sum(v["k3"] for v in tc["gta"].values()),
+             "cbhg_train": cb["train_launches"]["tacotron_train_fwd"], "cbhg_gta": cb["gta_k3"]},
          "grid_blocks": k34["blocks"], "clusters": k34["clusters"]},
         {"name": "tacotron_train_bwd", "route": "cuda",
          "source": "tacotronv2_wavernn_chinese_tpu_torch/csrc/tacotron_train_bwd.cu",
@@ -2352,7 +2647,8 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
              "train": tr["launches"]["tacotron_train_bwd"],
              "train_mixed_precision": tc["launches"]["mixed_precision"]["tacotron_train_bwd"],
              "train_configs_eager": sum(v["tacotron_train_bwd"] for k, v in tc["launches"].items()
-                                        if k not in KERNEL_CONFIGS)},
+                                        if k not in KERNEL_CONFIGS),
+             "cbhg_train": cb["train_launches"]["tacotron_train_bwd"]},
          "grid_blocks": k34["blocks"], "clusters": k34["clusters"]},
         *branch_entries,
     ]}

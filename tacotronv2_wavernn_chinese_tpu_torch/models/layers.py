@@ -11,13 +11,18 @@ Each function mirrors its counterpart in the JAX package's
 * BatchNorm (TF eps 1e-3 on the Tacotron side) uses batch statistics in
   train mode and returns the momentum-0.99 moving averages (the vocoder
   side passes torch's momentum and tracks the unbiased variance);
-* the GRU cell uses torch gate order (r, z, n).
+* the GRU cell uses torch gate order (r, z, n); a GRU over a sequence
+  (``gru_scan``) runs torch's fused GRU (cuDNN on the card) with the
+  tree's weights, shared by WaveRNN and the CBHG head.
 """
 
 from __future__ import annotations
 
+import warnings
+
 import torch
 import torch.nn.functional as F
+from torch.func import functional_call
 
 Params = dict
 
@@ -191,6 +196,40 @@ def gru_step_from_gates(p: Params, gi: torch.Tensor, h: torch.Tensor) -> torch.T
     z = torch.sigmoid(gi[..., H:2 * H] + gh[..., H:2 * H])
     n = torch.tanh(gi[..., 2 * H:] + r * gh[..., 2 * H:])
     return (1.0 - z) * n + z * h
+
+
+def gru_scan(p: Params, x: torch.Tensor, h0: torch.Tensor | None = None) -> torch.Tensor:
+    """A GRU over [B, T, in] from ``h0`` [B, H] (default zeros) -> [B, T, H],
+    through torch's fused GRU with the tree's weights (``weight_ih = wi.T``,
+    ``weight_hh = wh.T``): gates r, z, n with n = tanh(i_n + r * (h @ wh +
+    bh)_n), as ``gru_step_from_gates`` and the JAX ``gru_scan``."""
+    H = p["wh"].shape[0]
+    shell = torch.nn.GRU(x.shape[-1], H, batch_first=True, device="meta")
+    weights = {"weight_ih_l0": p["wi"].t().contiguous(), "weight_hh_l0": p["wh"].t().contiguous(),
+               "bias_ih_l0": p["bi"], "bias_hh_l0": p["bh"]}
+    args = (x,) if h0 is None else (x, h0[None])
+    with warnings.catch_warnings():
+        # the weights are tensors of the tree, not one flattened buffer
+        warnings.filterwarnings("ignore", message="RNN module weights are not part")
+        out, _ = functional_call(shell, weights, args)
+    return out
+
+
+def highway(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Highway layer: relu(dense h) x sigmoid(dense t) plus a carry of x
+    (the ``t`` bias starts at -1, toward carrying)."""
+    h = torch.relu(dense(p["h"], x))
+    t = torch.sigmoid(dense(p["t"], x))
+    return h * t + x * (1.0 - t)
+
+
+def max_pool_same(x: torch.Tensor, width: int) -> torch.Tensor:
+    """Max-pool over time of [B, T, C], stride 1, XLA "SAME" padding with
+    -inf: of the width - 1 pad positions the extra one goes on the right
+    (width 2: one on the right only)."""
+    left = (width - 1) // 2
+    xt = F.pad(x.transpose(1, 2), (left, width - 1 - left), value=float("-inf"))
+    return F.max_pool1d(xt, width, stride=1).transpose(1, 2)
 
 
 def prenet(p: Params, x: torch.Tensor, rate: float, masks=None) -> torch.Tensor:

@@ -3,7 +3,9 @@
 embedding(128) -> 3x[conv5-256 + ReLU + BN] -> BiLSTM(256/dir, zoneout 0.1)
 -> decoder (prenet 256/256 with always-on dropout, 2x LSTM 256, attention
 (forward by default; LSA, GMM or Graves), frame/stop projections of r
-frames a step) -> 5-layer postnet.
+frames a step) -> 5-layer postnet -> with ``predict_linear``, the CBHG
+mel->linear head (conv bank, max-pool, projections, highways, BiGRU,
+1025 bins).
 
 Inference: the autoregressive decode runs as one CUDA kernel on the card
 (``ops.tacotron_decoder_kernel``); ``decoder_step`` below is the step the
@@ -34,6 +36,7 @@ import torch
 from ..config import TacotronModelConfig
 from ..ops import tacotron_decoder_kernel as DK
 from ..ops import tacotron_trainer_kernel as TK
+from ..utils import precision as P
 from . import attention as ATT
 from . import layers as L
 
@@ -46,6 +49,7 @@ class TacotronOutput(NamedTuple):
     stop_logits: torch.Tensor  # [B, T_out]
     alignments: torch.Tensor  # [B, T_dec, T_in]
     stop_lengths: torch.Tensor | None = None  # [B] inference: frames until the stop token
+    linear_outputs: torch.Tensor | None = None  # [B, T_out, 1025] the CBHG head's output
 
 
 def input_mask(input_lengths: torch.Tensor, T_in: int) -> torch.Tensor:
@@ -239,6 +243,46 @@ def apply_postnet_train(params: Params, cfg: TacotronModelConfig, frames: torch.
     return frames + L.dense(params["postnet_projection"], x), new_p
 
 
+def apply_cbhg(params: Params, cfg: TacotronModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The CBHG mel->linear head in eval mode (BN moving statistics):
+    mels [B, T, 80] -> linear [B, T, 1025]."""
+    return _cbhg(params, cfg, x, False)[0]
+
+
+def apply_cbhg_train(params: Params, cfg: TacotronModelConfig, x: torch.Tensor):
+    """The head in train mode (BN batch statistics over every frame,
+    padding included) -> (linear, ``cbhg`` params with the updated BN
+    statistics of the bank and both projections)."""
+    return _cbhg(params, cfg, x, True)
+
+
+def _cbhg(params, cfg, x, train: bool):
+    """JAX ``apply_cbhg``: the bank of ReLU convolutions of widths 1..K,
+    each then BN; concatenated; max-pool (SAME, stride 1); ReLU(proj1)
+    then BN; proj2 then BN; the residual + x; the highway input projection
+    and the highways; a BiGRU whose backward direction reverses the whole
+    time axis, padding included (the reference passes no input lengths to
+    the post-CBHG); the linear projection."""
+    p = params["cbhg"]
+    bn = L.batchnorm_train if train else (lambda q, y: (L.batchnorm(q, y), q))
+    outs, new_bank = [], []
+    for lp in p["bank"]:
+        y, nb = bn(lp["bn"], torch.relu(L.conv1d(lp["conv"], x)))
+        outs.append(y)
+        new_bank.append(dict(lp, bn=nb))
+    y = L.max_pool_same(torch.cat(outs, dim=-1), cfg.cbhg_pool_size)
+    y, nbn1 = bn(p["proj1"]["bn"], torch.relu(L.conv1d(p["proj1"]["conv"], y)))
+    y, nbn2 = bn(p["proj2"]["bn"], L.conv1d(p["proj2"]["conv"], y))
+    y = L.dense(p["highway_in"], y + x)
+    for hp in p["highways"]:
+        y = L.highway(hp, y)
+    fw = L.gru_scan(p["gru_fw"], y)
+    bw = torch.flip(L.gru_scan(p["gru_bw"], torch.flip(y, dims=[1])), dims=[1])
+    linear = L.dense(params["linear_projection"], torch.cat([fw, bw], dim=-1))
+    new_p = dict(p, bank=new_bank, proj1=dict(p["proj1"], bn=nbn1), proj2=dict(p["proj2"], bn=nbn2))
+    return linear, new_p
+
+
 def _clip_mel(x: torch.Tensor, cfg: TacotronModelConfig) -> torch.Tensor:
     """Output clipping (reference tacotron.py:111-112,119-122)."""
     if not cfg.clip_outputs:
@@ -254,16 +298,19 @@ def forward_inference(
     seeds,
     max_iters: int | None = None,
 ) -> TacotronOutput:
-    """Autoregressive inference.  ``seeds`` [B]: row b's prenet dropout
-    depends only on seeds[b], so a row decodes the same alone or batched."""
-    if cfg.predict_linear:
-        raise NotImplementedError("the CBHG mel->linear head is not ported yet (ROADMAP.md, queue item 12)")
-    memory = encode(params, cfg, inputs, input_lengths)
-    mem_mask = input_mask(input_lengths, inputs.shape[1])
-    frames, stops, aligns, stop_len = decode_autoregressive(params, cfg, memory, mem_mask, seeds, max_iters)
-    frames = _clip_mel(frames, cfg)
-    mel_out = _clip_mel(apply_postnet(params, cfg, frames), cfg)
-    return TacotronOutput(frames, mel_out, stops, aligns, stop_len)
+    """Autoregressive inference, in full f32 (``P.fp32_precision``: no
+    TF32 in cuDNN's convolutions and GRUs).  ``seeds`` [B]: row b's prenet
+    dropout depends only on seeds[b], so a row decodes the same alone or
+    batched.  With ``predict_linear`` the CBHG head runs on the clipped
+    postnet output (``linear_outputs``)."""
+    with P.fp32_precision():
+        memory = encode(params, cfg, inputs, input_lengths)
+        mem_mask = input_mask(input_lengths, inputs.shape[1])
+        frames, stops, aligns, stop_len = decode_autoregressive(params, cfg, memory, mem_mask, seeds, max_iters)
+        frames = _clip_mel(frames, cfg)
+        mel_out = _clip_mel(apply_postnet(params, cfg, frames), cfg)
+        linear = apply_cbhg(params, cfg, mel_out) if cfg.predict_linear else None
+    return TacotronOutput(frames, mel_out, stops, aligns, stop_len, linear)
 
 
 # ---------------------------------------------------------------------------
@@ -416,9 +463,9 @@ def forward_teacher_forced(
     """Teacher-forced forward -> (TacotronOutput, params with the updated
     BN statistics; eval mode returns them unchanged).  The masks (and the
     scheduled-sampling draws when ``teacher_forcing_ratio`` < 1) come from
-    ``rand``, else are drawn from ``generator`` (required then)."""
-    if cfg.predict_linear:
-        raise NotImplementedError("the CBHG mel->linear head is not ported yet (ROADMAP.md, queue item 12)")
+    ``rand``, else are drawn from ``generator`` (required then).  With
+    ``predict_linear`` the CBHG head runs on the clipped postnet output, in
+    train mode when ``train`` (its BN statistics updated)."""
     if rand is None:
         if generator is None:
             raise ValueError("forward_teacher_forced needs rand or a torch.Generator")
@@ -439,7 +486,13 @@ def forward_teacher_forced(
         mel_out, new_post = apply_postnet(params, cfg, frames), params["postnet"]
     mel_out = _clip_mel(mel_out, cfg)
     new_params = dict(params, enc_convs=new_convs, postnet=new_post)
-    return TacotronOutput(frames, mel_out, stops, aligns), new_params
+    linear = None
+    if cfg.predict_linear:
+        if train:
+            linear, new_params["cbhg"] = apply_cbhg_train(params, cfg, mel_out)
+        else:
+            linear = apply_cbhg(params, cfg, mel_out)
+    return TacotronOutput(frames, mel_out, stops, aligns, None, linear), new_params
 
 
 def tacotron_loss(
@@ -452,13 +505,22 @@ def tacotron_loss(
     reg_weight: float = 1e-6,
     mask_decoder: bool = False,
     stop_pos_weight: float = 1.0,
+    linear_targets: torch.Tensor | None = None,
+    sample_rate: int = 22050,
     loss_frames: torch.Tensor | None = None,
 ):
     """before/after MSE + stop cross-entropy + L2 (reference
     tacotron.py:195-253) -> (loss, aux dict).  ``mask_decoder`` takes the
     masked variants (modules.py:403-485, the only branch that weights the
     positive stop class); ``loss_frames`` [B] drops the frames past each
-    batch's reference length (bucket padding)."""
+    batch's reference length (bucket padding).
+
+    With ``linear_targets`` [B, T, F] and the head's ``linear_outputs``,
+    the linear L1 term (half over every bin, half over the bins below 2
+    kHz, ``int(2000 / (sample_rate / 2) * F)``) is added as ``aux["linear"]``,
+    with the JAX package's quirks: under ``mask_decoder`` both halves
+    divide by the full-band ``sum(mask) * F`` (modules.py:457-485); under
+    ``loss_frames`` the low-band half divides by ``n * n_priority``."""
     T = mel_targets.shape[1]
     ar = torch.arange(T, device=mel_targets.device)[None, :]
     M = mel_targets.shape[-1]
@@ -482,7 +544,25 @@ def tacotron_loss(
         stop_loss = torch.sum(_weighted_sigmoid_ce(stop_targets, out.stop_logits, 1.0) * fmask) / n
     reg = reg_weight * l2_regularizables(params)
     loss = before + after + stop_loss + reg
-    aux = {"before": before, "after": after, "stop": stop_loss, "reg": reg, "loss": loss}
+    aux = {"before": before, "after": after, "stop": stop_loss, "reg": reg}
+    if linear_targets is not None and out.linear_outputs is not None:
+        l1 = torch.abs(linear_targets - out.linear_outputs)
+        Fq = linear_targets.shape[-1]
+        n_priority = int(2000 / (sample_rate * 0.5) * Fq)
+        if mask_decoder:
+            m3 = (ar < target_lengths[:, None]).to(torch.float32)[..., None]
+            denom = torch.sum(m3) * Fq
+            linear_loss = 0.5 * torch.sum(l1 * m3) / denom + 0.5 * torch.sum((l1 * m3)[:, :, :n_priority]) / denom
+        elif loss_frames is None:
+            linear_loss = 0.5 * torch.mean(l1) + 0.5 * torch.mean(l1[:, :, :n_priority])
+        else:
+            f3 = (ar < loss_frames[:, None]).to(torch.float32)[..., None]
+            n = torch.clamp_min(torch.sum(f3), 1.0)
+            linear_loss = (0.5 * torch.sum(l1 * f3) / (n * Fq)
+                           + 0.5 * torch.sum((l1 * f3)[:, :, :n_priority]) / (n * n_priority))
+        loss = loss + linear_loss
+        aux["linear"] = linear_loss
+    aux["loss"] = loss
     return loss, aux
 
 

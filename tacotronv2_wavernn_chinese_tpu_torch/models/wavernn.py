@@ -22,12 +22,10 @@ samples of a window would issue tens of thousands of launches a step.
 from __future__ import annotations
 
 import functools
-import warnings
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.func import functional_call
 
 from ..config import WaveRNNGenConfig, WaveRNNModelConfig
 from ..dsp.mulaw import label_2_float, mu_law_expand
@@ -137,20 +135,9 @@ def upsample_train(params: Params, cfg: WaveRNNModelConfig, mels: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def gru_sequence(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """A GRU over [B, T, in] from a zero state -> [B, T, H], through torch's
-    fused GRU with the tree's weights (``weight_ih = wi.T``, ``weight_hh =
-    wh.T``): gates r, z, n with n = tanh(i_n + r * (h @ wh + bh)_n), as
-    the JAX ``_gru_cell``."""
-    H = p["wh"].shape[0]
-    shell = torch.nn.GRU(x.shape[-1], H, batch_first=True, device="meta")
-    weights = {"weight_ih_l0": p["wi"].t().contiguous(), "weight_hh_l0": p["wh"].t().contiguous(),
-               "bias_ih_l0": p["bi"], "bias_hh_l0": p["bh"]}
-    with warnings.catch_warnings():
-        # the weights are tensors of the tree, not one flattened buffer
-        warnings.filterwarnings("ignore", message="RNN module weights are not part")
-        out, _ = functional_call(shell, weights, (x,))
-    return out
+# the GRU over a window (``layers.gru_scan``), under the name
+# tools/torch_wavernn_step_precision.py calls
+gru_sequence = L.gru_scan
 
 
 def forward(params: Params, cfg: WaveRNNModelConfig, x: torch.Tensor, mels: torch.Tensor, train: bool):
@@ -167,8 +154,8 @@ def forward(params: Params, cfg: WaveRNNModelConfig, x: torch.Tensor, mels: torc
         (mels_up, aux), new_params = upsample(params, cfg, mels), params
     a1, a2, a3, a4 = torch.split(aux, aux_d, dim=-1)
     h = L.dense(params["I"], torch.cat([x[..., None], mels_up, a1], dim=-1))  # [B, T, rnn]
-    h = gru_sequence(params["gru1"], h) + h
-    h = gru_sequence(params["gru2"], torch.cat([h, a2], dim=-1)) + h
+    h = L.gru_scan(params["gru1"], h) + h
+    h = L.gru_scan(params["gru2"], torch.cat([h, a2], dim=-1)) + h
     h = torch.relu(L.dense(params["fc1"], torch.cat([h, a3], dim=-1)))
     h = torch.relu(L.dense(params["fc2"], torch.cat([h, a4], dim=-1)))
     return L.dense(params["fc3"], h), new_params

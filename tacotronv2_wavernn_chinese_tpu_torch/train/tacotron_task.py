@@ -12,7 +12,9 @@ loss, autograd backward (K4 on the kernel route), clipping, Adam, and the
 BN moving statistics of the forward written back, as the JAX package's
 ``optax.apply_updates(new_params, updates)`` does.  The step returns a new
 params tree (tensors are not updated in place).  ``mixed_precision``
-casts the weights to bf16 inside the loss (``utils/precision.py``).
+casts the weights to bf16 inside the loss (``utils/precision.py``).  The
+train and eval steps run in full f32 (``utils.precision.fp32_precision``:
+no TF32 in cuDNN's convolutions or in the CBHG head's GRUs).
 """
 
 from __future__ import annotations
@@ -142,6 +144,7 @@ def loss_fn(params, cfg: Config, batch: dict, generator: torch.Generator, train:
         out, batch["mel_targets"], batch["stop_targets"], batch["target_lengths"],
         new_params if tc.mixed_precision else params, cfg.tacotron,
         reg_weight=_reg_weight(cfg), mask_decoder=tc.mask_decoder, stop_pos_weight=tc.stop_pos_weight,
+        linear_targets=batch.get("linear_targets"), sample_rate=cfg.audio.sample_rate,
         loss_frames=batch.get("loss_frames"),
     )
     return loss, (aux, new_params, out)
@@ -181,10 +184,11 @@ def apply_gradients(state: TrainState, new_params, grads, cfg: Config):
 def train_step(state: TrainState, batch: dict, generator: torch.Generator, cfg: Config):
     """One optimization step -> (new state, metrics of floats).  The step's
     masks are drawn from ``generator``."""
-    _, aux, new_params, grads = compute_grads(state.params, cfg, batch, generator, state.step)
-    new_state, norm, lr = apply_gradients(state, new_params, grads, cfg)
-    names = list(aux) + ["grad_norm"]
-    values = torch.stack([aux[k].detach().reshape(()) for k in aux] + [norm.reshape(())]).tolist()
+    with P.fp32_precision():
+        _, aux, new_params, grads = compute_grads(state.params, cfg, batch, generator, state.step)
+        new_state, norm, lr = apply_gradients(state, new_params, grads, cfg)
+        names = list(aux) + ["grad_norm"]
+        values = torch.stack([aux[k].detach().reshape(()) for k in aux] + [norm.reshape(())]).tolist()
     metrics = dict(zip(names, values))
     metrics["lr"] = lr
     return new_state, metrics
@@ -203,6 +207,6 @@ def train_step_many(state: TrainState, batches: list, generator: torch.Generator
 
 def eval_step(params, batch: dict, cfg: Config, generator: torch.Generator):
     """Teacher-forced eval (no gradients): aux losses + outputs."""
-    with torch.no_grad():
+    with P.fp32_precision(), torch.no_grad():
         _, (aux, _, out) = loss_fn(params, cfg, batch, generator, train=False)
     return aux, out

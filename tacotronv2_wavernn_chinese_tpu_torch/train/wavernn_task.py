@@ -9,7 +9,7 @@ the BatchNorm running statistics come from the forward and take no Adam
 step (``optax.apply_updates(new_params, updates)``; their gradients are
 zero, so their updates are too).  The step returns a new params tree.
 
-Precision: every step runs in full f32 (``fp32_precision("ieee")``):
+Precision: every step runs in full f32 (``utils.precision.fp32_precision``):
 TF32 is off for matmuls and for cuDNN's convolutions and GRUs, set through
 torch's per-operator flags, scoped to the step and restored after it,
 never set at import.  The step's gradients are piecewise smooth: a ReLU of
@@ -31,8 +31,6 @@ tests' tolerance where the gradients agree.
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
 from ..config import Config
@@ -40,24 +38,8 @@ from ..models import wavernn as W
 from ..utils import precision as P
 from ..utils import tree_leaves, tree_map
 from ..utils.checkpoints import init_wavernn
+from ..utils.precision import fp32_precision
 from .tacotron_task import TrainState, adam_init, clip_by_global_norm
-
-
-@contextlib.contextmanager
-def fp32_precision(mode: str = "ieee"):
-    """f32 matmuls and cuDNN convolutions and RNNs in ``mode`` ("ieee":
-    full f32, "tf32") inside the block; the previous flags are restored on
-    exit.  Uses the per-operator flags only: torch refuses to read the
-    legacy ``allow_tf32`` once they differ."""
-    flags = (torch.backends.cuda.matmul, torch.backends.cudnn.conv, torch.backends.cudnn.rnn)
-    prev = [f.fp32_precision for f in flags]
-    for f in flags:
-        f.fp32_precision = mode
-    try:
-        yield
-    finally:
-        for f, p in zip(flags, prev):
-            f.fp32_precision = p
 
 
 def init_state(seed: int, cfg: Config, device) -> TrainState:

@@ -14,7 +14,7 @@ compiles the step program there; eagerly, the warm step moves the first
 call's CUDA and cuDNN set-up out of the timed loop).  The data-parallel
 mesh is not ported (ROADMAP.md, queue item 12): training runs on one
 device, the card unless ``--device cpu`` is asked for.  Every step runs in
-full f32 (``wavernn_task.fp32_precision``).
+full f32 (``utils.precision.fp32_precision``).
 
 Usage:
     python -m tacotronv2_wavernn_chinese_tpu_torch.train.wavernn_train \\

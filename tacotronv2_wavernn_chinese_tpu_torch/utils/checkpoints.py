@@ -274,10 +274,8 @@ class _Init:
 
 def init_tacotron(seed: int, cfg: TacotronModelConfig, device="cpu") -> Params:
     """Random Tacotron-2 params with the JAX init's tree and shapes, for
-    every attention mode and every r (the CBHG head is not ported yet, see
-    ROADMAP.md, queue item 12)."""
-    if cfg.predict_linear:
-        raise NotImplementedError("the CBHG mel->linear head is not ported yet (ROADMAP.md, queue item 12)")
+    every attention mode and every r, with the CBHG mel->linear head
+    (``cbhg`` and ``linear_projection``) under ``predict_linear``."""
     g = _Init(seed, device)
     enc_out = 2 * cfg.encoder_lstm_units
     M, r = 80, cfg.outputs_per_step
@@ -286,7 +284,7 @@ def init_tacotron(seed: int, cfg: TacotronModelConfig, device="cpu") -> Params:
     for s in cfg.prenet_layers:
         prenet.append(g.dense(d, s))
         d = s
-    return {
+    params = {
         "embedding": g.uniform((cfg.vocab_size, cfg.embedding_dim), 0.5),
         "enc_convs": g.conv_stack(
             cfg.enc_conv_layers, cfg.enc_conv_kernel, cfg.embedding_dim, cfg.enc_conv_channels
@@ -301,6 +299,32 @@ def init_tacotron(seed: int, cfg: TacotronModelConfig, device="cpu") -> Params:
         "stop_projection": g.dense(cfg.decoder_lstm_units + enc_out, r),
         "postnet": g.conv_stack(cfg.postnet_layers, cfg.postnet_kernel, M, cfg.postnet_channels),
         "postnet_projection": g.dense(cfg.postnet_channels, M),
+    }
+    if cfg.predict_linear:
+        params["cbhg"] = _init_cbhg(g, cfg, M)
+        # 1025 bins whatever audio.num_freq says, as the JAX init has it
+        params["linear_projection"] = g.dense(2 * cfg.cbhg_rnn_units, 1025)
+    return params
+
+
+def _init_cbhg(g: _Init, cfg: TacotronModelConfig, in_dim: int) -> Params:
+    """The CBHG head's params (JAX models/tacotron.py init_cbhg): a bank of
+    convolutions of widths 1..K, two projections, the highway input
+    projection and layers (gate bias -1), a forward and a backward GRU."""
+    ch, proj, hw = cfg.cbhg_conv_channels, cfg.cbhg_projection, cfg.cbhg_highway_units
+    highways = []
+    for _ in range(cfg.cbhg_highwaynet_layers):
+        t = g.dense(hw, hw)
+        t["b"] = g.full((hw,), -1.0)
+        highways.append({"h": g.dense(hw, hw), "t": t})
+    return {
+        "bank": [{"conv": g.conv(k, in_dim, ch), "bn": g.bn(ch)} for k in range(1, cfg.cbhg_kernels + 1)],
+        "proj1": {"conv": g.conv(3, cfg.cbhg_kernels * ch, proj), "bn": g.bn(proj)},
+        "proj2": {"conv": g.conv(3, proj, in_dim), "bn": g.bn(in_dim)},
+        "highway_in": g.dense(in_dim, hw),
+        "highways": highways,
+        "gru_fw": g.gru(hw, cfg.cbhg_rnn_units),
+        "gru_bw": g.gru(hw, cfg.cbhg_rnn_units),
     }
 
 

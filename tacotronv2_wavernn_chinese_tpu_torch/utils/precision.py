@@ -32,6 +32,7 @@ master, so the master never round-trips through bf16.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 import torch
@@ -85,3 +86,22 @@ def cast_to_float32(tree: Any) -> Any:
     if isinstance(tree, (dict, list, tuple)):
         return tree_map(up, tree)
     return up(tree)
+
+
+@contextlib.contextmanager
+def fp32_precision(mode: str = "ieee"):
+    """f32 matmuls and cuDNN convolutions and RNNs in ``mode`` ("ieee":
+    full f32, "tf32") inside the block; the previous flags are restored on
+    exit.  Uses the per-operator flags only: torch refuses to read the
+    legacy ``allow_tf32`` once they differ.  The Tacotron entry points
+    (``forward_inference``, the train and eval steps) and the WaveRNN steps
+    run inside it; the building blocks follow their caller's flags."""
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn.conv, torch.backends.cudnn.rnn)
+    prev = [f.fp32_precision for f in flags]
+    for f in flags:
+        f.fp32_precision = mode
+    try:
+        yield
+    finally:
+        for f, p in zip(flags, prev):
+            f.fp32_precision = p

@@ -30,7 +30,8 @@ from tacotronv2_wavernn_chinese_tpu_torch.config import default_config
 from tacotronv2_wavernn_chinese_tpu_torch.data import loader as PL
 from tacotronv2_wavernn_chinese_tpu_torch.data import preprocess as PP
 from tacotronv2_wavernn_chinese_tpu_torch.infer import gta as PGTA
-from tacotronv2_wavernn_chinese_tpu_torch.utils.checkpoints import save_params_npz
+from tacotronv2_wavernn_chinese_tpu_torch.models import tacotron as PT
+from tacotronv2_wavernn_chinese_tpu_torch.utils.checkpoints import init_tacotron, save_params_npz
 
 TEXTS = ["你好，欢迎使用语音合成系统。", "今天天气很好。", "这是第3个测试句子。"]
 TINY = ("tacotron.embedding_dim=16,tacotron.enc_conv_channels=16,tacotron.enc_conv_layers=1,"
@@ -182,3 +183,28 @@ def test_gta_shards_merge_to_the_whole(gta, corpus):
         pred = line.split("|")[2]
         np.testing.assert_allclose(np.load(os.path.join(out, pred)), np.load(os.path.join(root, "port", pred)),
                                    atol=1e-5)
+
+
+def test_gta_with_the_cbhg_head(gta, corpus, tmp_path, monkeypatch):
+    """A predict_linear model (the fixture's weights plus a head) runs the
+    head in GTA's eval forward, once per batch, and writes the predicted
+    mels of the same model without it."""
+    root, meta, _, params, _, gp = gta
+    cfg = default_config().override(TINY + ",tacotron.predict_linear=true,tacotron.cbhg_kernels=4,"
+                                    "tacotron.cbhg_conv_channels=8,tacotron.cbhg_projection=8,"
+                                    "tacotron.cbhg_highway_units=8,tacotron.cbhg_rnn_units=8")
+    head = init_tacotron(1, cfg.tacotron)
+    params = dict(params, cbhg=head["cbhg"], linear_projection=head["linear_projection"])
+    calls = []
+    real = PT.apply_cbhg
+    monkeypatch.setattr(PT, "apply_cbhg", lambda *a: calls.append(real(*a).shape) or real(*a))
+    path = PGTA.generate_gta(cfg, params, meta, corpus[2], str(tmp_path), batch_size=2, log=lambda m: None,
+                             device="cpu")
+    assert [c[-1] for c in calls] == [1025, 1025]
+    with open(path, encoding="utf-8") as f, open(gp, encoding="utf-8") as g:
+        lines = f.read().splitlines()
+        assert lines == g.read().splitlines()
+    for line in lines:
+        pred = line.split("|")[2]
+        np.testing.assert_array_equal(np.load(os.path.join(str(tmp_path), pred)),
+                                      np.load(os.path.join(root, "port", pred)))

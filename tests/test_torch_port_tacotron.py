@@ -185,8 +185,9 @@ def test_unported_options_raise():
     TDK.check_supported(dataclasses.replace(_cfg(0.0), attention_mode="lsa", synthesis_constraint=True))
 
 
-def test_init_tacotron_has_the_jax_tree_shapes():
-    cfg = default_config().tacotron
+@pytest.mark.parametrize("predict_linear", [False, True], ids=["mel", "cbhg_head"])
+def test_init_tacotron_has_the_jax_tree_shapes(predict_linear):
+    cfg = dataclasses.replace(default_config().tacotron, predict_linear=predict_linear)
     jshapes = jax.tree_util.tree_map(lambda a: tuple(a.shape), jax.eval_shape(
         lambda: JT.init_tacotron(jax.random.PRNGKey(0), cfg)))
     t = init_tacotron(0, cfg, device="meta")

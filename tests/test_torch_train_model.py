@@ -24,7 +24,7 @@ from tacotronv2_wavernn_chinese_tpu.models import tacotron as JT
 from tacotronv2_wavernn_chinese_tpu_torch.models import tacotron as TT
 from tacotronv2_wavernn_chinese_tpu_torch.train import tacotron_task as TTask
 from tacotronv2_wavernn_chinese_tpu_torch.utils import tree_leaves, tree_map
-from tacotronv2_wavernn_chinese_tpu_torch.utils.checkpoints import tacotron_from_numpy
+from tacotronv2_wavernn_chinese_tpu_torch.utils.checkpoints import init_tacotron, tacotron_from_numpy
 
 B, T_IN, T_OUT = 3, 16, 20
 LENS = [16, 11, 6]
@@ -179,14 +179,20 @@ def test_train_mode_with_jax_masks_injected(setup, fused_decoder):
 
 
 def test_unported_options_raise(setup):
-    """The CBHG head is the one training option still to port; other
+    """No training option is left unported: the CBHG head, the last one
+    that raised here, now returns its linear outputs [B, T, 1025] from the
+    same call (held against JAX in tests/test_torch_port_cbhg.py); other
     attention modes, smoothing, scheduled sampling and mixed precision are
     held against JAX in tests/test_torch_train_{attention_modes,scheduled,
     mixed_precision}.py."""
     params, batch = setup
+    tac = dataclasses.replace(_cfg().tacotron, predict_linear=True)
     tp = tacotron_from_numpy(jax.device_get(params), _cfg().tacotron)
+    tp.update({k: v for k, v in init_tacotron(1, tac).items() if k in ("cbhg", "linear_projection")})
     tb = {k: torch.as_tensor(v) for k, v in batch.items()}
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.forward_teacher_forced(tp, dataclasses.replace(_cfg().tacotron, predict_linear=True),
-                                  tb["inputs"], tb["input_lengths"], tb["mel_targets"], True, generator=gen)
+    out, new = TT.forward_teacher_forced(tp, tac, tb["inputs"], tb["input_lengths"], tb["mel_targets"], True,
+                                         generator=gen)
+    assert out.linear_outputs.shape == tb["mel_targets"].shape[:2] + (1025,)
+    assert bool(torch.isfinite(out.linear_outputs).all())
+    assert not torch.equal(new["cbhg"]["proj1"]["bn"]["var"], tp["cbhg"]["proj1"]["bn"]["var"])

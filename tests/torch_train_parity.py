@@ -128,16 +128,23 @@ def _at(tree, path):
     return tree
 
 
-_jax_grad = jax.jit(jax.value_and_grad(JTask.loss_fn, has_aux=True), static_argnums=(1, 4, 5))
+def jax_grad_fn(**compiler_options):
+    """JAX's ``loss_fn`` and its gradient, jitted with XLA ``compiler_options``."""
+    return jax.jit(jax.value_and_grad(JTask.loss_fn, has_aux=True), static_argnums=(1, 4, 5),
+                   compiler_options=compiler_options or None)
 
 
-def run_step(jcfg, tcfg, params, batch, key=9, train=True, ratio=1.0):
+_jax_grad = jax_grad_fn()
+
+
+def run_step(jcfg, tcfg, params, batch, key=9, train=True, ratio=1.0, jax_grad=_jax_grad):
     """One loss and gradient on each side, the port with JAX's masks ->
     dict of JAX and port loss, aux, new params, output and gradients (the
-    port's as a {JAX key path: array} dict)."""
+    port's as a {JAX key path: array} dict).  ``jax_grad`` is JAX's side
+    (``jax_grad_fn``)."""
     rng = jax.random.PRNGKey(key)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    (jloss, (jaux, jnew, jout)), jgrads = _jax_grad(params, jcfg, jb, rng, train, ratio)
+    (jloss, (jaux, jnew, jout)), jgrads = jax_grad(params, jcfg, jb, rng, train, ratio)
     rand = jax_masks(params, jcfg, rng, batch, train, ratio)
     leaves = tree_map(lambda a: a.clone().requires_grad_(True), tacotron_from_numpy(params, tcfg.tacotron))
     tb = {k: torch.as_tensor(v) for k, v in batch.items()}
@@ -165,12 +172,14 @@ def grad_error(res) -> float:
 
 
 def assert_step_matches(res, loss_rtol=LOSS_RTOL, grad_atol=GRAD_ATOL, stat_rtol=STAT_RTOL, train=True,
-                        stat_scale=0.0):
-    """Loss, aux terms, every gradient leaf (``grad_atol`` x its max|g|) and
-    the BN statistics (``stat_rtol``, plus ``stat_scale`` x the vector's
-    max) against JAX."""
+                        stat_scale=0.0, n_bn=4):
+    """Loss, aux terms (the linear term too where JAX has one), every
+    gradient leaf (``grad_atol`` x its max|g|) and the BN statistics
+    (``stat_rtol``, plus ``stat_scale`` x the vector's max) of ``n_bn``
+    BatchNorm layers against JAX."""
     np.testing.assert_allclose(res["loss"], res["jloss"], rtol=loss_rtol)
-    for k in ("before", "after", "stop", "reg"):
+    assert res["aux"].keys() == res["jaux"].keys()
+    for k in sorted(res["jaux"].keys() - {"loss"}):
         np.testing.assert_allclose(float(res["aux"][k].detach()), float(res["jaux"][k]), rtol=loss_rtol, atol=1e-7,
                                    err_msg=k)
     for p, a in jax.tree_util.tree_flatten_with_path(res["jgrads"])[0]:
@@ -187,7 +196,7 @@ def assert_step_matches(res, loss_rtol=LOSS_RTOL, grad_atol=GRAD_ATOL, stat_rtol
             np.testing.assert_allclose(_at(res["new"], p).detach().numpy(), a, rtol=stat_rtol,
                                        atol=1e-6 + stat_scale * float(np.abs(a).max()),
                                        err_msg=f"BN statistic {jax.tree_util.keystr(p)}")
-    assert n_stats == 8  # mean and var of 2 encoder convs and 2 postnet convs
+    assert n_stats == 2 * n_bn  # mean and var of 2 encoder convs, 2 postnet convs (and the head's)
     if train:  # the forward moved the statistics
         assert not np.allclose(res["new"]["postnet"]["layers"][0]["bn"]["var"].detach().numpy(),
                                res["params"]["postnet"]["layers"][0]["bn"]["var"])
