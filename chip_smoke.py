@@ -130,6 +130,28 @@ Phases, each printing its lines before the next starts:
            2,000 samples with the same injected Gumbel draws (equal, a row
            diverging only after a CPU top-2 gap < 1e-5 of the top), us a
            sample
+  parallel
+           parallel/ at the default width: (i) a world of 1 over NCCL in
+           this process, the data-parallel Tacotron step (B=32, T_in=160,
+           T=608; K3/K4 once each) and WaveRNN step (B=32 x 1,375) against
+           the plain steps, bit-equal where two plain steps are (else params
+           2e-6, loss 1e-5 relative); (ii) two ranks spawned on the one card over
+           gloo (NCCL takes one rank a card): the data-parallel Tacotron step
+           at 16 + 16 rows with lengths uneven across the halves, at
+           mask_decoder False and True, against the one-process step at 32
+           rows with the same masks, the ranks' ReLUs pinned to its pattern
+           (loss 1e-5 relative, gradients 1e-3 of max|g|, BN statistics
+           1e-5 |x| + 1e-6; K3/K4 1/1 a rank); run_training over both ranks,
+           two steps with a checkpoint each and a resume (rank 0 alone
+           writes and logs); fold-sharded generation of a served mel (16
+           folds, 8 a rank, K1 once a rank a call): greedy labels equal to
+           one process but after a near-tie, sampled ones equal to one
+           process at the rank-folded seed, the sharded crossfade within
+           1e-4 of the host's; WaveRNN dp=1 x tp=2 at the default width on
+           the unsharded step's ReLU pattern (loss 1e-4 relative, gradients
+           within the wavernn train phase's f32 bound of the float64 step,
+           the shards in place after two steps); each rank's ms by CUDA
+           events (two ranks time-slice one card: no scaling figure)
   kernels  each kernel against its plain version again at the shapes the
            serve and train paths gave it: times, bounds, errors; one JSON
            line, with each kernel's launches on every path that ran it
@@ -2374,6 +2396,408 @@ def run_cbhg_variants(cfg, dev, smi: str, batch: dict, wavernn_params, corpus_me
 
 
 # ---------------------------------------------------------------------------
+# parallel: data-parallel training, fold-sharded generation, WaveRNN DP x TP
+# ---------------------------------------------------------------------------
+
+PAR_WORLD = 2
+PAR_SHAPE = (32, 160, 608)  # B, T_in, T of the data-parallel Tacotron step (16 rows a rank)
+PAR_TP_BATCH = 4
+PAR_SEED = 81
+# (loss relative, gradient / max|g|, BN statistic |d| <= rel |x| + abs): the
+# trainer gates of the train configs phase and the head's statistics gate
+PAR_TOL = {"loss": 1e-5, "grad": 1e-3, "stat": (1e-5, 1e-6), "tp_loss": 1e-4, "xfade": 1e-4,
+           "params": 2e-6}  # params after one step: the optimizer tests' tolerance
+
+
+def par_taco_batch(cfg, dev, shape) -> dict:
+    """The data-parallel step's batch (``shape`` B, T_in, T): rows ragged
+    and longer in the first half (rank 0's), ``loss_frames`` at each row's
+    target length, so every loss branch's denominators differ between the
+    ranks."""
+    B, T_in, T = shape
+    b = tc_small_batch(cfg, dev, PAR_SEED, B=B, T_in=T_in, T=T)
+    return dict(b, loss_frames=b["target_lengths"].clone())
+
+
+def par_wavernn_batch(cfg, dev, seed: int, B: int) -> dict:
+    """Vocoder windows of the training shape (1,375 samples at the default
+    config) from a numpy seed."""
+    import torch
+
+    wc, a = cfg.wavernn_train, cfg.audio
+    rng = np.random.default_rng(seed)
+    T = wc.seq_len_hops * a.hop_size
+    t = lambda x: torch.as_tensor(x, device=dev)
+    return {"x": t(rng.uniform(-1, 1, (B, T)).astype(np.float32)),
+            "y": t(rng.integers(0, 2 ** a.bits, (B, T))),
+            "mels": t(rng.uniform(0, 1, (B, wc.seq_len_hops + 2 * cfg.wavernn.pad, a.num_mels)).astype(np.float32))}
+
+
+def rank_rows(mask, B: int, rank: int, world: int):
+    """A rank's rows of a ReLU pattern recorded on the global batch: the
+    block of its batch dim (the one dim of size ``B``)."""
+    dims = [d for d, n in enumerate(mask.shape) if n == B]
+    assert len(dims) == 1, (tuple(mask.shape), B)
+    k = B // world
+    return mask.narrow(dims[0], rank * k, k)
+
+
+def _timed(fn, dev):
+    """(fn(), ms by CUDA events; 0.0 on the CPU)."""
+    import torch
+
+    if dev.type != "cuda":
+        return fn(), 0.0
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    r = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return r, e0.elapsed_time(e1)
+
+
+def parallel_rank(rank: int, world: int, work: str) -> None:
+    """One rank of the phase's two-rank world (gloo over the one card):
+    the data-parallel Tacotron step at both ``mask_decoder`` settings, its
+    ReLUs pinned to the one-process step's rows; ``run_training`` with a
+    resume; fold-sharded generation; the TP step.  Writes ``rank<r>.pt``."""
+    import torch
+
+    from tacotronv2_wavernn_chinese_tpu_torch import ops
+    from tacotronv2_wavernn_chinese_tpu_torch.parallel import distributed as D
+    from tacotronv2_wavernn_chinese_tpu_torch.parallel import generate as G
+    from tacotronv2_wavernn_chinese_tpu_torch.parallel import mesh as PM
+    from tacotronv2_wavernn_chinese_tpu_torch.parallel import tp as TP
+    from tacotronv2_wavernn_chinese_tpu_torch.train import tacotron_task as task
+    from tacotronv2_wavernn_chinese_tpu_torch.train import tacotron_train as TR
+    from tacotronv2_wavernn_chinese_tpu_torch.train import wavernn_task as WT
+    from tacotronv2_wavernn_chinese_tpu_torch.utils import precision as P
+    from tacotronv2_wavernn_chinese_tpu_torch.utils import tree_leaves
+    from tacotronv2_wavernn_chinese_tpu_torch.utils.checkpoints import (
+        init_tacotron, init_wavernn, load_params_npz, wavernn_from_numpy,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = torch.load(os.path.join(work, "spec.pt"), weights_only=False)
+    cfg, on_cpu = spec["cfg"], spec["device"] == "cpu"
+    D.initialize(f"file://{os.path.join(work, 'rendezvous')}", world, rank, backend="gloo",
+                 device="cpu" if on_cpu else None)
+    dev = torch.device("cpu") if on_cpu else torch.device("cuda", torch.cuda.current_device())
+    D.build_kernels(dev)
+    mesh = PM.make_mesh()
+    out = {"device": str(dev)}
+
+    # the data-parallel Tacotron step, 16 of 32 rows a rank
+    B = spec["shape"][0]
+    params = init_tacotron(PAR_SEED, cfg.tacotron, device=dev)
+    local = PM.shard_batch(mesh, par_taco_batch(cfg, dev, spec["shape"]))
+    rows = [rank_rows(m, B, rank, world) for m in spec["taco_relus"]]
+    for md in (False, True):
+        ccfg = cfg.override(f"tacotron_train.mask_decoder={md}")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(PAR_SEED)
+        ops.reset_launch_counts()
+        with relu_pattern(rows) as pat, P.fp32_precision(), PM.data_parallel(mesh):
+            (loss, aux, new, grads), ms = _timed(lambda: task.compute_grads(params, ccfg, local, gen, 0), dev)
+        out[f"taco_md{int(md)}"] = {
+            "loss": float(loss), "aux": {k: float(v) for k, v in aux.items()}, "ms": ms, "flips": pat.flips,
+            "grads": [g.detach().cpu() for g in tree_leaves(grads)],
+            "stats": {n: t.detach().cpu() for n, t in zip(leaf_names(new), tree_leaves(new)) if n.endswith(("bn/mean", "bn/var"))},
+            "launches": {k: ops.LAUNCHES[k] for k in ("tacotron_train_fwd", "tacotron_train_bwd")}}
+
+    # run_training, data-parallel: two steps with a checkpoint each, then a resume
+    logs: list = []
+    run_cfg = cfg.override("tacotron_train.checkpoint_interval=1,tacotron_train.summary_interval=1")
+    ops.reset_launch_counts()
+    t0 = time.time()
+    s1 = TR.run_training(run_cfg, spec["corpus_meta"], spec["corpus_dir"], spec["log_dir"], total_steps=2,
+                         device=dev, render_eval=False, log=logs.append)
+    s2 = TR.run_training(run_cfg, spec["corpus_meta"], spec["corpus_dir"], spec["log_dir"], total_steps=3,
+                         device=dev, render_eval=False, log=logs.append)
+    out["run"] = {"steps": [s1.step, s2.step], "logs": logs, "s": time.time() - t0,
+                  "launches": {k: ops.LAUNCHES[k] for k in ("tacotron_train_fwd", "tacotron_train_bwd")},
+                  "checksum": float(sum(float(t.double().sum()) for t in tree_leaves(s2.params)))}
+
+    # fold-sharded generation of the served mel: 16 folds, 8 a rank
+    wcfg, bits = cfg.wavernn, cfg.audio.bits
+    wp = wavernn_from_numpy(load_params_npz(spec["vocoder_npz"]), wcfg, dev, cfg.audio.num_mels, bits)
+    folds = torch.as_tensor(spec["folds"], device=dev)
+    ops.reset_launch_counts()
+    gen_out, gen_ms = {}, {}
+    with torch.no_grad():
+        for name, kw in (("greedy", dict(greedy=True)), ("sampled", dict(seed=spec["gen_seed"]))):
+            y, gen_ms[name] = _timed(lambda: G.generate_folds_sharded(wp, wcfg, mesh, folds, bits=bits,
+                                                                      apply_mu_law=False, **kw), dev)
+            gen_out[name] = y.cpu()
+        for xf in (True, False):
+            gen_out[f"dist_{xf}"], gen_ms[f"dist_{xf}"] = _timed(lambda: G.generate_distributed(
+                wp, wcfg, cfg.wavernn_gen, mesh, spec["mel"], seed=1, bits=bits, apply_mu_law=cfg.audio.mu_law,
+                device_crossfade=xf), dev)
+    out["gen"] = dict(gen_out, ms=gen_ms, launches=ops.LAUNCHES["wavernn_sample"])
+
+    # WaveRNN dp=1 x tp=2 at the default width
+    mesh2 = TP.make_mesh_2d(dp=1, tp=world)
+    wpt = init_wavernn(PAR_SEED + 1, wcfg, cfg.audio.num_mels, bits, device=dev)
+    state = TP.place_wavernn_state(mesh2, WT.TrainState(0, wpt, WT.adam_init(wpt)))
+    batches = [par_wavernn_batch(cfg, dev, PAR_SEED + i, spec["tp_batch"]) for i in range(2)]
+    with relu_pattern(spec["tp_relus"]) as pat, WT.fp32_precision(), PM.data_parallel(mesh2):
+        (loss, _, grads), tp_ms = _timed(lambda: WT.compute_grads(state.params, cfg, batches[0], mesh2), dev)
+    full = [g.detach().cpu().double() for g in tree_leaves(TP.gather_params(mesh2, grads))]
+    losses, step_ms = [], []
+    for b in batches:
+        (state, m), ms = _timed(lambda: WT.train_step(state, b, cfg, mesh2), dev)
+        losses.append(m["loss"])
+        step_ms.append(ms)
+    sp, so = state.params, state.opt_state
+    out["tp"] = {"loss": float(loss), "grads": full, "flips": pat.flips, "units": pat.units, "losses": losses,
+                 "ms": tp_ms, "step_ms": step_ms,
+                 "shapes": {"fc3/w": tuple(sp["fc3"]["w"].shape), "gru1/wi": tuple(sp["gru1"]["wi"].shape),
+                            "I/w": tuple(sp["I"]["w"].shape), "mu/fc3/w": tuple(so["mu"]["fc3"]["w"].shape),
+                            "nu/gru2/wh": tuple(so["nu"]["gru2"]["wh"].shape), "fc3/b": tuple(sp["fc3"]["b"].shape)}}
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    D.shutdown()
+
+
+def run_parallel(cfg, dev, smi: str, art: str, shape=PAR_SHAPE, w_batch: int = 32, tp_batch: int = PAR_TP_BATCH) -> dict:
+    """(i) A world of 1 (NCCL on the card), in this process: the
+    data-parallel Tacotron and WaveRNN steps against the plain steps, bit
+    for bit where the card repeats a plain step bit for bit.  (ii) Two ranks on the one card (gloo: NCCL takes one rank a
+    card), spawned: ``parallel_rank``'s checks against one-process
+    references computed here.  Returns what the kernels line needs."""
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from tacotronv2_wavernn_chinese_tpu_torch import ops
+    from tacotronv2_wavernn_chinese_tpu_torch.dsp import spectrogram as S
+    from tacotronv2_wavernn_chinese_tpu_torch.frontend import get_pyin
+    from tacotronv2_wavernn_chinese_tpu_torch.models import tacotron as TT
+    from tacotronv2_wavernn_chinese_tpu_torch.models import wavernn as W
+    from tacotronv2_wavernn_chinese_tpu_torch.ops import wavernn_kernel as WK
+    from tacotronv2_wavernn_chinese_tpu_torch.parallel import generate as G
+    from tacotronv2_wavernn_chinese_tpu_torch.parallel import mesh as PM
+    from tacotronv2_wavernn_chinese_tpu_torch.serving.export import load_exported
+    from tacotronv2_wavernn_chinese_tpu_torch.train import tacotron_task as task
+    from tacotronv2_wavernn_chinese_tpu_torch.train import wavernn_task as WT
+    from tacotronv2_wavernn_chinese_tpu_torch.utils import tree_leaves
+    from tacotronv2_wavernn_chinese_tpu_torch.utils.checkpoints import init_tacotron, init_wavernn
+
+    tag = "parallel"
+    work = os.path.join(HERE, "build", "chip_smoke_parallel")
+    if os.path.isdir(work):
+        shutil.rmtree(work)
+    os.makedirs(work)
+    B, T_in, T = shape
+    k34 = ("tacotron_train_fwd", "tacotron_train_bwd")
+    counts = lambda keys: {k: ops.LAUNCHES[k] for k in keys}
+    diff = lambda a, b: max(float((x - y).abs().max()) for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True))
+
+    # (i) a world of 1, in this process
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(work, "store1"), 1), rank=0, world_size=1)
+    try:
+        mesh1 = PM.make_mesh()
+        check(mesh1.size == 1, f"{tag}: a world of 1 made a mesh of {mesh1.size}")
+        tparams = init_tacotron(PAR_SEED, cfg.tacotron, device=dev)
+        batch = par_taco_batch(cfg, dev, shape)
+        wparams = init_wavernn(PAR_SEED, cfg.wavernn, cfg.audio.num_mels, cfg.audio.bits, device=dev)
+        wbatch = par_wavernn_batch(cfg, dev, PAR_SEED, w_batch)
+        # plain, data-parallel, plain again: the second plain step says
+        # whether the card repeats a step bit for bit
+        taco, wav = {}, {}
+        for name, m in (("plain", None), ("dp", mesh1), ("plain2", None)):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(PAR_SEED)
+            ops.reset_launch_counts()
+            st, met = task.train_step(task.TrainState(0, tparams, task.adam_init(tparams)), batch, gen, cfg, m)
+            taco[name] = (st.params, met, counts(k34))
+            st, met = WT.train_step(WT.TrainState(0, wparams, WT.adam_init(wparams)), wbatch, cfg, m)
+            wav[name] = (st.params, met)
+        flat = torch.cat([t.reshape(-1) for t in tree_leaves(taco["dp"][0])])
+        reduced = flat.clone()
+        dist.all_reduce(reduced)
+        ld = taco["dp"][2]
+        for model, r in (("Tacotron", taco), ("WaveRNN", wav)):
+            d_dp, d_rep = diff(r["dp"][0], r["plain"][0]), diff(r["plain2"][0], r["plain"][0])
+            same_metrics = r["dp"][1] == r["plain"][1]
+            phase(tag, f"world of 1 over {backend.upper()}: {model} step data-parallel vs plain: params max|d| "
+                  f"{d_dp:.3e}, metrics {'equal' if same_metrics else 'different'} (loss {r['dp'][1]['loss']!r} / "
+                  f"{r['plain'][1]['loss']!r}); two plain steps max|d| {d_rep:.3e}")
+            # bit-equal where the card repeats the plain step bit for bit; where
+            # it does not (atomics in a library's backward), at the train gates
+            loss_rel = abs(r["dp"][1]["loss"] - r["plain"][1]["loss"]) / abs(r["plain"][1]["loss"])
+            ok = (d_dp == 0.0 and same_metrics) if d_rep == 0.0 else (
+                d_dp <= PAR_TOL["params"] and loss_rel <= PAR_TOL["loss"])
+            check(ok, f"{tag}: the world-of-1 data-parallel {model} step is {d_dp:.3e} from the plain step, loss "
+                  f"{loss_rel:.2e} relative (two plain steps {d_rep:.3e})")
+        phase(tag, f"world of 1: Tacotron B={B} T_in={T_in} T={T}, K3/K4 launches {ld['tacotron_train_fwd']}/"
+              f"{ld['tacotron_train_bwd']}; WaveRNN B={w_batch} x {wbatch['x'].shape[1]}; the {flat.numel()}-float params "
+              f"buffer all-reduced over the world of 1 {'unchanged' if torch.equal(flat, reduced) else 'CHANGED'}")
+        check(torch.equal(flat, reduced), f"{tag}: an all-reduce over a world of 1 changed the buffer")
+        check(ld == {k: 1 for k in k34}, f"{tag}: the world-of-1 step launched K3/K4 {ld}, expected 1/1")
+    finally:
+        dist.destroy_process_group()
+
+    # (ii) references for the two-rank world, computed in one process
+    refs = {}
+    g_cpu = torch.Generator(device=dev)
+    for md in (False, True):
+        ccfg = cfg.override(f"tacotron_train.mask_decoder={md}")
+        g_cpu.manual_seed(PAR_SEED)
+        rand = TT.draw_train_rand(tparams, ccfg.tacotron, B, T_in, T, g_cpu, True, 1.0)
+        refs[md] = tc_loss_and_grads(ccfg, tparams, batch, rand, 1.0, dev)
+    wcfg, bits = cfg.wavernn, cfg.audio.bits
+    hop = wcfg.total_upsample
+    t_f, o_f = cfg.wavernn_gen.target // hop, cfg.wavernn_gen.overlap // hop
+    gen_frames = 15 * (t_f + o_f) + o_f + t_f // 2  # a mel of 16 folds, the last one partly padded
+    synth = load_exported(art, max_iters=gen_frames, device=dev)
+    ids = synth.symbols.encode(get_pyin(SENTENCES[0])[0])
+    mel = S.mel_to_unit(synth.mel_from_ids([ids], seed=[0])[0][0], cfg.audio).astype(np.float32)
+    folds, _ = W.fold_with_overlap(mel, t_f, o_f)
+    folds = np.stack([W.pad_mel_for_generation(f, wcfg.pad) for f in folds])
+    check(folds.shape[0] == 16, f"{tag}: the served mel of {mel.shape[0]} frames gives {folds.shape[0]} folds, not 16")
+    wp = synth.vocoder_params
+    tp_params = init_wavernn(PAR_SEED + 1, wcfg, cfg.audio.num_mels, bits, device=dev)
+    tb = [par_wavernn_batch(cfg, dev, PAR_SEED + i, tp_batch) for i in range(2)]
+    tp_card = step_on(cfg, tp_params, tb[0], dev, torch.float32)
+    tp_exact = step_on(cfg, tp_params, tb[0], dev, torch.float64, masks=tp_card["masks"])
+    s = WT.TrainState(0, tp_params, WT.adam_init(tp_params))
+    tp_losses = []
+    for b in tb:
+        s, m = WT.train_step(s, b, cfg)
+        tp_losses.append(m["loss"])
+    corpus_dir = os.path.join(HERE, "build", "chip_smoke_corpus")
+    torch.save({"cfg": cfg, "device": dev.type, "shape": shape, "tp_batch": tp_batch, "taco_relus": refs[False]["relus"], "tp_relus": tp_card["masks"],
+                "folds": folds, "mel": mel, "gen_seed": 7, "vocoder_npz": os.path.join(art, "wavernn_params.npz"),
+                "corpus_dir": corpus_dir, "corpus_meta": os.path.join(corpus_dir, "train.txt"),
+                "log_dir": os.path.join(work, "train")}, os.path.join(work, "spec.pt"))
+
+    t0 = time.time()
+    try:
+        mp.spawn(parallel_rank, args=(PAR_WORLD, work), nprocs=PAR_WORLD)
+    except Exception as e:  # a rank's exception (its traceback) or exit fails the phase
+        raise SmokeFailure(f"{tag}: a rank failed: {e}") from e
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False) for r in range(PAR_WORLD)]
+    phase(tag, f"two ranks over gloo on {ranks[0]['device']} (spawned, one process a rank): {time.time() - t0:.1f} s "
+          f"wall, imports and CUDA set-up included. Two ranks on one card time-slice it: the times below are "
+          f"no scaling figure")
+
+    # the data-parallel Tacotron step against the one-process step
+    tol_rel, tol_abs = PAR_TOL["stat"]
+    dp_launches = {k: 0 for k in k34}
+    for md in (False, True):
+        ref, got = refs[md], [r[f"taco_md{int(md)}"] for r in ranks]
+        g = got[0]
+        loss_rel = abs(g["loss"] - ref["loss"]) / abs(ref["loss"])
+        g_err, g_at = tc_grad_error(g, ref, {f"postnet/layers/{cfg.tacotron.postnet_layers - 1}/conv/b"})
+        s_err = max(float(((g["stats"][n] - v).abs() - tol_rel * v.abs()).max()) for n, v in ref["stats"].items())
+        aux_rel = max(abs(g["aux"][k] - v) / max(abs(v), 1e-12) for k, v in ref["aux"].items())
+        for r in got:
+            for k in k34:
+                dp_launches[k] += r["launches"][k]
+        phase(tag, f"{smi}: data-parallel Tacotron step mask_decoder={md}, {PAR_WORLD} x {B // PAR_WORLD} rows "
+              f"(T_in={T_in}, T={T}, lengths uneven across the halves) vs one process x {B}: loss {g['loss']!r} / {ref['loss']!r} ({loss_rel:.2e} relative, "
+              f"tol {PAR_TOL['loss']}), aux terms {aux_rel:.2e}, gradients max|d|/max|g| {g_err:.2e} at {g_at} "
+              f"(tol {PAR_TOL['grad']}), BN statistics max(|d| - {tol_rel}|x|) {s_err:.2e} (tol {tol_abs}); "
+              f"ReLUs pinned to the one-process pattern ({sum(r['flips'] for r in got)} units of the ranks' own "
+              f"signs differ); ms per rank (CUDA events) " + ", ".join(f"{r['ms']:.1f}" for r in got)
+              + "; K3/K4 launches per rank " + ", ".join(f"{r['launches']['tacotron_train_fwd']}/"
+                                                          f"{r['launches']['tacotron_train_bwd']}" for r in got))
+        check(loss_rel <= PAR_TOL["loss"] and aux_rel <= PAR_TOL["loss"], f"{tag}: md={md} loss {loss_rel:.2e}")
+        check(g_err <= PAR_TOL["grad"], f"{tag}: md={md} gradient {g_err:.2e} at {g_at}")
+        check(s_err <= tol_abs, f"{tag}: md={md} BN statistics {s_err:.2e}")
+        check(got[1]["loss"] == g["loss"] and all(torch.equal(a, b) for a, b in zip(got[0]["grads"], got[1]["grads"])),
+              f"{tag}: md={md} the ranks' global loss or gradients differ")
+        check(all(r["launches"] == {k: 1 for k in k34} for r in got), f"{tag}: md={md} K3/K4 launches per rank "
+              f"{[r['launches'] for r in got]}, expected 1/1")
+
+    # run_training on two ranks
+    from tacotronv2_wavernn_chinese_tpu_torch.utils.checkpoints import CheckpointManager
+    from tacotronv2_wavernn_chinese_tpu_torch.utils.metrics import read_scalars
+
+    run = [r["run"] for r in ranks]
+    log_dir = os.path.join(work, "train")
+    ckpts = CheckpointManager(os.path.join(log_dir, "taco_pretrained")).all_steps()
+    rows = [r["step"] for r in read_scalars(os.path.join(log_dir, "scalars.jsonl"))]
+    phase(tag, f"run_training on two ranks: steps {run[0]['steps']}, {run[0]['s']:.1f} s on rank 0; checkpoints "
+          f"{ckpts}, scalars rows {rows}; rank 0 logged {len(run[0]['logs'])} lines, rank 1 {len(run[1]['logs'])}; "
+          f"K3/K4 launches per rank " + ", ".join(f"{r['launches']['tacotron_train_fwd']}/"
+                                                  f"{r['launches']['tacotron_train_bwd']}" for r in run))
+    check(all(r["steps"] == [2, 3] for r in run), f"{tag}: run_training steps {[r['steps'] for r in run]}")
+    check(ckpts == [1, 2, 3] and rows == [1, 2, 3], f"{tag}: checkpoints {ckpts}, scalars rows {rows}")
+    check("restored checkpoint at step 2" in run[0]["logs"] and run[1]["logs"] == [],
+          f"{tag}: rank 0 did not restore, or rank 1 logged")
+    check(run[0]["checksum"] == run[1]["checksum"], f"{tag}: the ranks' params differ after run_training")
+    check(all(r["launches"] == {k: 3 for k in k34} for r in run), f"{tag}: run_training K3/K4 launches "
+          f"{[r['launches'] for r in run]}, expected 3/3 a rank")
+
+    # fold-sharded generation against one process
+    n_cls = 2 ** bits
+    labels = lambda y: torch.round((y.double() + 1.0) * (n_cls - 1) / 2.0).long()
+    ft = torch.as_tensor(folds, device=dev)
+    with torch.no_grad():
+        one = labels(W.generate_kernel(wp, wcfg, ft, 0, bits, apply_mu_law=False, greedy=True).cpu())
+        shard = labels(torch.cat([r["gen"]["greedy"] for r in ranks]))
+        cond = W.precompute_conditioning(wp, wcfg, ft)
+        w = WK.pack_weights(wp, wcfg)
+        gaps = torch.full(one.t().shape, float("inf"))
+        for b in range(one.shape[0]):
+            bad = torch.nonzero(one[b] != shard[b])
+            if bad.numel():  # the plain version's gaps where this fold first differs
+                t_bad = int(bad[0])
+                _, gp = WK.sample_labels_plain(cond[: t_bad + 1, b:b + 1].contiguous(), w, 0, True, return_gaps=True)
+                gaps[: t_bad + 1, b] = gp[:, 0].cpu()
+        cmp = compare_labels(shard.t(), one.t(), gaps, n_cls, f"{tag} greedy")
+        sampled_equal = []
+        for r in range(PAR_WORLD):
+            k = folds.shape[0] // PAR_WORLD
+            ref_s = W.generate_kernel(wp, wcfg, ft[r * k:(r + 1) * k], G.fold_seed(7, r), bits, apply_mu_law=False)
+            sampled_equal.append(torch.equal(ref_s.cpu(), ranks[r]["gen"]["sampled"]))
+    dev_x, host_x = ranks[0]["gen"]["dist_True"], ranks[0]["gen"]["dist_False"]
+    x_err = float(np.abs(dev_x - host_x).max())
+    gen_launches = sum(r["gen"]["launches"] for r in ranks)
+    phase(tag, f"{smi}: fold-sharded generation of a served mel ({mel.shape[0]} frames, {folds.shape[0]} folds, 8 a "
+          f"rank, {folds.shape[1]} frames x {hop} samples a fold): greedy vs one process {cmp['compared']} steps "
+          f"compared, {cmp['diverged']} folds diverged at a near-tie, max|d| {cmp['max_abs_err']:.2e}; sampled "
+          f"rank blocks equal to one process at the rank-folded seed: {sampled_equal}; device crossfade vs host "
+          f"max|d| {x_err:.2e} (tol {PAR_TOL['xfade']}), {dev_x.shape[0]} samples; K1 launches per rank "
+          + ", ".join(str(r["gen"]["launches"]) for r in ranks) + "; ms per rank (CUDA events) "
+          + "; ".join(", ".join(f"{k} {v:.1f}" for k, v in r["gen"]["ms"].items()) for r in ranks))
+    check(all(sampled_equal), f"{tag}: sampled blocks differ from one process at the rank-folded seed")
+    check(x_err <= PAR_TOL["xfade"], f"{tag}: device crossfade {x_err:.2e} from the host path")
+    check(dev_x.shape[0] == mel.shape[0] * hop and np.isfinite(dev_x).all(), f"{tag}: generated wav {dev_x.shape}")
+    check(all(r["gen"]["launches"] == 4 for r in ranks), f"{tag}: K1 launches per rank "
+          f"{[r['gen']['launches'] for r in ranks]}, expected 4 (greedy, sampled, two generate_distributed)")
+    check(torch.equal(torch.as_tensor(dev_x), torch.as_tensor(ranks[1]["gen"]["dist_True"])),
+          f"{tag}: the ranks returned different waveforms")
+
+    # TP against the unsharded step, on the unsharded step's ReLU pattern
+    t = ranks[0]["tp"]
+    tp_err = grad_error({"grads": t["grads"]}, tp_exact)
+    card_err = grad_error(tp_card, tp_exact)
+    bound_ = max(F32_GRAD_FACTOR * card_err, F32_GRAD_FLOOR)
+    l_rel = abs(t["loss"] - tp_card["loss"]) / abs(tp_card["loss"])
+    steps_rel = max(abs(a - b) / abs(b) for a, b in zip(t["losses"], tp_losses))
+    H, FC, NC = wcfg.rnn_dims, wcfg.fc_dims, n_cls
+    want = {"fc3/w": (FC, NC // 2), "gru1/wi": (H, 3 * H // 2), "I/w": (1 + cfg.audio.num_mels + wcfg.res_out_dims // 4,
+            H // 2), "mu/fc3/w": (FC, NC // 2), "nu/gru2/wh": (H, 3 * H // 2), "fc3/b": (NC,)}
+    phase(tag, f"{smi}: WaveRNN dp=1 x tp=2 at rnn {H}, fc {FC}, B={tp_batch} x {tb[0]['x'].shape[1]}: loss "
+          f"{t['loss']!r} / {tp_card['loss']!r} ({l_rel:.2e} relative, tol {PAR_TOL['tp_loss']}); gathered "
+          f"gradients vs the float64 step on the unsharded f32 step's ReLU pattern {tp_err:.2e} of max|g| (the "
+          f"unsharded f32 step {card_err:.2e}; bound {bound_:.2e}); {t['flips']} of {t['units']} ReLU units of the "
+          f"TP step's own sign differ; two steps' losses {t['losses']} vs {tp_losses} ({steps_rel:.2e}); shards "
+          f"after two steps {t['shapes']}; ms per rank (CUDA events) grads "
+          + ", ".join(f"{r['tp']['ms']:.1f}" for r in ranks) + ", steps "
+          + "; ".join(", ".join(f"{v:.1f}" for v in r["tp"]["step_ms"]) for r in ranks))
+    check(l_rel <= PAR_TOL["tp_loss"] and steps_rel <= PAR_TOL["tp_loss"], f"{tag}: TP loss {l_rel:.2e} / {steps_rel:.2e}")
+    check(tp_err <= bound_, f"{tag}: TP gradients {tp_err:.2e} of max|g| from float64, bound {bound_:.2e}")
+    check(all(r["tp"]["shapes"] == want for r in ranks), f"{tag}: TP shards {t['shapes']}, expected {want}")
+    return {"dp_train": dp_launches, "fold_sharded_gen": gen_launches}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2403,7 +2827,7 @@ TRAIN_STEPS, TRAIN_CKPT_EVERY = 6, 3
 
 
 def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRAIN_CORPUS,
-            wavernn_train=None, train_configs=None, cbhg=None) -> dict:
+            wavernn_train=None, train_configs=None, cbhg=None, parallel=None) -> dict:
     """Every phase on ``dev`` at the widths of ``cfg``; returns the kernels
     record.  Raises SmokeFailure on a failed check."""
     import torch
@@ -2564,6 +2988,11 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
     cb = run_cbhg_variants(cfg, dev, smi, tr["batch"], wp, wt["meta"], wt["pre_dir"], serve_frames, **(cbhg or {}))
     phase("cbhg + variants", f"took {time.time() - t_ph:.1f} s")
 
+    # ---------------- parallel ----------------
+    t_ph = time.time()
+    par = run_parallel(cfg, dev, smi, art, **(parallel or {}))
+    phase("parallel", f"took {time.time() - t_ph:.1f} s")
+
     # ---------------- kernels at the serve path's shapes ----------------
     from tacotronv2_wavernn_chinese_tpu_torch.models import wavernn as W
 
@@ -2611,7 +3040,8 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
          "library_ms": None, "launches_by_path": {"serve": launches["wavernn_sample"],
                                                   "cli_wavernn_gen": cli["wavernn_gen"]["wavernn_sample"],
                                                   "wavernn train": wt["k1_launches"],
-                                                  "cbhg_serve": cb["serve_launches"]["wavernn_sample"]},
+                                                  "cbhg_serve": cb["serve_launches"]["wavernn_sample"],
+                                                  "fold_sharded_gen": par["fold_sharded_gen"]},
          "compared_steps": k1["compared"], "uncompared_steps": k1["uncompared"],
          "diverged_folds": k1["diverged"], "grid_blocks": k1_plan.blocks, "fold_tile": k1_plan.fold_tile},
         {"name": "tacotron_decode", "route": "cuda",
@@ -2635,7 +3065,8 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
              "train_configs_eager": sum(v["tacotron_train_fwd"] for k, v in tc["launches"].items()
                                         if k not in KERNEL_CONFIGS),
              "gta_eager": sum(v["k3"] for v in tc["gta"].values()),
-             "cbhg_train": cb["train_launches"]["tacotron_train_fwd"], "cbhg_gta": cb["gta_k3"]},
+             "cbhg_train": cb["train_launches"]["tacotron_train_fwd"], "cbhg_gta": cb["gta_k3"],
+             "dp_train": par["dp_train"]["tacotron_train_fwd"]},
          "grid_blocks": k34["blocks"], "clusters": k34["clusters"]},
         {"name": "tacotron_train_bwd", "route": "cuda",
          "source": "tacotronv2_wavernn_chinese_tpu_torch/csrc/tacotron_train_bwd.cu",
@@ -2648,7 +3079,8 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
              "train_mixed_precision": tc["launches"]["mixed_precision"]["tacotron_train_bwd"],
              "train_configs_eager": sum(v["tacotron_train_bwd"] for k, v in tc["launches"].items()
                                         if k not in KERNEL_CONFIGS),
-             "cbhg_train": cb["train_launches"]["tacotron_train_bwd"]},
+             "cbhg_train": cb["train_launches"]["tacotron_train_bwd"],
+             "dp_train": par["dp_train"]["tacotron_train_bwd"]},
          "grid_blocks": k34["blocks"], "clusters": k34["clusters"]},
         *branch_entries,
     ]}

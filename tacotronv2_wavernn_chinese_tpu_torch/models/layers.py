@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
+from ..parallel import mesh as PM
+
 Params = dict
 
 
@@ -68,15 +70,23 @@ def batchnorm_train(p: Params, x: torch.Tensor, momentum: float = 0.99, eps: flo
     averages track the biased variance (tf.layers.batch_normalization).
     ``unbiased_ema`` tracks the unbiased one instead, n / (n - 1) times the
     biased variance the normalization uses (torch nn.BatchNorm1d, the
-    vocoder side).  The updated statistics carry no gradient."""
+    vocoder side).  The updated statistics carry no gradient.  Inside a
+    data-parallel step (``parallel.mesh.data_parallel``) the statistics
+    are the global batch's, from sums all-reduced over the ranks' equal
+    shards, and the backward crosses the ranks as SyncBatchNorm's does."""
     axes = tuple(range(x.dim() - 1))
-    mean = x.mean(dim=axes)
-    var = x.var(dim=axes, unbiased=False)
+    n = x.numel() // x.shape[-1]
+    shards = PM.batch_shards()
+    if shards > 1:
+        n *= shards
+        mean = PM.batch_sum_grad(x.sum(dim=axes)) / n
+        var = PM.batch_sum_grad(((x - mean) ** 2).sum(dim=axes)) / n
+    else:
+        mean = x.mean(dim=axes)
+        var = x.var(dim=axes, unbiased=False)
     track_var = var
-    if unbiased_ema:
-        n = x.numel() // x.shape[-1]
-        if n > 1:
-            track_var = var * (n / (n - 1))
+    if unbiased_ema and n > 1:
+        track_var = var * (n / (n - 1))
     new_p = dict(
         p,
         mean=(momentum * p["mean"] + (1 - momentum) * mean).detach(),

@@ -36,6 +36,7 @@ import torch
 from ..config import TacotronModelConfig
 from ..ops import tacotron_decoder_kernel as DK
 from ..ops import tacotron_trainer_kernel as TK
+from ..parallel import mesh as PM
 from ..utils import precision as P
 from . import attention as ATT
 from . import layers as L
@@ -72,6 +73,25 @@ class TrainRand(NamedTuple):
     post_drop: tuple | None  # per postnet layer, [B, T_out, C]
     att: torch.Tensor | None = None  # GMM attention dropout (train), [T_dec, B, u + 2*units]
     use_gt: torch.Tensor | None = None  # scheduled sampling: feed the ground truth, [T_dec, B, 1]
+
+
+# the batch dim of each TrainRand field
+_RAND_BATCH_DIM = dict(enc_drop=0, enc_fw=1, enc_bw=1, pre=1, z1=1, z2=1, post_drop=0, att=1, use_gt=1)
+
+
+def shard_train_rand(rand: TrainRand, index: int, shards: int) -> TrainRand:
+    """Block ``index`` of ``shards`` of every mask drawn for the global
+    batch (its batch dim cut into equal blocks): a data-parallel rank's
+    masks, as the JAX package draws global masks and shards them."""
+
+    def cut(v, dim):
+        if v is None:
+            return None
+        if isinstance(v, tuple):
+            return tuple(cut(m, dim) for m in v)
+        return PM.shard_rows(v, shards, index, dim).contiguous()
+
+    return TrainRand(**{f: cut(getattr(rand, f), _RAND_BATCH_DIM[f]) for f in TrainRand._fields})
 
 
 def full_teacher_forcing(teacher_forcing_ratio) -> bool:
@@ -520,29 +540,36 @@ def tacotron_loss(
     kHz, ``int(2000 / (sample_rate / 2) * F)``) is added as ``aux["linear"]``,
     with the JAX package's quirks: under ``mask_decoder`` both halves
     divide by the full-band ``sum(mask) * F`` (modules.py:457-485); under
-    ``loss_frames`` the low-band half divides by ``n * n_priority``."""
+    ``loss_frames`` the low-band half divides by ``n * n_priority``.
+
+    Inside a data-parallel step (``parallel.mesh.data_parallel``) the
+    batch is this rank's rows and the loss its share of the global batch's:
+    every count in a denominator is summed over the ranks, the means and
+    the L2 term divide by the rank count, and the shares sum to the
+    one-process loss."""
     T = mel_targets.shape[1]
+    shards = PM.batch_shards()
     ar = torch.arange(T, device=mel_targets.device)[None, :]
     M = mel_targets.shape[-1]
     if mask_decoder:
         m3 = (ar < target_lengths[:, None]).to(torch.float32)[..., None]
-        denom = torch.sum(m3) * M
+        denom = PM.batch_sum(torch.sum(m3)) * M
         before = torch.sum(((out.decoder_output - mel_targets) ** 2) * m3) / denom
         after = torch.sum(((out.mel_outputs - mel_targets) ** 2) * m3) / denom
         ce = _weighted_sigmoid_ce(stop_targets, out.stop_logits, stop_pos_weight) * m3[..., 0]
-        stop_loss = torch.sum(ce) / torch.clamp_min(torch.sum((ce != 0).to(torch.float32)), 1.0)
+        stop_loss = torch.sum(ce) / torch.clamp_min(PM.batch_sum(torch.sum((ce != 0).to(torch.float32))), 1.0)
     elif loss_frames is None:
-        before = torch.mean((out.decoder_output - mel_targets) ** 2)
-        after = torch.mean((out.mel_outputs - mel_targets) ** 2)
-        stop_loss = torch.mean(_weighted_sigmoid_ce(stop_targets, out.stop_logits, 1.0))
+        before = torch.mean((out.decoder_output - mel_targets) ** 2) / shards
+        after = torch.mean((out.mel_outputs - mel_targets) ** 2) / shards
+        stop_loss = torch.mean(_weighted_sigmoid_ce(stop_targets, out.stop_logits, 1.0)) / shards
     else:
         fmask = (ar < loss_frames[:, None]).to(torch.float32)
-        n = torch.clamp_min(torch.sum(fmask), 1.0)
+        n = torch.clamp_min(PM.batch_sum(torch.sum(fmask)), 1.0)
         f3 = fmask[..., None]
         before = torch.sum(((out.decoder_output - mel_targets) ** 2) * f3) / (n * M)
         after = torch.sum(((out.mel_outputs - mel_targets) ** 2) * f3) / (n * M)
         stop_loss = torch.sum(_weighted_sigmoid_ce(stop_targets, out.stop_logits, 1.0) * fmask) / n
-    reg = reg_weight * l2_regularizables(params)
+    reg = reg_weight * l2_regularizables(params) / shards
     loss = before + after + stop_loss + reg
     aux = {"before": before, "after": after, "stop": stop_loss, "reg": reg}
     if linear_targets is not None and out.linear_outputs is not None:
@@ -551,13 +578,13 @@ def tacotron_loss(
         n_priority = int(2000 / (sample_rate * 0.5) * Fq)
         if mask_decoder:
             m3 = (ar < target_lengths[:, None]).to(torch.float32)[..., None]
-            denom = torch.sum(m3) * Fq
+            denom = PM.batch_sum(torch.sum(m3)) * Fq
             linear_loss = 0.5 * torch.sum(l1 * m3) / denom + 0.5 * torch.sum((l1 * m3)[:, :, :n_priority]) / denom
         elif loss_frames is None:
-            linear_loss = 0.5 * torch.mean(l1) + 0.5 * torch.mean(l1[:, :, :n_priority])
+            linear_loss = (0.5 * torch.mean(l1) + 0.5 * torch.mean(l1[:, :, :n_priority])) / shards
         else:
             f3 = (ar < loss_frames[:, None]).to(torch.float32)[..., None]
-            n = torch.clamp_min(torch.sum(f3), 1.0)
+            n = torch.clamp_min(PM.batch_sum(torch.sum(f3)), 1.0)
             linear_loss = (0.5 * torch.sum(l1 * f3) / (n * Fq)
                            + 0.5 * torch.sum((l1 * f3)[:, :, :n_priority]) / (n * n_priority))
         loss = loss + linear_loss

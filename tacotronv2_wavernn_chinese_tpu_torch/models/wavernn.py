@@ -140,25 +140,28 @@ def upsample_train(params: Params, cfg: WaveRNNModelConfig, mels: torch.Tensor):
 gru_sequence = L.gru_scan
 
 
-def forward(params: Params, cfg: WaveRNNModelConfig, x: torch.Tensor, mels: torch.Tensor, train: bool):
+def forward(params: Params, cfg: WaveRNNModelConfig, x: torch.Tensor, mels: torch.Tensor, train: bool,
+            dense=L.dense, gru=L.gru_scan):
     """Teacher-forced forward -> (logits [B, T, fc3 width], params with the
     new BN statistics in train mode, else ``params``).
 
     ``x`` [B, T] holds the previous samples as floats in [-1, 1], ``mels``
     [B, T/hop + 2*pad, M] the unit-range mels (reference
-    fatchord_version.py:131-167)."""
+    fatchord_version.py:131-167).  ``dense`` computes I and fc1-fc3 and
+    ``gru`` the two GRUs (``parallel.tp.layers`` gives their
+    tensor-parallel versions)."""
     aux_d = cfg.res_out_dims // 4
     if train:
         mels_up, aux, new_params = upsample_train(params, cfg, mels)
     else:
         (mels_up, aux), new_params = upsample(params, cfg, mels), params
     a1, a2, a3, a4 = torch.split(aux, aux_d, dim=-1)
-    h = L.dense(params["I"], torch.cat([x[..., None], mels_up, a1], dim=-1))  # [B, T, rnn]
-    h = L.gru_scan(params["gru1"], h) + h
-    h = L.gru_scan(params["gru2"], torch.cat([h, a2], dim=-1)) + h
-    h = torch.relu(L.dense(params["fc1"], torch.cat([h, a3], dim=-1)))
-    h = torch.relu(L.dense(params["fc2"], torch.cat([h, a4], dim=-1)))
-    return L.dense(params["fc3"], h), new_params
+    h = dense(params["I"], torch.cat([x[..., None], mels_up, a1], dim=-1))  # [B, T, rnn]
+    h = gru(params["gru1"], h) + h
+    h = gru(params["gru2"], torch.cat([h, a2], dim=-1)) + h
+    h = torch.relu(dense(params["fc1"], torch.cat([h, a3], dim=-1)))
+    h = torch.relu(dense(params["fc2"], torch.cat([h, a4], dim=-1)))
+    return dense(params["fc3"], h), new_params
 
 
 def wavernn_loss(logits: torch.Tensor, targets: torch.Tensor, mode: str = "RAW", bits: int = 10) -> torch.Tensor:

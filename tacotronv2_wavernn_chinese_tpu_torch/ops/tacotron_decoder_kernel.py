@@ -44,6 +44,7 @@ import dataclasses
 import torch
 
 from ..config import TacotronModelConfig
+from ..utils import device_index
 from . import (
     LAUNCHES, check_launch, hash_bits, keep_threshold, load, ptr, require_f32_contiguous,
     stream_ptr,
@@ -479,7 +480,7 @@ _CLUSTERS: dict = {}
 def card_clusters(device: torch.device) -> int:
     """Clusters of CLUSTER blocks the decode kernel keeps resident at once
     on ``device`` (one block per SM), asked of the card once per device."""
-    key = torch.device(device).index or 0
+    key = device_index(device)
     if key not in _CLUSTERS:
         with torch.cuda.device(key):
             n = load("tacotron_decode.cu").tacotron_decode_clusters()

@@ -51,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import TacotronModelConfig
+from ..utils import device_index
 from . import LAUNCHES, check_launch, load, require_f32_contiguous, stream_ptr
 
 NEG_INF = -1e9
@@ -259,7 +260,7 @@ _CLUSTERS: dict = {}
 def card_clusters(device: torch.device) -> int:
     """Clusters of CLUSTER blocks that both kernels keep resident at once on
     ``device`` (one block per SM), asked of the card once per device."""
-    key = torch.device(device).index or 0
+    key = device_index(device)
     if key not in _CLUSTERS:
         with torch.cuda.device(key):
             n = min(load("tacotron_train_fwd.cu").tacotron_train_fwd_clusters(),

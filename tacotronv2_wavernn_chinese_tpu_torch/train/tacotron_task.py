@@ -15,6 +15,12 @@ params tree (tensors are not updated in place).  ``mixed_precision``
 casts the weights to bf16 inside the loss (``utils/precision.py``).  The
 train and eval steps run in full f32 (``utils.precision.fp32_precision``:
 no TF32 in cuDNN's convolutions or in the CBHG head's GRUs).
+
+Data parallel (``train_step(..., mesh=...)``, ``parallel/mesh.py``): each
+rank steps on its rows of the global batch; the masks are drawn for the
+global batch and sharded, the loss's denominators, the BatchNorm
+statistics, the gradients (one flat all-reduce before the clip) and the
+metrics are global, so every rank applies the one-process step's update.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 
 from ..config import Config
 from ..models import tacotron as T
+from ..parallel import mesh as PM
 from ..utils import precision as P
 from ..utils import tree_leaves, tree_map
 from ..utils.checkpoints import init_tacotron
@@ -100,9 +107,11 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g * g) for g in tree_leaves(tree)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """optax.clip_by_global_norm: unchanged below the limit, else g/|g|*max."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, norm: torch.Tensor | None = None):
+    """optax.clip_by_global_norm: unchanged below the limit, else g/|g|*max.
+    ``norm`` is the tree's global norm when the caller knows it (a
+    tensor-parallel tree whose shards live on several ranks)."""
+    norm = global_norm(grads) if norm is None else norm
     if float(norm) < max_norm:
         return grads, norm
     return tree_map(lambda g: g / norm * max_norm, grads), norm
@@ -150,18 +159,35 @@ def loss_fn(params, cfg: Config, batch: dict, generator: torch.Generator, train:
     return loss, (aux, new_params, out)
 
 
-def compute_grads(params, cfg: Config, batch: dict, generator: torch.Generator, step: int):
+def compute_grads(params, cfg: Config, batch: dict, generator: torch.Generator, step: int, rand=None):
     """Loss and gradient of every params leaf (zeros where the loss does not
     depend on it, as for the BN moving statistics), at the teacher-forcing
-    ratio the schedule gives ``step``."""
+    ratio the schedule gives ``step``; the masks are ``rand`` or drawn from
+    ``generator``.
+
+    Inside ``parallel.mesh.data_parallel`` ``batch`` is this rank's rows:
+    the masks are the global batch's (drawn, or ``rand`` given for it) cut
+    to those rows, and the returned loss, aux terms and gradients are the
+    global batch's, equal on every rank."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    loss, (aux, new_params, _) = loss_fn(
-        leaves, cfg, batch, generator, True, teacher_forcing_schedule(cfg, step)
-    )
+    ratio = teacher_forcing_schedule(cfg, step)
+    shards = PM.batch_shards()
+    if shards > 1:
+        if rand is None:
+            inputs, mels = batch["inputs"], batch["mel_targets"]
+            rand = T.draw_train_rand(params, cfg.tacotron, inputs.shape[0] * shards, inputs.shape[1],
+                                     mels.shape[1], generator, True, ratio)
+        rand = T.shard_train_rand(rand, PM.batch_index(), shards)
+    loss, (aux, new_params, _) = loss_fn(leaves, cfg, batch, generator, True, ratio, rand=rand)
     flat = tree_leaves(leaves)
     gs = torch.autograd.grad(loss, flat, allow_unused=True)
     it = iter([torch.zeros_like(p) if g is None else g for p, g in zip(flat, gs)])
-    return loss.detach(), aux, new_params, tree_map(lambda _: next(it), leaves)
+    grads = tree_map(lambda _: next(it), leaves)
+    if shards > 1:  # the ranks' shares summed: the global loss, terms and gradients
+        names = list(aux)
+        aux = dict(zip(names, PM.batch_sum(torch.stack([aux[k].detach().reshape(()) for k in names]))))
+        loss, grads = aux["loss"], PM.batch_sum_tree(grads)
+    return loss.detach(), aux, new_params, grads
 
 
 def apply_gradients(state: TrainState, new_params, grads, cfg: Config):
@@ -181,10 +207,12 @@ def apply_gradients(state: TrainState, new_params, grads, cfg: Config):
     return TrainState(state.step + 1, params, opt_state), norm, lr
 
 
-def train_step(state: TrainState, batch: dict, generator: torch.Generator, cfg: Config):
+def train_step(state: TrainState, batch: dict, generator: torch.Generator, cfg: Config, mesh=None):
     """One optimization step -> (new state, metrics of floats).  The step's
-    masks are drawn from ``generator``."""
-    with P.fp32_precision():
+    masks are drawn from ``generator``.  With a ``mesh`` whose ``data``
+    axis spans several ranks, ``batch`` is this rank's rows of the global
+    batch and ``generator`` is seeded alike on every rank."""
+    with P.fp32_precision(), PM.data_parallel(mesh):
         _, aux, new_params, grads = compute_grads(state.params, cfg, batch, generator, state.step)
         new_state, norm, lr = apply_gradients(state, new_params, grads, cfg)
         names = list(aux) + ["grad_norm"]
@@ -194,12 +222,12 @@ def train_step(state: TrainState, batch: dict, generator: torch.Generator, cfg: 
     return new_state, metrics
 
 
-def train_step_many(state: TrainState, batches: list, generator: torch.Generator, cfg: Config):
+def train_step_many(state: TrainState, batches: list, generator: torch.Generator, cfg: Config, mesh=None):
     """K optimization steps in a row -> (new state, {metric: [K values]});
     ``run_training`` applies its guards to every sub-step afterwards."""
     stacked: dict = {}
     for batch in batches:
-        state, metrics = train_step(state, batch, generator, cfg)
+        state, metrics = train_step(state, batch, generator, cfg, mesh)
         for k, v in metrics.items():
             stacked.setdefault(k, []).append(v)
     return state, stacked

@@ -9,13 +9,21 @@ its Griffin-Lim wav (on the training device) and alignment and mel PNGs.
 The JAX training loop's ``_prewarm_bucket_shapes`` compiles every bucketed batch
 shape before the first step; eager PyTorch has nothing to compile, so it has
 no counterpart here and ``tacotron_train.precompile_buckets`` is not read.
-The data-parallel mesh is not ported (ROADMAP.md, queue item 12): training
-runs on one device, the card unless ``--device cpu`` is asked for.
+
+Data parallel (``use_mesh``, the default, as in the JAX loop): under a
+launcher each rank runs on its own card (``cuda:LOCAL_RANK``), builds the
+same global batch of ``batch_size`` rows (the same loader seed), keeps its
+rows (``parallel.mesh.shard_batch``) and takes the data-parallel step of
+``tacotron_task.train_step``; only rank 0 writes checkpoints,
+``scalars.jsonl``, logs and eval renders, and every rank waits at a
+barrier before reading a checkpoint.  One process (no launcher) trains as
+before, on the card unless ``--device cpu`` is asked for.
 
 Usage:
     python -m tacotronv2_wavernn_chinese_tpu_torch.train.tacotron_train \\
         --metadata training_data/train.txt --mel-dir training_data \\
         --log-dir logs-tacotron [--steps N] [--override a.b=c,...] [--device cpu]
+    torchrun --nproc-per-node N -m tacotronv2_wavernn_chinese_tpu_torch.train.tacotron_train ...
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ from ..data.loader import TacotronDataset, read_metadata
 from ..dsp.griffin_lim import inv_mel_spectrogram
 from ..dsp.spectrogram import MelPipeline
 from ..dsp.wav import save_wav
+from ..parallel import distributed as D
+from ..parallel import mesh as PM
 from ..utils import logging as infolog
 from ..utils import resolve_device
 from ..utils.checkpoints import CheckpointManager
@@ -74,19 +84,29 @@ def run_training(
     profile_dir: str | None = None,
     log=infolog.log,
     device=None,
+    use_mesh: bool = True,
 ) -> task.TrainState:
     """Train to ``total_steps`` (default ``tacotron_train.train_steps``),
     resuming from the latest checkpoint under ``log_dir/taco_pretrained``.
-    ``device`` None means the CUDA card (raises without one)."""
+    ``device`` None means the CUDA card (raises without one).  With
+    ``use_mesh`` and a process group of several ranks, each rank trains
+    on its rows of every global batch (module docstring)."""
     dev = resolve_device(device)
+    mesh = PM.make_mesh() if use_mesh else None
+    if mesh is not None and mesh.size == 1:
+        mesh = None
+    primary = D.is_primary()
+    log = D.primary_log(log)
     tc = cfg.tacotron_train
     total_steps = total_steps or tc.train_steps
     os.makedirs(log_dir, exist_ok=True)
     ckpt_dir = os.path.join(log_dir, "taco_pretrained")
     eval_dir = os.path.join(log_dir, "eval")
     os.makedirs(eval_dir, exist_ok=True)
-    metrics_writer = MetricsWriter(log_dir)
-    profiler = Profiler(profile_dir)
+    metrics_writer = MetricsWriter(log_dir) if primary else None
+    profiler = Profiler(profile_dir if primary else None)
+    if mesh is not None:
+        D.build_kernels(dev)
 
     dataset = TacotronDataset(read_metadata(metadata_path), mel_dir, cfg)
     pad_stats = dataset.padding_stats([tc.data_seed])
@@ -96,12 +116,16 @@ def run_training(
             f" multiples), inputs {pad_stats['frac_pad_inputs']:.1%}")
 
     mgr = CheckpointManager(ckpt_dir, max_to_keep=tc.max_checkpoints_to_keep)
+    D.barrier()  # rank 0 has finished any save before a rank reads
     restored = mgr.restore(dev)
     if restored is not None:
         state = task.TrainState(restored["step"], restored["params"], restored["opt_state"])
         log(f"restored checkpoint at step {state.step}")
     else:
         state = task.init_state(tc.shuffle_seed, cfg, dev)
+    if mesh is not None:
+        params, mu, nu = PM.replicate_tree(mesh, (state.params, state.opt_state["mu"], state.opt_state["nu"]))
+        state = task.TrainState(state.step, params, dict(state.opt_state, mu=mu, nu=nu))
 
     gen = torch.Generator(device=dev)
     time_win, loss_win = infolog.ValueWindow(100), infolog.ValueWindow(100)
@@ -116,12 +140,14 @@ def run_training(
         t0 = time.time()
         k = len(group)
         arrays = [batch_to_device(b, dev) for b in group]
+        if mesh is not None:
+            arrays = [PM.shard_batch(mesh, a) for a in arrays]
         gen.manual_seed(step_seed(cfg, step))
         if k == 1:
-            state, metrics = task.train_step(state, arrays[0], gen, cfg)
+            state, metrics = task.train_step(state, arrays[0], gen, cfg, mesh)
             mhost = {kk: [v] for kk, v in metrics.items()}
         else:
-            state, mhost = task.train_step_many(state, arrays, gen, cfg)
+            state, mhost = task.train_step_many(state, arrays, gen, cfg, mesh)
         dt = (time.time() - t0) / k
         ckpt_due = False
         for i in range(k):
@@ -133,7 +159,7 @@ def run_training(
             if np.isnan(loss) or loss > tc.loss_explosion_threshold:
                 log(f"Loss exploded to {loss:.5f} at step {sub}")
                 raise LossExplosion("loss exploded, aborting")
-            if sub % tc.summary_interval == 0 or sub < 5:
+            if metrics_writer is not None and (sub % tc.summary_interval == 0 or sub < 5):
                 metrics_writer.write(sub, {kk: v[i] for kk, v in mhost.items()})
             if sub % 10 == 0 or sub < 10:
                 log(
@@ -144,7 +170,7 @@ def run_training(
             if sub % tc.checkpoint_interval == 0:
                 ckpt_due = True
         step = state.step
-        if ckpt_due:
+        if ckpt_due and primary:
             # with K>1 the save lands at the end of the group — at most K-1
             # steps past the exact boundary (exact when spd == 1)
             mgr.save(step, state.params, state.opt_state)
@@ -169,9 +195,11 @@ def run_training(
                 f" < batch_size {tc.batch_size} (lower tacotron_train.batch_size)"
             )
         epoch += 1
-    mgr.save(step, state.params, state.opt_state)
-    metrics_writer.close()
+    if primary:
+        mgr.save(step, state.params, state.opt_state)
+        metrics_writer.close()
     profiler.close()
+    D.barrier()
     return state
 
 
@@ -224,17 +252,20 @@ def main() -> None:
                     help="torch device; default the CUDA card (cpu runs the plain versions)")
     args = ap.parse_args()
 
+    D.initialize(device=args.device)  # a no-op without a launcher
     cfg = default_config()
     if args.override:
         cfg = cfg.override(args.override)
     if args.fine_tune:
         cfg = cfg.override("tacotron_train.fine_tune=true")
-    infolog.init(os.path.join(args.log_dir, "train.log"), "tacotron")
-    infolog.log(cfg.debug_string())
+    if D.is_primary():
+        infolog.init(os.path.join(args.log_dir, "train.log"), "tacotron")
+        infolog.log(cfg.debug_string())
     run_training(
         cfg, args.metadata, args.mel_dir, args.log_dir, total_steps=args.steps,
         render_eval=not args.no_render, profile_dir=args.profile_dir, device=args.device,
     )
+    D.shutdown()
 
 
 if __name__ == "__main__":

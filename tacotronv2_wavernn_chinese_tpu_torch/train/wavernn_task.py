@@ -27,6 +27,14 @@ first step turns a gradient element's sign into ±lr, so a near-zero
 element whose sign differs between two devices (or between this port and
 JAX) moves by up to 2 lr; the tests hold params at the Tacotron optimizer
 tests' tolerance where the gradients agree.
+
+Parallel (``train_step(..., mesh=...)``): over a mesh's ``data`` axis each
+rank steps on its rows of the global batch, with the MelResNet's BatchNorm
+statistics, the loss (the mean over equal windows: each rank's mean
+divided by the rank count is its share) and the gradients (one flat
+all-reduce before the clip) global; over a ``model`` axis of
+``parallel.tp.make_mesh_2d`` the state holds ``parallel.tp``'s column
+blocks and the step runs ``parallel.tp.layers``.
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ import torch
 
 from ..config import Config
 from ..models import wavernn as W
+from ..parallel import mesh as PM
+from ..parallel import tp as TP
 from ..utils import precision as P
 from ..utils import tree_leaves, tree_map
 from ..utils.checkpoints import init_wavernn
@@ -65,15 +75,16 @@ def optax_adam(grads, state: dict, lr: float, b1: float = 0.9, b2: float = 0.999
     return updates, {"count": count, "mu": state["mu"], "nu": state["nu"]}
 
 
-def loss_fn(params, cfg: Config, batch: dict, train: bool = True):
+def loss_fn(params, cfg: Config, batch: dict, train: bool = True, layers: dict | None = None):
     """-> (loss, (params with the forward's BN statistics, logits)).  Under
     ``mixed_precision`` the forward runs on bf16 weights (BN statistics
     f32; ``utils/precision.py``), the returned params are the merged f32
-    master and the loss is taken on f32 logits."""
+    master and the loss is taken on f32 logits.  ``layers`` replaces the
+    forward's ``dense``/``gru`` (``parallel.tp.layers``)."""
     master = params
     if cfg.wavernn_train.mixed_precision:
         params = P.cast_params(params)
-    logits, new_params = W.forward(params, cfg.wavernn, batch["x"], batch["mels"], train)
+    logits, new_params = W.forward(params, cfg.wavernn, batch["x"], batch["mels"], train, **(layers or {}))
     if cfg.wavernn_train.mixed_precision:
         new_params = P.merge_master(master, new_params)
         logits = logits.float()
@@ -81,44 +92,60 @@ def loss_fn(params, cfg: Config, batch: dict, train: bool = True):
     return loss, (new_params, logits)
 
 
-def compute_grads(params, cfg: Config, batch: dict):
+def compute_grads(params, cfg: Config, batch: dict, mesh=None):
     """Loss, the params with the forward's BN statistics, and the gradient
-    of every leaf (zeros for the BN statistics)."""
+    of every leaf (zeros for the BN statistics).  Inside
+    ``parallel.mesh.data_parallel`` ``batch`` is this rank's rows and the
+    loss and gradients returned are the global batch's; with a ``mesh``
+    whose ``model`` axis spans several ranks the sharded leaves (and their
+    gradients) are this rank's column blocks."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    loss, (new_params, _) = loss_fn(leaves, cfg, batch, True)
+    layers = TP.layers(mesh) if TP.model_parallel(mesh) else None
+    loss, (new_params, _) = loss_fn(leaves, cfg, batch, True, layers)
+    shards = PM.batch_shards()
+    share = loss / shards  # the global mean over equal windows is the sum of the shares
     flat = tree_leaves(leaves)
-    gs = torch.autograd.grad(loss, flat, allow_unused=True)
+    gs = torch.autograd.grad(share, flat, allow_unused=True)
     it = iter([torch.zeros_like(p) if g is None else g for p, g in zip(flat, gs)])
-    return loss.detach(), new_params, tree_map(lambda _: next(it), leaves)
+    grads = tree_map(lambda _: next(it), leaves)
+    if shards > 1:
+        share, grads = PM.batch_sum(share.detach()), PM.batch_sum_tree(grads)
+    return share.detach(), new_params, grads
 
 
-def apply_gradients(state: TrainState, new_params, grads, cfg: Config):
-    """Clip, Adam, then ``new_params + updates`` -> (new state, grad norm)."""
+def apply_gradients(state: TrainState, new_params, grads, cfg: Config, norm: torch.Tensor | None = None):
+    """Clip, Adam, then ``new_params + updates`` -> (new state, grad norm).
+    ``norm`` is the gradients' global norm where the tree alone does not
+    give it (tensor-parallel blocks)."""
     wc = cfg.wavernn_train
     with torch.no_grad():
-        clipped, norm = clip_by_global_norm(grads, wc.grad_clip_norm)
+        clipped, norm = clip_by_global_norm(grads, wc.grad_clip_norm, norm)
         updates, opt_state = optax_adam(clipped, state.opt_state, wc.lr)
         params = tree_map(lambda p, u: p.detach() + u, new_params, updates)
     return TrainState(state.step + 1, params, opt_state), norm
 
 
-def train_step(state: TrainState, batch: dict, cfg: Config):
+def train_step(state: TrainState, batch: dict, cfg: Config, mesh=None):
     """One optimization step in full f32 -> (new state, {"loss", "grad_norm"}
     as floats).  ``batch`` holds tensors x [B, T] float, y [B, T] int and
-    mels [B, T/hop + 2*pad, M] on the params' device."""
-    with fp32_precision():
-        loss, new_params, grads = compute_grads(state.params, cfg, batch)
-        new_state, norm = apply_gradients(state, new_params, grads, cfg)
+    mels [B, T/hop + 2*pad, M] on the params' device: with a ``mesh``, this
+    rank's rows over its ``data`` axis (``parallel/mesh.py``), and over a
+    ``model`` axis ``state`` holds ``parallel.tp.place_wavernn_state``'s
+    blocks."""
+    with fp32_precision(), PM.data_parallel(mesh):
+        loss, new_params, grads = compute_grads(state.params, cfg, batch, mesh)
+        norm = TP.global_norm(grads, mesh) if TP.model_parallel(mesh) else None
+        new_state, norm = apply_gradients(state, new_params, grads, cfg, norm)
         loss_v, norm_v = torch.stack([loss.reshape(()), norm.reshape(())]).tolist()
     return new_state, {"loss": loss_v, "grad_norm": norm_v}
 
 
-def train_step_many(state: TrainState, batches: list, cfg: Config):
+def train_step_many(state: TrainState, batches: list, cfg: Config, mesh=None):
     """K optimization steps in a row -> (new state, {metric: [K values]});
     ``run_training`` applies its guards to every sub-step afterwards."""
     stacked: dict = {}
     for batch in batches:
-        state, metrics = train_step(state, batch, cfg)
+        state, metrics = train_step(state, batch, cfg, mesh)
         for k, v in metrics.items():
             stacked.setdefault(k, []).append(v)
     return state, stacked

@@ -11,16 +11,24 @@ the sample-loop kernel), the empty-epoch error and the final save.
 ``wavernn_train.precompile`` is honoured as one warm step on a deep copy of
 the state before the first real step (the JAX loop's ``_prewarm_shapes``
 compiles the step program there; eagerly, the warm step moves the first
-call's CUDA and cuDNN set-up out of the timed loop).  The data-parallel
-mesh is not ported (ROADMAP.md, queue item 12): training runs on one
-device, the card unless ``--device cpu`` is asked for.  Every step runs in
+call's CUDA and cuDNN set-up out of the timed loop).  Every step runs in
 full f32 (``utils.precision.fp32_precision``).
+
+Data parallel (``use_mesh``, the default, as in the JAX loop): under a
+launcher each rank runs on its own card (``cuda:LOCAL_RANK``), draws the
+same global batch of ``batch_size`` windows (the same loader seed), keeps
+its rows and takes the data-parallel step of ``wavernn_task.train_step``;
+only rank 0 writes checkpoints, ``scalars.jsonl``, logs and listening
+tests, and every rank waits at a barrier before reading a checkpoint.
+One process (no launcher) trains as before, on the card unless
+``--device cpu`` is asked for.
 
 Usage:
     python -m tacotronv2_wavernn_chinese_tpu_torch.train.wavernn_train \\
         --metadata <gta_dir>/wavernn_training_data.txt --data-dir <gta_dir> \\
         --log-dir logs-wavernn [--steps N] [--override a.b=c,...] [--no-gen] \\
         [--native-loader] [--device cpu]
+    torchrun --nproc-per-node N -m tacotronv2_wavernn_chinese_tpu_torch.train.wavernn_train ...
 """
 
 from __future__ import annotations
@@ -37,6 +45,8 @@ from ..config import Config, default_config
 from ..data.loader import VocoderBatch, VocoderDataset, read_metadata
 from ..dsp.wav import save_wav
 from ..models import wavernn as W
+from ..parallel import distributed as D
+from ..parallel import mesh as PM
 from ..utils import logging as infolog
 from ..utils import resolve_device
 from ..utils.checkpoints import CheckpointManager
@@ -55,13 +65,23 @@ def run_training(
     use_native_loader: bool = False,
     log=infolog.log,
     device=None,
+    use_mesh: bool = True,
 ) -> task.TrainState:
     """Train to ``total_steps`` (default ``wavernn_train.total_steps``) on
     the GTA metadata ``metadata_path`` (rows ``wav|gt_mel|pred_mel|text``
     under ``data_dir``).  ``device`` None means the CUDA card (raises
     without one).  ``use_native_loader`` takes the C++ loader when it
-    builds, else logs and uses the Python loader."""
+    builds, else logs and uses the Python loader.  With ``use_mesh`` and a
+    process group of several ranks, each rank trains on its rows of every
+    global batch (module docstring)."""
     dev = resolve_device(device)
+    mesh = PM.make_mesh() if use_mesh else None
+    if mesh is not None and mesh.size == 1:
+        mesh = None
+    primary = D.is_primary()
+    log = D.primary_log(log)
+    if mesh is not None:
+        D.build_kernels(dev)
     wc = cfg.wavernn_train
     total_steps = total_steps or wc.total_steps
     ckpt_dir = os.path.join(log_dir, "checkpoints")
@@ -73,12 +93,16 @@ def run_training(
         f"{len(dataset.test_indices)} test utterances")
 
     mgr = CheckpointManager(ckpt_dir, max_to_keep=wc.max_checkpoints_to_keep)
+    D.barrier()  # rank 0 has finished any save before a rank reads
     restored = mgr.restore(dev)
     if restored is not None:
         state = task.TrainState(restored["step"], restored["params"], restored["opt_state"])
         log(f"restored checkpoint at step {state.step}")
     else:
         state = task.init_state(wc.seed, cfg, dev)
+    if mesh is not None:
+        params, mu, nu = PM.replicate_tree(mesh, (state.params, state.opt_state["mu"], state.opt_state["nu"]))
+        state = task.TrainState(state.step, params, dict(state.opt_state, mu=mu, nu=nu))
 
     native = None
     if use_native_loader:
@@ -96,7 +120,7 @@ def run_training(
             return iter(native)
         return dataset.batches(epoch_seed=wc.seed + epoch)
 
-    metrics_writer = MetricsWriter(log_dir)
+    metrics_writer = MetricsWriter(log_dir) if primary else None
     time_win, loss_win = infolog.ValueWindow(100), infolog.ValueWindow(100)
     step = state.step
     epoch = 0
@@ -109,7 +133,9 @@ def run_training(
         t0 = time.time()
         k = len(group)
         arrays = [task.batch_to_device(b, dev) for b in group]
-        state, mhost = task.train_step_many(state, arrays, cfg)
+        if mesh is not None:
+            arrays = [PM.shard_batch(mesh, a) for a in arrays]
+        state, mhost = task.train_step_many(state, arrays, cfg, mesh)
         dt = (time.time() - t0) / k
         ckpt_due = False
         for i in range(k):
@@ -125,12 +151,12 @@ def run_training(
             if sub % 10 == 0 or sub < 10:
                 log(f"Step {sub:7d} [{time_win.average:.3f} sec/step, "
                     f"loss={loss:.5f}, avg={loss_win.average:.5f}]")
-            if sub % wc.summary_interval == 0 or sub < 5:
+            if metrics_writer is not None and (sub % wc.summary_interval == 0 or sub < 5):
                 metrics_writer.write(sub, {"loss": loss, "grad_norm": gnorm})
             if sub % wc.checkpoint_every == 0:
                 ckpt_due = True
         step = state.step
-        if ckpt_due:
+        if ckpt_due and primary:
             mgr.save(step, state.params, state.opt_state)
             log(f"saved checkpoint at step {step}")
             if gen_at_checkpoint:
@@ -138,7 +164,7 @@ def run_training(
 
     try:
         if wc.precompile and step < total_steps:
-            _warm_step(cfg, state, dev, log)
+            _warm_step(cfg, state, dev, log, 1 if mesh is None else mesh.size)
         while step < total_steps:
             step_at_epoch_start = step
             for group in fused_groups(batch_stream(epoch), spd, lambda: step, total_steps):
@@ -152,24 +178,28 @@ def run_training(
                     " (lower wavernn_train.batch_size or wavernn_train.test_samples)"
                 )
             epoch += 1
-        mgr.save(step, state.params, state.opt_state)
+        if primary:
+            mgr.save(step, state.params, state.opt_state)
     finally:
-        metrics_writer.close()
+        if metrics_writer is not None:
+            metrics_writer.close()
         if native is not None:
             native.close()
+    D.barrier()
     return state
 
 
-def _warm_step(cfg: Config, state: task.TrainState, dev, log) -> None:
+def _warm_step(cfg: Config, state: task.TrainState, dev, log, shards: int = 1) -> None:
     """One train step on a deep copy of the state and a zero batch of the
-    training shape (vocoder windows are fixed-size), so the first real
-    step's time holds no one-off set-up; the real state is untouched."""
+    training shape (vocoder windows are fixed-size; a rank's rows of it
+    under ``shards`` ranks, stepped alone), so the first real step's time
+    holds no one-off set-up; the real state is untouched."""
     wc = cfg.wavernn_train
     seq_len = wc.seq_len_hops * cfg.audio.hop_size
     frames = wc.seq_len_hops + 2 * cfg.wavernn.pad
-    zeros = VocoderBatch(np.zeros((wc.batch_size, seq_len), np.float32),
-                         np.zeros((wc.batch_size, seq_len), np.int32),
-                         np.zeros((wc.batch_size, frames, cfg.audio.num_mels), np.float32))
+    rows = wc.batch_size // shards
+    zeros = VocoderBatch(np.zeros((rows, seq_len), np.float32), np.zeros((rows, seq_len), np.int32),
+                         np.zeros((rows, frames, cfg.audio.num_mels), np.float32))
     t0 = time.time()
     task.train_step(copy.deepcopy(state), task.batch_to_device(zeros, dev), cfg)
     log(f"warm step done in {time.time() - t0:.1f}s")
@@ -205,14 +235,17 @@ def main(argv=None) -> None:
                     help="torch device; default the CUDA card (cpu runs the plain versions)")
     args = ap.parse_args(argv)
 
+    D.initialize(device=args.device)  # a no-op without a launcher
     cfg = default_config()
     if args.override:
         cfg = cfg.override(args.override)
-    infolog.init(os.path.join(args.log_dir, "train.log"), "wavernn")
+    if D.is_primary():
+        infolog.init(os.path.join(args.log_dir, "train.log"), "wavernn")
     run_training(
         cfg, args.metadata, args.data_dir, args.log_dir, total_steps=args.steps,
         gen_at_checkpoint=not args.no_gen, use_native_loader=args.native_loader, device=args.device,
     )
+    D.shutdown()
 
 
 if __name__ == "__main__":

@@ -14,18 +14,29 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """The device an entry point runs on.
 
     ``None`` means the card: without a CUDA device this raises instead of
-    continuing on the CPU.  The CPU is used only when asked for by name."""
+    continuing on the CPU.  The CPU is used only when asked for by name.  A
+    CUDA device without an index is the current one (``cuda:LOCAL_RANK``
+    on a rank that ``parallel.distributed.initialize`` set up)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run the "
                 "plain PyTorch path on the CPU"
             )
-        return torch.device("cuda")
+        return torch.device("cuda", torch.cuda.current_device())
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but CUDA is not available")
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def device_index(device) -> int:
+    """The index of a CUDA device; an index-less ``"cuda"`` is the current
+    device, not card 0."""
+    dev = torch.device(device)
+    return torch.cuda.current_device() if dev.index is None else dev.index
 
 
 def tree_map(fn, tree, *rest):

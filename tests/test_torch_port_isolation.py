@@ -60,6 +60,8 @@ mol = default_config().override("wavernn.mode=MOL")
 print(tuple(generate_mol(init_wavernn(0, mol.wavernn), mol.wavernn, np.zeros((1, 5, 80), np.float32)).shape))
 print(callable(build_library) and hasattr(NativeVocoderLoader, "available"))
 print(sum("{PORT}." + m in names for m in ("frontend.english", "models.wavernn_deepmind", "utils.display")))
+print(sum("{PORT}." + m in names for m in ("parallel", "parallel.distributed", "parallel.mesh", "parallel.generate",
+                                          "parallel.tp")))
 """
 
 
@@ -74,9 +76,10 @@ def probe():
 
 def test_port_imports_no_jax(probe):
     n, bad = int(probe[0]), probe[1]
-    assert n >= 48  # every module of the port was imported, utils/precision.py among them
+    assert n >= 53  # every module of the port was imported, utils/precision.py among them
     assert probe[2] == "1"
     assert probe[6] == "3"  # and the English frontend, the DeepMind WaveRNN and the display helpers
+    assert probe[7] == "5"  # and parallel/ (package, distributed, mesh, generate, tp)
     assert bad == "", f"the port loaded {bad}"
 
 
