@@ -2433,6 +2433,33 @@ def par_wavernn_batch(cfg, dev, seed: int, B: int) -> dict:
             "mels": t(rng.uniform(0, 1, (B, wc.seq_len_hops + 2 * cfg.wavernn.pad, a.num_mels)).astype(np.float32))}
 
 
+def adam_step_error(got: dict, want: dict, lr: float) -> tuple:
+    """Params after one Adam step from two computations of its gradients
+    (``got``/``want``: "params", "grads"), by the rule of the port's step
+    tests: (max|d| where the gradient is not Adam-sensitive, max|d|
+    anywhere, the share of elements past ``PAR_TOL["params"]``).  Adam's
+    first step moves an element by lr g / (|g| + e), e its epsilon in
+    gradient units, so where |g| < 1e-4 or the two gradients are 1 % apart,
+    rounding moves it by up to 2 lr; elsewhere a difference of up to 1 % in
+    g moves it by up to lr / 400 (at |g| = e)."""
+    from tacotronv2_wavernn_chinese_tpu_torch.utils import tree_leaves
+
+    grads = {n: (a, b) for n, a, b in zip(leaf_names(got["grads"]), tree_leaves(got["grads"]),
+                                           tree_leaves(want["grads"]), strict=True)}
+    pw = dict(zip(leaf_names(want["params"]), tree_leaves(want["params"]), strict=True))
+    firm = anywhere = 0.0
+    n_past = n_all = 0
+    for name, p in zip(leaf_names(got["params"]), tree_leaves(got["params"]), strict=True):
+        d = (p - pw[name]).abs()
+        ga, gw = grads[name]
+        firm_part = d[(gw.abs() >= 1e-4) & ((ga - gw).abs() <= 0.01 * gw.abs())]
+        firm = max(firm, float(firm_part.max()) if firm_part.numel() else 0.0)
+        anywhere = max(anywhere, float(d.max()))
+        n_past += int((d > PAR_TOL["params"]).sum())
+        n_all += d.numel()
+    return firm, anywhere, n_past / n_all
+
+
 def rank_rows(mask, B: int, rank: int, world: int):
     """A rank's rows of a ReLU pattern recorded on the global batch: the
     block of its batch dim (the one dim of size ``B``)."""
@@ -2499,8 +2526,9 @@ def parallel_rank(rank: int, world: int, work: str) -> None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(PAR_SEED)
         ops.reset_launch_counts()
-        with relu_pattern(rows) as pat, P.fp32_precision(), PM.data_parallel(mesh):
-            (loss, aux, new, grads), ms = _timed(lambda: task.compute_grads(params, ccfg, local, gen, 0), dev)
+        with relu_pattern(rows) as pat, P.fp32_precision():
+            (loss, aux, new, grads), ms = _timed(lambda: task.compute_grads(params, ccfg, local, gen, 0, mesh=mesh),
+                                                 dev)
         out[f"taco_md{int(md)}"] = {
             "loss": float(loss), "aux": {k: float(v) for k, v in aux.items()}, "ms": ms, "flips": pat.flips,
             "grads": [g.detach().cpu() for g in tree_leaves(grads)],
@@ -2542,7 +2570,7 @@ def parallel_rank(rank: int, world: int, work: str) -> None:
     wpt = init_wavernn(PAR_SEED + 1, wcfg, cfg.audio.num_mels, bits, device=dev)
     state = TP.place_wavernn_state(mesh2, WT.TrainState(0, wpt, WT.adam_init(wpt)))
     batches = [par_wavernn_batch(cfg, dev, PAR_SEED + i, spec["tp_batch"]) for i in range(2)]
-    with relu_pattern(spec["tp_relus"]) as pat, WT.fp32_precision(), PM.data_parallel(mesh2):
+    with relu_pattern(spec["tp_relus"]) as pat, WT.fp32_precision():
         (loss, _, grads), tp_ms = _timed(lambda: WT.compute_grads(state.params, cfg, batches[0], mesh2), dev)
     full = [g.detach().cpu().double() for g in tree_leaves(TP.gather_params(mesh2, grads))]
     losses, step_ms = [], []
@@ -2561,11 +2589,16 @@ def parallel_rank(rank: int, world: int, work: str) -> None:
 
 
 def run_parallel(cfg, dev, smi: str, art: str, shape=PAR_SHAPE, w_batch: int = 32, tp_batch: int = PAR_TP_BATCH) -> dict:
-    """(i) A world of 1 (NCCL on the card), in this process: the
-    data-parallel Tacotron and WaveRNN steps against the plain steps, bit
-    for bit where the card repeats a plain step bit for bit.  (ii) Two ranks on the one card (gloo: NCCL takes one rank a
-    card), spawned: ``parallel_rank``'s checks against one-process
-    references computed here.  Returns what the kernels line needs."""
+    """(i) A world of 1 (NCCL on the card), in this process: its mesh keeps
+    the world's group, so the data-parallel Tacotron and WaveRNN steps take
+    their sharded branch (the global mask draw cut to one shard, the
+    summed loss denominators and BatchNorm moments, the flat gradient
+    all-reduce) with every collective over NCCL, counted; against the plain
+    steps at the trainer gates (the BatchNorm moments come from sums, not
+    mean and var, so not bit for bit).  (ii) Two ranks on the one card
+    (gloo: NCCL takes one rank a card), spawned: ``parallel_rank``'s checks
+    against one-process references computed here.  Returns what the
+    kernels line needs."""
     import torch
     import torch.distributed as dist
     import torch.multiprocessing as mp
@@ -2592,52 +2625,102 @@ def run_parallel(cfg, dev, smi: str, art: str, shape=PAR_SHAPE, w_batch: int = 3
     B, T_in, T = shape
     k34 = ("tacotron_train_fwd", "tacotron_train_bwd")
     counts = lambda keys: {k: ops.LAUNCHES[k] for k in keys}
-    diff = lambda a, b: max(float((x - y).abs().max()) for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True))
-
-    # (i) a world of 1, in this process
+    summary = []  # the phase's key numbers, printed again at the end of the output
+    tol_rel, tol_abs = PAR_TOL["stat"]
+    # (i) a world of 1, in this process; every all-reduce of a step counted
     backend = "nccl" if dev.type == "cuda" else "gloo"
     dist.init_process_group(backend, store=dist.FileStore(os.path.join(work, "store1"), 1), rank=0, world_size=1)
+    all_reduce, n_coll = dist.all_reduce, [0]
+
+    def counted_all_reduce(*args, **kwargs):
+        n_coll[0] += 1
+        return all_reduce(*args, **kwargs)
+
+    dist.all_reduce = counted_all_reduce
     try:
         mesh1 = PM.make_mesh()
-        check(mesh1.size == 1, f"{tag}: a world of 1 made a mesh of {mesh1.size}")
+        check(mesh1.size == 1 and mesh1.groups["data"] is not None,
+              f"{tag}: a world of 1 made a mesh of {mesh1.size} without its group")
         tparams = init_tacotron(PAR_SEED, cfg.tacotron, device=dev)
         batch = par_taco_batch(cfg, dev, shape)
         wparams = init_wavernn(PAR_SEED, cfg.wavernn, cfg.audio.num_mels, cfg.audio.bits, device=dev)
         wbatch = par_wavernn_batch(cfg, dev, PAR_SEED, w_batch)
-        # plain, data-parallel, plain again: the second plain step says
-        # whether the card repeats a step bit for bit
-        taco, wav = {}, {}
+        # plain, data-parallel, plain again (the second plain step shows the
+        # card's own run-to-run spread): each step's gradients, then the step.
+        # The data-parallel runs take the plain runs' ReLU patterns, as the
+        # two-rank check does: a unit within rounding of zero may land on
+        # either side and move its layer's gradients by a position's term
+        runs = {"Tacotron": {}, "WaveRNN": {}}
+        zero_bias = {f"postnet/layers/{cfg.tacotron.postnet_layers - 1}/conv/b"}
+        patterns = {}
+
+        def pinned(key, pin, fn):
+            with WT.fp32_precision(), relu_pattern(patterns[key] if pin else None) as pat:
+                out = fn()
+            patterns.setdefault(key, pat.masks)
+            return out, pat.flips
+
         for name, m in (("plain", None), ("dp", mesh1), ("plain2", None)):
+            pin = m is not None
             gen = torch.Generator(device=dev)
             gen.manual_seed(PAR_SEED)
+            (_, _, new, g), flips = pinned("taco_grads", pin, lambda: task.compute_grads(tparams, cfg, batch, gen, 0,
+                                                                                            mesh=m))
+            gen.manual_seed(PAR_SEED)
             ops.reset_launch_counts()
-            st, met = task.train_step(task.TrainState(0, tparams, task.adam_init(tparams)), batch, gen, cfg, m)
-            taco[name] = (st.params, met, counts(k34))
-            st, met = WT.train_step(WT.TrainState(0, wparams, WT.adam_init(wparams)), wbatch, cfg, m)
-            wav[name] = (st.params, met)
-        flat = torch.cat([t.reshape(-1) for t in tree_leaves(taco["dp"][0])])
-        reduced = flat.clone()
-        dist.all_reduce(reduced)
-        ld = taco["dp"][2]
-        for model, r in (("Tacotron", taco), ("WaveRNN", wav)):
-            d_dp, d_rep = diff(r["dp"][0], r["plain"][0]), diff(r["plain2"][0], r["plain"][0])
-            same_metrics = r["dp"][1] == r["plain"][1]
-            phase(tag, f"world of 1 over {backend.upper()}: {model} step data-parallel vs plain: params max|d| "
-                  f"{d_dp:.3e}, metrics {'equal' if same_metrics else 'different'} (loss {r['dp'][1]['loss']!r} / "
-                  f"{r['plain'][1]['loss']!r}); two plain steps max|d| {d_rep:.3e}")
-            # bit-equal where the card repeats the plain step bit for bit; where
-            # it does not (atomics in a library's backward), at the train gates
-            loss_rel = abs(r["dp"][1]["loss"] - r["plain"][1]["loss"]) / abs(r["plain"][1]["loss"])
-            ok = (d_dp == 0.0 and same_metrics) if d_rep == 0.0 else (
-                d_dp <= PAR_TOL["params"] and loss_rel <= PAR_TOL["loss"])
-            check(ok, f"{tag}: the world-of-1 data-parallel {model} step is {d_dp:.3e} from the plain step, loss "
-                  f"{loss_rel:.2e} relative (two plain steps {d_rep:.3e})")
+            n0 = n_coll[0]
+            (st, met), _ = pinned("taco_step", pin, lambda: task.train_step(
+                task.TrainState(0, tparams, task.adam_init(tparams)), batch, gen, cfg, m))
+            runs["Tacotron"][name] = {"params": st.params, "metrics": met, "grads": g, "new": new, "flips": flips,
+                                      "all_reduces": n_coll[0] - n0, "launches": counts(k34)}
+            (_, new, g), flips = pinned("wavernn_grads", pin, lambda: WT.compute_grads(wparams, cfg, wbatch, m))
+            n0 = n_coll[0]
+            (st, met), _ = pinned("wavernn_step", pin, lambda: WT.train_step(
+                WT.TrainState(0, wparams, WT.adam_init(wparams)), wbatch, cfg, m))
+            runs["WaveRNN"][name] = {"params": st.params, "metrics": met, "grads": g, "new": new, "flips": flips,
+                                     "all_reduces": n_coll[0] - n0}
+        for model, r in runs.items():
+            lr = cfg.tacotron_train.initial_lr if model == "Tacotron" else cfg.wavernn_train.lr
+            dp, plain = r["dp"], r["plain"]
+            g_err, g_at = tc_grad_error(
+                {"grads": tree_leaves(dp["grads"])},
+                {"grads": tree_leaves(plain["grads"]), "names": leaf_names(plain["grads"])}, zero_bias)
+            g_rep = tc_grad_error(
+                {"grads": tree_leaves(r["plain2"]["grads"])},
+                {"grads": tree_leaves(plain["grads"]), "names": leaf_names(plain["grads"])}, zero_bias)[0]
+            stat = {n: (a, b) for n, a, b in zip(leaf_names(plain["new"]), tree_leaves(dp["new"]),
+                                                 tree_leaves(plain["new"]), strict=True)
+                    if n.rsplit("/", 1)[-1] in ("mean", "var")}
+            s_err = max(float(((a - b).abs() - tol_rel * b.abs()).max()) for a, b in stat.values())
+            firm, anywhere, share = adam_step_error(dp, plain, lr)
+            firm_tol = PAR_TOL["params"] + lr / 400
+            d_rep = adam_step_error(r["plain2"], plain, lr)[1]
+            rel = {k: abs(dp["metrics"][k] - plain["metrics"][k]) / abs(plain["metrics"][k]) for k in ("loss", "grad_norm")}
+            phase(tag, f"world of 1 over {backend.upper()}: {model} data-parallel step, {dp['all_reduces']} all-reduces "
+                  f"over {backend.upper()} (the plain step {plain['all_reduces']}), vs the plain step: loss "
+                  f"{dp['metrics']['loss']!r} / {plain['metrics']['loss']!r} ({rel['loss']:.2e} relative), grad norm "
+                  f"{rel['grad_norm']:.2e} relative (tol {PAR_TOL['loss']}); gradients max|d|/max|g| {g_err:.2e} at "
+                  f"{g_at} (tol {PAR_TOL['grad']}; two plain runs {g_rep:.2e}), on the plain step's ReLU pattern "
+                  f"({dp['flips']} units of its own signs differ); {len(stat)} BN statistics max(|d| - {tol_rel}|x|) "
+                  f"{s_err:.2e} (tol {tol_abs}); params after the step max|d| {firm:.3e} where the gradient is not "
+                  f"Adam-sensitive (tol {firm_tol:.2e}), {anywhere:.3e} anywhere (tol 2 lr = {2 * lr:g}), "
+                  f"{share:.2e} of the elements past {PAR_TOL['params']} (tol 0.01); two plain steps max|d| {d_rep:.3e}")
+            summary.append(f"world of 1 {model}: {dp['all_reduces']} all-reduces over {backend.upper()}, loss "
+                           f"{rel['loss']:.2e}, grads {g_err:.2e} (two plain runs {g_rep:.2e}), BN {s_err:.2e}, params "
+                           f"{firm:.3e} firm / {anywhere:.3e} anywhere, two plain steps {d_rep:.3e}")
+            check(dp["all_reduces"] > 0 and plain["all_reduces"] == 0, f"{tag}: the world-of-1 {model} steps ran "
+                  f"{dp['all_reduces']} / {plain['all_reduces']} all-reduces (data-parallel / plain)")
+            check(max(rel.values()) <= PAR_TOL["loss"] and g_err <= PAR_TOL["grad"] and s_err <= tol_abs,
+                  f"{tag}: the world-of-1 data-parallel {model} step: metrics {rel}, gradients {g_err:.2e} at {g_at}, "
+                  f"BN statistics {s_err:.2e}")
+            check(firm <= firm_tol and anywhere <= 2 * lr + PAR_TOL["params"] and share <= 0.01,
+                  f"{tag}: the world-of-1 data-parallel {model} step's params {firm:.3e} / {anywhere:.3e} / {share:.2e}")
+        ld = runs["Tacotron"]["dp"]["launches"]
         phase(tag, f"world of 1: Tacotron B={B} T_in={T_in} T={T}, K3/K4 launches {ld['tacotron_train_fwd']}/"
-              f"{ld['tacotron_train_bwd']}; WaveRNN B={w_batch} x {wbatch['x'].shape[1]}; the {flat.numel()}-float params "
-              f"buffer all-reduced over the world of 1 {'unchanged' if torch.equal(flat, reduced) else 'CHANGED'}")
-        check(torch.equal(flat, reduced), f"{tag}: an all-reduce over a world of 1 changed the buffer")
+              f"{ld['tacotron_train_bwd']}; WaveRNN B={w_batch} x {wbatch['x'].shape[1]}")
         check(ld == {k: 1 for k in k34}, f"{tag}: the world-of-1 step launched K3/K4 {ld}, expected 1/1")
     finally:
+        dist.all_reduce = all_reduce
         dist.destroy_process_group()
 
     # (ii) references for the two-rank world, computed in one process
@@ -2685,7 +2768,6 @@ def run_parallel(cfg, dev, smi: str, art: str, shape=PAR_SHAPE, w_batch: int = 3
           f"no scaling figure")
 
     # the data-parallel Tacotron step against the one-process step
-    tol_rel, tol_abs = PAR_TOL["stat"]
     dp_launches = {k: 0 for k in k34}
     for md in (False, True):
         ref, got = refs[md], [r[f"taco_md{int(md)}"] for r in ranks]
@@ -2705,6 +2787,8 @@ def run_parallel(cfg, dev, smi: str, art: str, shape=PAR_SHAPE, w_batch: int = 3
               f"signs differ); ms per rank (CUDA events) " + ", ".join(f"{r['ms']:.1f}" for r in got)
               + "; K3/K4 launches per rank " + ", ".join(f"{r['launches']['tacotron_train_fwd']}/"
                                                           f"{r['launches']['tacotron_train_bwd']}" for r in got))
+        summary.append(f"DP 2x{B // PAR_WORLD} vs {B} md={md}: loss {loss_rel:.2e}, grads {g_err:.2e}, BN {s_err:.2e}, "
+                       f"ms " + "/".join(f"{r['ms']:.1f}" for r in got))
         check(loss_rel <= PAR_TOL["loss"] and aux_rel <= PAR_TOL["loss"], f"{tag}: md={md} loss {loss_rel:.2e}")
         check(g_err <= PAR_TOL["grad"], f"{tag}: md={md} gradient {g_err:.2e} at {g_at}")
         check(s_err <= tol_abs, f"{tag}: md={md} BN statistics {s_err:.2e}")
@@ -2725,6 +2809,7 @@ def run_parallel(cfg, dev, smi: str, art: str, shape=PAR_SHAPE, w_batch: int = 3
           f"{ckpts}, scalars rows {rows}; rank 0 logged {len(run[0]['logs'])} lines, rank 1 {len(run[1]['logs'])}; "
           f"K3/K4 launches per rank " + ", ".join(f"{r['launches']['tacotron_train_fwd']}/"
                                                   f"{r['launches']['tacotron_train_bwd']}" for r in run))
+    summary.append(f"run_training steps {run[0]['steps']}, checkpoints {ckpts}, scalars rows {rows}")
     check(all(r["steps"] == [2, 3] for r in run), f"{tag}: run_training steps {[r['steps'] for r in run]}")
     check(ckpts == [1, 2, 3] and rows == [1, 2, 3], f"{tag}: checkpoints {ckpts}, scalars rows {rows}")
     check("restored checkpoint at step 2" in run[0]["logs"] and run[1]["logs"] == [],
@@ -2765,6 +2850,9 @@ def run_parallel(cfg, dev, smi: str, art: str, shape=PAR_SHAPE, w_batch: int = 3
           f"max|d| {x_err:.2e} (tol {PAR_TOL['xfade']}), {dev_x.shape[0]} samples; K1 launches per rank "
           + ", ".join(str(r["gen"]["launches"]) for r in ranks) + "; ms per rank (CUDA events) "
           + "; ".join(", ".join(f"{k} {v:.1f}" for k, v in r["gen"]["ms"].items()) for r in ranks))
+    summary.append(f"fold-sharded greedy {cmp['compared']} steps, {cmp['diverged']} diverged; sampled equal "
+                   f"{sampled_equal}; crossfade {x_err:.2e}; K1 greedy ms "
+                   + "/".join(f"{r['gen']['ms']['greedy']:.1f}" for r in ranks))
     check(all(sampled_equal), f"{tag}: sampled blocks differ from one process at the rank-folded seed")
     check(x_err <= PAR_TOL["xfade"], f"{tag}: device crossfade {x_err:.2e} from the host path")
     check(dev_x.shape[0] == mel.shape[0] * hop and np.isfinite(dev_x).all(), f"{tag}: generated wav {dev_x.shape}")
@@ -2791,10 +2879,12 @@ def run_parallel(cfg, dev, smi: str, art: str, shape=PAR_SHAPE, w_batch: int = 3
           f"after two steps {t['shapes']}; ms per rank (CUDA events) grads "
           + ", ".join(f"{r['tp']['ms']:.1f}" for r in ranks) + ", steps "
           + "; ".join(", ".join(f"{v:.1f}" for v in r["tp"]["step_ms"]) for r in ranks))
+    summary.append(f"TP loss {l_rel:.2e}, grads {tp_err:.2e} from float64 (unsharded {card_err:.2e}), step ms "
+                   + "/".join(f"{v:.1f}" for v in t["step_ms"]))
     check(l_rel <= PAR_TOL["tp_loss"] and steps_rel <= PAR_TOL["tp_loss"], f"{tag}: TP loss {l_rel:.2e} / {steps_rel:.2e}")
     check(tp_err <= bound_, f"{tag}: TP gradients {tp_err:.2e} of max|g| from float64, bound {bound_:.2e}")
     check(all(r["tp"]["shapes"] == want for r in ranks), f"{tag}: TP shards {t['shapes']}, expected {want}")
-    return {"dp_train": dp_launches, "fold_sharded_gen": gen_launches}
+    return {"dp_train": dp_launches, "fold_sharded_gen": gen_launches, "summary": summary}
 
 
 # ---------------------------------------------------------------------------
@@ -3088,6 +3178,7 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
           f"T_in={mem_s.shape[1]} steps={k2['steps']}; K3/K4 B={Bm} T_in={Tim} T={Tm}; "
           f"total {time.time() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)
+    phase("parallel", f"{smi}: summary: " + "; ".join(par["summary"]))
     return kernels
 
 

@@ -71,14 +71,13 @@ def batchnorm_train(p: Params, x: torch.Tensor, momentum: float = 0.99, eps: flo
     ``unbiased_ema`` tracks the unbiased one instead, n / (n - 1) times the
     biased variance the normalization uses (torch nn.BatchNorm1d, the
     vocoder side).  The updated statistics carry no gradient.  Inside a
-    data-parallel step (``parallel.mesh.data_parallel``) the statistics
+    data-parallel step (``compute_grads(..., mesh)``) the statistics
     are the global batch's, from sums all-reduced over the ranks' equal
     shards, and the backward crosses the ranks as SyncBatchNorm's does."""
     axes = tuple(range(x.dim() - 1))
     n = x.numel() // x.shape[-1]
-    shards = PM.batch_shards()
-    if shards > 1:
-        n *= shards
+    if PM.batch_sharded():
+        n *= PM.batch_shards()
         mean = PM.batch_sum_grad(x.sum(dim=axes)) / n
         var = PM.batch_sum_grad(((x - mean) ** 2).sum(dim=axes)) / n
     else:

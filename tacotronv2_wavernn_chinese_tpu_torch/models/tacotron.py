@@ -542,11 +542,11 @@ def tacotron_loss(
     divide by the full-band ``sum(mask) * F`` (modules.py:457-485); under
     ``loss_frames`` the low-band half divides by ``n * n_priority``.
 
-    Inside a data-parallel step (``parallel.mesh.data_parallel``) the
-    batch is this rank's rows and the loss its share of the global batch's:
-    every count in a denominator is summed over the ranks, the means and
-    the L2 term divide by the rank count, and the shares sum to the
-    one-process loss."""
+    Inside a data-parallel step (``train.tacotron_task.compute_grads``
+    with a mesh) the batch is this rank's rows and the loss its share of
+    the global batch's: every count in a denominator is summed over the
+    ranks, the means and the L2 term divide by the rank count, and the
+    shares sum to the one-process loss."""
     T = mel_targets.shape[1]
     shards = PM.batch_shards()
     ar = torch.arange(T, device=mel_targets.device)[None, :]

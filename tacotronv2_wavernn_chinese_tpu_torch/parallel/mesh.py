@@ -22,9 +22,14 @@ batch because:
   before the clip, which then sees the global norm; the metrics are the
   summed shares, equal on every rank.
 
-The step code reads the active data axis from ``data_parallel(mesh)``
-(``batch_shards``, ``batch_sum``...): outside it, or on a one-rank axis,
-each helper is the identity and the step is the one-process step.
+The task modules' ``compute_grads(..., mesh)`` enter ``data_parallel(mesh)``
+and the model code reads the active data axis through ``batch_shards``,
+``batch_sum``...: outside it, or where the axis holds no process group,
+each helper is the identity and the step is the one-process step.  An
+axis holds a group whenever a process group is up, a world of one
+included (``make_mesh``): such a world runs the data-parallel step's code
+and every collective of it over its one rank, which is how one card
+checks that path against the one-process step.
 
 The collectives that carry a gradient are three small autograd Functions
 below rather than ``torch.distributed.nn.functional``'s: its
@@ -34,7 +39,7 @@ and its ``all_reduce`` is deprecated in current torch.
 
 ``Mesh`` is the small counterpart of ``jax.sharding.Mesh``: its axes, their
 sizes, this rank's coordinate on each and the process group of each (None
-on an axis of one rank).  ``batch_sharding`` and ``replicated`` are
+where the axis runs no collective).  ``batch_sharding`` and ``replicated`` are
 PartitionSpec-like descriptors.
 """
 
@@ -51,7 +56,7 @@ import torch
 import torch.distributed as dist
 
 from ..utils import tree_leaves, tree_map
-from .distributed import host_shard
+from .distributed import host_shard, initialized
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +64,7 @@ class Mesh:
     axis_names: tuple
     shape: dict  # axis -> number of ranks along it
     coords: dict  # axis -> this rank's index along it
-    groups: dict  # axis -> process group, None on a one-rank axis
+    groups: dict  # axis -> process group, None where the axis runs no collective
 
     @property
     def size(self) -> int:
@@ -67,10 +72,27 @@ class Mesh:
 
 
 def make_mesh(axis: str = "data") -> Mesh:
-    """Every rank of the process group on one axis (one rank without a
-    process group)."""
+    """Every rank of the process group on one axis; one rank and no group
+    without a process group.  A world of one keeps its group, so a step
+    on this mesh runs its collectives over that one rank."""
     rank, world = host_shard()
-    return Mesh((axis,), {axis: world}, {axis: rank}, {axis: dist.group.WORLD if world > 1 else None})
+    group = dist.group.WORLD if initialized() else None
+    return Mesh((axis,), {axis: world}, {axis: rank}, {axis: group})
+
+
+def mesh_or_refuse(use_mesh: bool = True) -> Mesh | None:
+    """The trainers' mesh: ``make_mesh()`` over several ranks, None for one
+    process (the one-process step).  The JAX loops' ``use_mesh=False``
+    asks for the one-device step; here one process takes it anyway, and
+    under several ranks it is refused (ValueError): each rank would train
+    the whole batch alone and every rank would write one log directory."""
+    mesh = make_mesh()
+    if mesh.size == 1:
+        return None
+    if not use_mesh:
+        raise ValueError(f"use_mesh=False under a process group of {mesh.size} ranks: the one-process step "
+                         "runs only in one process (start the trainer without a launcher)")
+    return mesh
 
 
 def batch_sharding(mesh: Mesh, axis: str = "data") -> tuple:
@@ -204,7 +226,7 @@ class _GatherColumns(torch.autograd.Function):
 
 def axis_sum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """Sum over ``axis`` of a tensor that carries no gradient."""
-    if mesh.shape[axis] == 1:
+    if mesh.groups[axis] is None:
         return x
     y = x.detach().clone(memory_format=torch.contiguous_format)
     dist.all_reduce(y, group=mesh.groups[axis])
@@ -213,7 +235,7 @@ def axis_sum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
 
 def axis_sum_grad(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """Sum over ``axis`` whose backward sums the cotangents over it."""
-    if mesh.shape[axis] == 1:
+    if mesh.groups[axis] is None:
         return x
     return _AllReduceSum.apply(x, mesh.groups[axis])
 
@@ -221,7 +243,7 @@ def axis_sum_grad(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
 def sum_cotangents(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """``x`` unchanged; its cotangent summed over ``axis`` (see
     ``_SumCotangents``)."""
-    if mesh.shape[axis] == 1:
+    if mesh.groups[axis] is None:
         return x
     return _SumCotangents.apply(x, mesh.groups[axis])
 
@@ -230,7 +252,7 @@ def gather_columns(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """The blocks of ``axis`` concatenated along the last dim (see
     ``_GatherColumns`` for the backward's rule)."""
     n = mesh.shape[axis]
-    if n == 1:
+    if mesh.groups[axis] is None:
         return x
     return _GatherColumns.apply(x, mesh.groups[axis], n, mesh.coords[axis])
 
@@ -238,7 +260,7 @@ def gather_columns(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
 def gather_rows(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """The blocks of ``axis`` concatenated along dim 0 (no gradient)."""
     n = mesh.shape[axis]
-    if n == 1:
+    if mesh.groups[axis] is None:
         return x
     parts = [torch.empty_like(x, memory_format=torch.contiguous_format) for _ in range(n)]
     dist.all_gather(parts, x.contiguous(), group=mesh.groups[axis])
@@ -247,7 +269,7 @@ def gather_rows(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
 
 def sum_tree(tree: Any, mesh: Mesh, axis: str) -> Any:
     """Every tensor leaf summed over ``axis`` as one flat all-reduce."""
-    if mesh.shape[axis] == 1:
+    if mesh.groups[axis] is None:
         return tree
     leaves = tree_leaves(tree)
     flat = _flat(leaves)
@@ -266,13 +288,19 @@ _ACTIVE: contextvars.ContextVar = contextvars.ContextVar("data_parallel_axis", d
 @contextlib.contextmanager
 def data_parallel(mesh: Mesh | None, axis: str = "data"):
     """Run the enclosed step with its batch sharded over ``axis`` of
-    ``mesh`` (None, or an axis of one rank: the one-process step)."""
-    on = mesh is not None and mesh.shape.get(axis, 1) > 1
+    ``mesh`` (None, or an axis without a group: the one-process step).
+    Entered by the task modules' ``compute_grads``."""
+    on = mesh is not None and mesh.groups.get(axis) is not None
     token = _ACTIVE.set((mesh, axis) if on else None)
     try:
         yield
     finally:
         _ACTIVE.reset(token)
+
+
+def batch_sharded() -> bool:
+    """True inside a data-parallel step."""
+    return _ACTIVE.get() is not None
 
 
 def batch_shards() -> int:

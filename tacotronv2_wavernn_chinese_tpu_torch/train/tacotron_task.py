@@ -159,34 +159,37 @@ def loss_fn(params, cfg: Config, batch: dict, generator: torch.Generator, train:
     return loss, (aux, new_params, out)
 
 
-def compute_grads(params, cfg: Config, batch: dict, generator: torch.Generator, step: int, rand=None):
+def compute_grads(params, cfg: Config, batch: dict, generator: torch.Generator, step: int, rand=None,
+                  mesh=None):
     """Loss and gradient of every params leaf (zeros where the loss does not
     depend on it, as for the BN moving statistics), at the teacher-forcing
     ratio the schedule gives ``step``; the masks are ``rand`` or drawn from
     ``generator``.
 
-    Inside ``parallel.mesh.data_parallel`` ``batch`` is this rank's rows:
-    the masks are the global batch's (drawn, or ``rand`` given for it) cut
-    to those rows, and the returned loss, aux terms and gradients are the
-    global batch's, equal on every rank."""
-    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    ratio = teacher_forcing_schedule(cfg, step)
-    shards = PM.batch_shards()
-    if shards > 1:
-        if rand is None:
-            inputs, mels = batch["inputs"], batch["mel_targets"]
-            rand = T.draw_train_rand(params, cfg.tacotron, inputs.shape[0] * shards, inputs.shape[1],
-                                     mels.shape[1], generator, True, ratio)
-        rand = T.shard_train_rand(rand, PM.batch_index(), shards)
-    loss, (aux, new_params, _) = loss_fn(leaves, cfg, batch, generator, True, ratio, rand=rand)
-    flat = tree_leaves(leaves)
-    gs = torch.autograd.grad(loss, flat, allow_unused=True)
-    it = iter([torch.zeros_like(p) if g is None else g for p, g in zip(flat, gs)])
-    grads = tree_map(lambda _: next(it), leaves)
-    if shards > 1:  # the ranks' shares summed: the global loss, terms and gradients
-        names = list(aux)
-        aux = dict(zip(names, PM.batch_sum(torch.stack([aux[k].detach().reshape(()) for k in names]))))
-        loss, grads = aux["loss"], PM.batch_sum_tree(grads)
+    With a ``mesh`` whose ``data`` axis holds a process group (``parallel/
+    mesh.py``), ``batch`` is this rank's rows: the masks are the global
+    batch's (drawn, or ``rand`` given for it) cut to those rows, and the
+    returned loss, aux terms and gradients are the global batch's, equal on
+    every rank."""
+    with PM.data_parallel(mesh):
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        ratio = teacher_forcing_schedule(cfg, step)
+        sharded, shards = PM.batch_sharded(), PM.batch_shards()
+        if sharded:
+            if rand is None:
+                inputs, mels = batch["inputs"], batch["mel_targets"]
+                rand = T.draw_train_rand(params, cfg.tacotron, inputs.shape[0] * shards, inputs.shape[1],
+                                         mels.shape[1], generator, True, ratio)
+            rand = T.shard_train_rand(rand, PM.batch_index(), shards)
+        loss, (aux, new_params, _) = loss_fn(leaves, cfg, batch, generator, True, ratio, rand=rand)
+        flat = tree_leaves(leaves)
+        gs = torch.autograd.grad(loss, flat, allow_unused=True)
+        it = iter([torch.zeros_like(p) if g is None else g for p, g in zip(flat, gs)])
+        grads = tree_map(lambda _: next(it), leaves)
+        if sharded:  # the ranks' shares summed: the global loss, terms and gradients
+            names = list(aux)
+            aux = dict(zip(names, PM.batch_sum(torch.stack([aux[k].detach().reshape(()) for k in names]))))
+            loss, grads = aux["loss"], PM.batch_sum_tree(grads)
     return loss.detach(), aux, new_params, grads
 
 
@@ -209,11 +212,11 @@ def apply_gradients(state: TrainState, new_params, grads, cfg: Config):
 
 def train_step(state: TrainState, batch: dict, generator: torch.Generator, cfg: Config, mesh=None):
     """One optimization step -> (new state, metrics of floats).  The step's
-    masks are drawn from ``generator``.  With a ``mesh`` whose ``data``
-    axis spans several ranks, ``batch`` is this rank's rows of the global
-    batch and ``generator`` is seeded alike on every rank."""
-    with P.fp32_precision(), PM.data_parallel(mesh):
-        _, aux, new_params, grads = compute_grads(state.params, cfg, batch, generator, state.step)
+    masks are drawn from ``generator``.  With a ``mesh`` (``compute_grads``),
+    ``batch`` is this rank's rows of the global batch and ``generator`` is
+    seeded alike on every rank."""
+    with P.fp32_precision():
+        _, aux, new_params, grads = compute_grads(state.params, cfg, batch, generator, state.step, mesh=mesh)
         new_state, norm, lr = apply_gradients(state, new_params, grads, cfg)
         names = list(aux) + ["grad_norm"]
         values = torch.stack([aux[k].detach().reshape(()) for k in aux] + [norm.reshape(())]).tolist()

@@ -88,13 +88,12 @@ def run_training(
 ) -> task.TrainState:
     """Train to ``total_steps`` (default ``tacotron_train.train_steps``),
     resuming from the latest checkpoint under ``log_dir/taco_pretrained``.
-    ``device`` None means the CUDA card (raises without one).  With
-    ``use_mesh`` and a process group of several ranks, each rank trains
-    on its rows of every global batch (module docstring)."""
+    ``device`` None means the CUDA card (raises without one).  Under a
+    process group of several ranks each rank trains on its rows of every
+    global batch (module docstring); ``use_mesh=False``, the JAX loop's
+    one-device step, is refused there (``parallel.mesh.mesh_or_refuse``)."""
+    mesh = PM.mesh_or_refuse(use_mesh)
     dev = resolve_device(device)
-    mesh = PM.make_mesh() if use_mesh else None
-    if mesh is not None and mesh.size == 1:
-        mesh = None
     primary = D.is_primary()
     log = D.primary_log(log)
     tc = cfg.tacotron_train

@@ -94,22 +94,22 @@ def loss_fn(params, cfg: Config, batch: dict, train: bool = True, layers: dict |
 
 def compute_grads(params, cfg: Config, batch: dict, mesh=None):
     """Loss, the params with the forward's BN statistics, and the gradient
-    of every leaf (zeros for the BN statistics).  Inside
-    ``parallel.mesh.data_parallel`` ``batch`` is this rank's rows and the
-    loss and gradients returned are the global batch's; with a ``mesh``
-    whose ``model`` axis spans several ranks the sharded leaves (and their
-    gradients) are this rank's column blocks."""
-    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    layers = TP.layers(mesh) if TP.model_parallel(mesh) else None
-    loss, (new_params, _) = loss_fn(leaves, cfg, batch, True, layers)
-    shards = PM.batch_shards()
-    share = loss / shards  # the global mean over equal windows is the sum of the shares
-    flat = tree_leaves(leaves)
-    gs = torch.autograd.grad(share, flat, allow_unused=True)
-    it = iter([torch.zeros_like(p) if g is None else g for p, g in zip(flat, gs)])
-    grads = tree_map(lambda _: next(it), leaves)
-    if shards > 1:
-        share, grads = PM.batch_sum(share.detach()), PM.batch_sum_tree(grads)
+    of every leaf (zeros for the BN statistics).  With a ``mesh`` whose
+    ``data`` axis holds a process group (``parallel/mesh.py``), ``batch`` is
+    this rank's rows and the loss and gradients returned are the global
+    batch's; with one whose ``model`` axis spans several ranks the sharded
+    leaves (and their gradients) are this rank's column blocks."""
+    with PM.data_parallel(mesh):
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        layers = TP.layers(mesh) if TP.model_parallel(mesh) else None
+        loss, (new_params, _) = loss_fn(leaves, cfg, batch, True, layers)
+        share = loss / PM.batch_shards()  # the global mean over equal windows is the sum of the shares
+        flat = tree_leaves(leaves)
+        gs = torch.autograd.grad(share, flat, allow_unused=True)
+        it = iter([torch.zeros_like(p) if g is None else g for p, g in zip(flat, gs)])
+        grads = tree_map(lambda _: next(it), leaves)
+        if PM.batch_sharded():
+            share, grads = PM.batch_sum(share.detach()), PM.batch_sum_tree(grads)
     return share.detach(), new_params, grads
 
 
@@ -132,7 +132,7 @@ def train_step(state: TrainState, batch: dict, cfg: Config, mesh=None):
     rank's rows over its ``data`` axis (``parallel/mesh.py``), and over a
     ``model`` axis ``state`` holds ``parallel.tp.place_wavernn_state``'s
     blocks."""
-    with fp32_precision(), PM.data_parallel(mesh):
+    with fp32_precision():
         loss, new_params, grads = compute_grads(state.params, cfg, batch, mesh)
         norm = TP.global_norm(grads, mesh) if TP.model_parallel(mesh) else None
         new_state, norm = apply_gradients(state, new_params, grads, cfg, norm)

@@ -71,13 +71,12 @@ def run_training(
     the GTA metadata ``metadata_path`` (rows ``wav|gt_mel|pred_mel|text``
     under ``data_dir``).  ``device`` None means the CUDA card (raises
     without one).  ``use_native_loader`` takes the C++ loader when it
-    builds, else logs and uses the Python loader.  With ``use_mesh`` and a
-    process group of several ranks, each rank trains on its rows of every
-    global batch (module docstring)."""
+    builds, else logs and uses the Python loader.  Under a process group
+    of several ranks each rank trains on its rows of every global batch
+    (module docstring); ``use_mesh=False``, the JAX loop's one-device
+    step, is refused there (``parallel.mesh.mesh_or_refuse``)."""
+    mesh = PM.mesh_or_refuse(use_mesh)
     dev = resolve_device(device)
-    mesh = PM.make_mesh() if use_mesh else None
-    if mesh is not None and mesh.size == 1:
-        mesh = None
     primary = D.is_primary()
     log = D.primary_log(log)
     if mesh is not None:

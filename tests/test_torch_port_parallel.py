@@ -4,14 +4,18 @@ of two ranks on the CPU, against the JAX package's ``parallel/`` on a
 2-device mesh of the suite's virtual CPU devices.
 
 One world runs every check (``torch_dist_worker.run``; a spawn costs a few
-seconds): the module fixture computes the JAX side here, writes the inputs,
-spawns the ranks and reads back what each wrote.  Tolerances:
+seconds): the module fixture writes the inputs, starts the ranks, computes
+the JAX side here while they run (each JAX program jitted once) and reads
+back what each rank wrote.  Tolerances:
 
 * the Tacotron step with JAX's masks injected (each rank its rows of the
   global masks), lengths uneven across the two ranks, under the three
   loss branches (``loss_frames``, ``mask_decoder``, the plain means): loss
   and aux terms 2e-5 relative, every gradient 5e-4 of its leaf's max|g|,
-  BN statistics 1e-5 relative (``tests/torch_train_parity.py``);
+  BN statistics 1e-5 relative (``tests/torch_train_parity.py``).  The
+  plain means' JAX reference is JAX's ``loss_frames`` program with every
+  row's ``loss_frames`` at the full length, which takes the same means,
+  so the two cases share one compiled program;
 * the WaveRNN step: loss 5e-5 relative, gradients 1e-6, BN statistics
   1e-5 (``tests/test_torch_port_wavernn_train.py``'s RAW gates);
 * a whole data-parallel step against the one-process step on the global
@@ -19,8 +23,10 @@ spawns the ranks and reads back what each wrote.  Tolerances:
   is not Adam-sensitive (``_assert_params_after_adam``);
 * the sharded crossfade 1e-5, greedy sharded generation 1e-5, the device
   crossfade against the host's 1e-4 (the JAX package's own gates);
-* TP dp=1 x tp=2 against JAX's unsharded step: loss 1e-4 relative over
-  two steps, the gathered gradients 1e-6.
+* TP dp=1 x tp=2 against JAX's unsharded step: the first step's loss 1e-4
+  relative and its gathered gradients 1e-6; the losses of two steps 1e-4
+  relative to the port's one-process steps (the placement survives the
+  update).
 """
 
 import dataclasses
@@ -52,7 +58,7 @@ from tacotronv2_wavernn_chinese_tpu_torch.parallel import tp as TP
 from tacotronv2_wavernn_chinese_tpu_torch.train import tacotron_task as TTask
 from tacotronv2_wavernn_chinese_tpu_torch.train import wavernn_task as WTask
 from tacotronv2_wavernn_chinese_tpu_torch.utils import tree_map
-from tacotronv2_wavernn_chinese_tpu_torch.utils.checkpoints import CheckpointManager, wavernn_from_numpy
+from tacotronv2_wavernn_chinese_tpu_torch.utils.checkpoints import CheckpointManager, init_wavernn, wavernn_from_numpy
 from tacotronv2_wavernn_chinese_tpu_torch.utils.metrics import read_scalars
 
 B, T_IN, T_OUT = 4, 16, 20
@@ -87,9 +93,10 @@ def _jax_wavernn_cfg(widths, **audio):
 
 
 def _wavernn_params(jcfg, seed):
-    """JAX's init (jitted), with BN running statistics away from 0 and 1."""
-    p = jax.device_get(jax.jit(lambda k: JW.init_wavernn(k, jcfg.wavernn, 80, jcfg.audio.bits))(
-        jax.random.PRNGKey(seed)))
+    """Params of ``jcfg``'s structure as numpy, from the port's init (the
+    JAX init's tree and shapes; no JAX program to compile), with BN running
+    statistics away from 0 and 1."""
+    p = tree_map(lambda t: t.numpy(), init_wavernn(seed, jcfg.wavernn, 80, jcfg.audio.bits))
     rng = np.random.default_rng(seed + 1)
     for bn in [p["resnet"]["bn_in"]] + [b[k] for b in p["resnet"]["blocks"] for k in ("bn1", "bn2")]:
         bn["mean"] = rng.normal(0, 0.1, bn["mean"].shape).astype(np.float32)
@@ -108,80 +115,103 @@ def _wavernn_batch(jcfg, seed, rows=B, hops=3):
 _jax_wavernn_grad = jax.jit(jax.value_and_grad(JWTask.loss_fn, has_aux=True), static_argnums=(1, 3))
 
 
-def _tacotron_side(mesh2) -> tuple[dict, dict]:
-    """(the worker's inputs, JAX's results) of the Tacotron cases."""
-    jax_grad = TPar.jax_grad_fn()
+def _tacotron_inputs() -> dict:
+    """The worker's Tacotron inputs: params, and each case's batch with
+    JAX's masks for it."""
     jcfg0, _ = TPar.cfgs()
     params = TPar.jax_params(jcfg0)
-    inputs, ref = {"params": params, "cases": {}}, {}
+    inputs = {"params": params, "cases": {}}
     for name, train in WK.TACO_CASES.items():
         jcfg, _ = TPar.cfgs(**train)
         batch = _taco_batch(name != "mean")
-        rng = jax.random.PRNGKey(9)
-        rand = TPar.jax_masks(params, jcfg, rng, batch)
+        rand = TPar.jax_masks(params, jcfg, jax.random.PRNGKey(9), batch)
         inputs["cases"][name] = {"batch": batch, "rand": _rand_np(rand)}
+    return inputs
+
+
+def _tacotron_refs(mesh2, inputs) -> dict:
+    """JAX's 2-device mesh step of each case (the plain means on the
+    ``loss_frames`` program at full length, module docstring)."""
+    jax_grad = TPar.jax_grad_fn()
+    params, ref = inputs["params"], {}
+    for name, train in WK.TACO_CASES.items():
+        jcfg, _ = TPar.cfgs(**train)
+        batch = dict(inputs["cases"][name]["batch"])
+        if name == "mean":
+            batch["loss_frames"] = np.full((B,), T_OUT, np.int32)
         jb = JM.shard_batch(mesh2, {k: jnp.asarray(v) for k, v in batch.items()})
         with mesh2:
-            (jloss, (jaux, jnew, _)), jgrads = jax_grad(JM.replicate_tree(mesh2, params), jcfg, jb, rng, True, 1.0)
+            (jloss, (jaux, jnew, _)), jgrads = jax_grad(JM.replicate_tree(mesh2, params), jcfg, jb,
+                                                        jax.random.PRNGKey(9), True, 1.0)
         ref[name] = {"jloss": float(jloss), "jaux": jax.device_get(jaux), "jnew": jax.device_get(jnew),
                      "jgrads": jax.device_get(jgrads)}
-    return inputs, ref
+    return ref
 
 
-def _wavernn_side(mesh2) -> tuple[dict, dict, dict, dict]:
-    """(DP inputs, JAX's DP-mesh results, TP inputs, JAX's unsharded TP
-    results)."""
+def _wavernn_inputs() -> tuple[dict, dict]:
+    """(the DP step's inputs, the TP steps' inputs)."""
     jcfg = _jax_wavernn_cfg(WK.WAVERNN_TRAIN)
-    params = _wavernn_params(jcfg, 0)
-    batch = _wavernn_batch(jcfg, 1)
+    return ({"params": _wavernn_params(jcfg, 0), "batch": _wavernn_batch(jcfg, 1)},
+            {"params": _wavernn_params(jcfg, 3), "batches": [_wavernn_batch(jcfg, 10 + i) for i in range(2)]})
+
+
+def _wavernn_refs(mesh2, dp_in, tp_in) -> tuple[dict, dict]:
+    """(JAX's DP-mesh step, JAX's unsharded first TP step with the port's
+    one-process losses of both TP steps)."""
+    jcfg = _jax_wavernn_cfg(WK.WAVERNN_TRAIN)
     with mesh2:
         (jloss, (jnew, _)), jgrads = _jax_wavernn_grad(
-            JM.replicate_tree(mesh2, params), jcfg, JM.shard_batch(mesh2, {k: jnp.asarray(v) for k, v in batch.items()}),
-            True)
+            JM.replicate_tree(mesh2, dp_in["params"]), jcfg,
+            JM.shard_batch(mesh2, {k: jnp.asarray(v) for k, v in dp_in["batch"].items()}), True)
     dp_ref = {"loss": float(jloss), "new": jax.device_get(jnew), "grads": jax.device_get(jgrads)}
-    tp_params = _wavernn_params(jcfg, 3)
-    tp_batches = [_wavernn_batch(jcfg, 10 + i) for i in range(2)]
-    (_, _), g1 = _jax_wavernn_grad(tp_params, jcfg, {k: jnp.asarray(v) for k, v in tp_batches[0].items()}, True)
-    state = JWTask.init_state(jax.random.PRNGKey(0), jcfg)
-    state = state._replace(params=jax.tree_util.tree_map(jnp.asarray, tp_params))
-    losses = []
-    for b in tp_batches:
-        state, m = JWTask.train_step(state, {k: jnp.asarray(v) for k, v in b.items()}, jcfg)
-        losses.append(float(m["loss"]))
-    tp_ref = {"grads": jax.device_get(g1), "losses": losses}
-    return ({"params": params, "batch": batch}, dp_ref, {"params": tp_params, "batches": tp_batches}, tp_ref)
+    (jloss1, _), g1 = _jax_wavernn_grad(tp_in["params"], jcfg,
+                                        {k: jnp.asarray(v) for k, v in tp_in["batches"][0].items()}, True)
+    cfg, params = WK.wavernn_cfg(), _torch_tree(tp_in["params"])
+    state, losses = WTask.TrainState(0, params, WTask.adam_init(params)), []
+    for b in tp_in["batches"]:
+        tb = _torch_tree(b)
+        state, m = WTask.train_step(state, dict(tb, y=tb["y"].long()), cfg)
+        losses.append(m["loss"])
+    return dp_ref, {"loss": float(jloss1), "grads": jax.device_get(g1), "losses": losses}
 
 
-def _generation_side(mesh2) -> tuple[dict, dict]:
+def _generation_inputs() -> dict:
     jcfg = _jax_wavernn_cfg(WK.WAVERNN_GEN, bits=WK.GEN_BITS)
-    params = _wavernn_params(jcfg, 4)
     rng = np.random.default_rng(5)
     half = rng.uniform(0.0, 1.0, (8, 7, 80)).astype(np.float32)
-    folds = np.concatenate([half, half])  # both ranks get the same folds: only the seeds differ
-    greedy = JG.generate_folds_sharded(params, jcfg.wavernn, mesh2, jnp.asarray(folds), jax.random.PRNGKey(2),
-                                       bits=WK.GEN_BITS, apply_mu_law=False,
-                                       generate_fn=functools.partial(JW.generate_scan, greedy=True))
-    overlap, target = 40, 120
-    y = rng.standard_normal((16, target + 2 * overlap)).astype(np.float32)
+    return {"params": _wavernn_params(jcfg, 4),
+            "folds": np.concatenate([half, half]),  # both ranks get the same folds: only the seeds differ
+            "xfade_y": rng.standard_normal((16, 120 + 2 * 40)).astype(np.float32), "xfade_overlap": np.asarray(40),
+            "mel": rng.uniform(0.0, 1.0, (60, 80)).astype(np.float32)}
+
+
+def _generation_refs(mesh2, inp) -> dict:
+    """JAX's greedy sharded generation (jitted) and sharded crossfade."""
+    jcfg = _jax_wavernn_cfg(WK.WAVERNN_GEN, bits=WK.GEN_BITS)
+    greedy = jax.jit(lambda p, f: JG.generate_folds_sharded(
+        p, jcfg.wavernn, mesh2, f, jax.random.PRNGKey(2), bits=WK.GEN_BITS, apply_mu_law=False,
+        generate_fn=functools.partial(JW.generate_scan, greedy=True)))(inp["params"], jnp.asarray(inp["folds"]))
+    y, overlap = inp["xfade_y"], int(inp["xfade_overlap"])
     xfade = {n: JG.xfade_and_unfold_sharded(jnp.asarray(y), overlap, n, mesh2) for n in (13, 16)}
-    mel = rng.uniform(0.0, 1.0, (60, 80)).astype(np.float32)
-    return ({"params": params, "folds": folds, "xfade_y": y, "xfade_overlap": np.asarray(overlap), "mel": mel},
-            {"greedy": np.asarray(greedy), "xfade": xfade, "params": params, "y": y, "overlap": overlap})
+    return {"greedy": np.asarray(greedy), "xfade": xfade, "params": inp["params"], "y": y, "overlap": overlap}
 
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     assert WK.TACO_SMALL == TPar.SMALL
-    mesh2 = JM.make_mesh(jax.devices()[:2])
-    taco_in, taco_ref = _tacotron_side(mesh2)
-    dp_in, dp_ref, tp_in, tp_ref = _wavernn_side(mesh2)
-    gen_in, gen_ref = _generation_side(mesh2)
+    taco_in = _tacotron_inputs()
+    dp_in, tp_in = _wavernn_inputs()
+    gen_in = _generation_inputs()
     tmp = str(tmp_path_factory.mktemp("world"))
     corpus = os.path.join(tmp, "corpus")
     write_synthetic_corpus(corpus, 9, (5, 20), (20, 50), seed=4)
     run_in = {"corpus": np.asarray(corpus), "log_dir": np.asarray(os.path.join(tmp, "logs"))}
-    ranks = WK.spawn(tmp, {"tacotron": taco_in, "wavernn": dp_in, "tp": tp_in, "gen": gen_in,
-                           "run_training": run_in})
+    ctx = WK.start(tmp, {"tacotron": taco_in, "wavernn": dp_in, "tp": tp_in, "gen": gen_in, "run_training": run_in})
+    mesh2 = JM.make_mesh(jax.devices()[:2])
+    taco_ref = _tacotron_refs(mesh2, taco_in)
+    dp_ref, tp_ref = _wavernn_refs(mesh2, dp_in, tp_in)
+    gen_ref = _generation_refs(mesh2, gen_in)
+    ranks = WK.join(ctx, tmp)
     return {"ranks": ranks, "taco_in": taco_in, "taco": taco_ref, "wavernn_in": dp_in, "wavernn": dp_ref,
             "tp_in": tp_in, "tp": tp_ref, "gen": gen_ref, "gen_in": gen_in, "run": run_in}
 
@@ -193,7 +223,9 @@ def _torch_tree(tree):
 @pytest.mark.parametrize("case", list(WK.TACO_CASES))
 def test_tacotron_dp_step_matches_jax_mesh(world, case):
     """Loss, aux terms, every gradient and the BN statistics of the 2-rank
-    step (rank 0's; rank 1 holds the same) against JAX's 2-device mesh."""
+    step (rank 0's; rank 1 holds the same) against JAX's 2-device mesh
+    (the plain means against JAX's ``loss_frames`` program at full length,
+    module docstring)."""
     got = world["ranks"][0]["tacotron"][case]
     ref = world["taco"][case]
     grads = _torch_tree(got["grads"])
@@ -280,9 +312,10 @@ def test_wavernn_dp_train_step_equals_one_process_step(world):
 
 def test_tp_step_matches_jax_unsharded(world):
     """dp=1 x tp=2 against JAX's unsharded step: the first step's loss and
-    its gradients (the column blocks gathered), both steps' losses."""
+    its gradients (the column blocks gathered); both steps' losses against
+    the port's one-process steps."""
     got, ref = world["ranks"][0]["tp"], world["tp"]
-    np.testing.assert_allclose(float(got["loss"]), ref["losses"][0], rtol=1e-4)
+    np.testing.assert_allclose(float(got["loss"]), ref["loss"], rtol=1e-4)
     np.testing.assert_allclose(got["losses"], ref["losses"], rtol=1e-4)
     for path, a in jax.tree_util.tree_flatten_with_path(ref["grads"])[0]:
         np.testing.assert_allclose(TPar._at(got["grads"], path), a, rtol=0, atol=1e-6,
@@ -415,8 +448,9 @@ def test_one_process_runtime():
     assert not D.initialized()
     mesh = PM.make_mesh()
     assert mesh.size == 1 and mesh.groups["data"] is None
+    assert PM.mesh_or_refuse(True) is PM.mesh_or_refuse(False) is None
     with PM.data_parallel(mesh):
-        assert PM.batch_shards() == 1 and PM.batch_index() == 0
+        assert not PM.batch_sharded() and PM.batch_shards() == 1 and PM.batch_index() == 0
         x = torch.ones(3)
         assert PM.batch_sum(x) is x and PM.batch_sum_grad(x) is x
     if not torch.cuda.is_available():
@@ -463,3 +497,71 @@ def test_indexless_cuda_device_is_the_current_card(monkeypatch):
     monkeypatch.setattr(TK, "_CLUSTERS", {})
     assert TK.card_clusters(torch.device("cuda")) == 15
     assert entered == [3] and list(TK._CLUSTERS) == [3]
+
+
+def test_run_training_refuses_use_mesh_false_under_two_ranks(world):
+    """``use_mesh=False`` asks for the JAX loop's one-device step; under two
+    ranks each would train the whole batch alone into one log directory,
+    so both ranks refuse before reading or writing anything."""
+    for r in range(2):
+        got = world["ranks"][r]["run_training"]
+        assert "use_mesh=False under a process group of 2 ranks" in str(got["no_mesh_error"])
+        assert not bool(got["no_mesh_dir"])
+
+
+def test_world_of_one_runs_the_data_parallel_step(tmp_path, monkeypatch):
+    """A world of one keeps its process group, so each model's
+    ``compute_grads`` on its mesh takes the data-parallel branch (the global
+    mask draw cut to one shard, the summed denominators, the BatchNorm sums,
+    the flat gradient all-reduce), every collective over that one rank, and
+    agrees with the one-process step at the trainer tolerances."""
+    calls = []
+    all_reduce = torch.distributed.all_reduce
+
+    def counted(t, *args, **kwargs):
+        calls.append(t.numel())
+        return all_reduce(t, *args, **kwargs)
+
+    monkeypatch.setattr(torch.distributed, "all_reduce", counted)
+    torch.distributed.init_process_group("gloo", store=torch.distributed.FileStore(str(tmp_path / "store"), 1),
+                                         rank=0, world_size=1)
+    try:
+        mesh = PM.make_mesh()
+        assert mesh.size == 1 and mesh.groups["data"] is not None
+        cfg = WK.taco_cfg(**WK.TACO_CASES["mask_decoder"])
+        jcfg0, _ = TPar.cfgs()
+        params = _torch_tree(TPar.jax_params(jcfg0))
+        batch = WK._taco_batch(_taco_batch(True))
+        out = {}
+        for name, m in (("plain", None), ("dp", mesh)):
+            calls.clear()
+            gen = torch.Generator().manual_seed(3)
+            out[name] = TTask.compute_grads(params, cfg, batch, gen, 0, mesh=m), len(calls)
+        (loss, aux, new, grads), n_dp = out["dp"]
+        (loss1, aux1, new1, grads1), n_plain = out["plain"]
+        # BN sums and their cotangents (encoder convs, postnet), the loss's
+        # counts, the aux terms, the flat gradients
+        assert n_plain == 0 and n_dp >= 4 * 2 + 3
+        np.testing.assert_allclose(float(loss), float(loss1), rtol=TPar.LOSS_RTOL)
+        for k in aux1:
+            np.testing.assert_allclose(float(aux[k].detach()), float(aux1[k].detach()), rtol=TPar.LOSS_RTOL, atol=1e-7,
+                                       err_msg=k)
+        for a, b in zip(U.tree_leaves(grads), U.tree_leaves(grads1), strict=True):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                       atol=TPar.GRAD_ATOL * max(float(b.abs().max()), 1e-6) + 1e-7)
+        for a, b in zip(U.tree_leaves(new), U.tree_leaves(new1), strict=True):
+            np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(), rtol=TPar.STAT_RTOL, atol=1e-6)
+        wcfg = WK.wavernn_cfg()
+        jw = _jax_wavernn_cfg(WK.WAVERNN_TRAIN)
+        wp = _torch_tree(_wavernn_params(jw, 0))
+        wb = _torch_tree(_wavernn_batch(jw, 1))
+        wb["y"] = wb["y"].long()
+        calls.clear()
+        wl, wnew, wg = WTask.compute_grads(wp, wcfg, wb, mesh)
+        assert len(calls) >= 2 * (1 + 2 * WK.WAVERNN_TRAIN["res_blocks"]) + 2
+        wl1, wnew1, wg1 = WTask.compute_grads(wp, wcfg, wb)
+        np.testing.assert_allclose(float(wl), float(wl1), rtol=5e-5)
+        for a, b in zip(U.tree_leaves(wg), U.tree_leaves(wg1), strict=True):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-6)
+    finally:
+        torch.distributed.destroy_process_group()

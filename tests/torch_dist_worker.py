@@ -96,8 +96,7 @@ def tacotron_checks(mesh, inp) -> dict:
         case = inp["cases"][name]
         cfg = taco_cfg(**train)
         batch = PM.shard_batch(mesh, _taco_batch(case["batch"]))
-        with PM.data_parallel(mesh):
-            loss, aux, new, grads = TTask.compute_grads(params, cfg, batch, None, 0, rand=_rand(case["rand"]))
+        loss, aux, new, grads = TTask.compute_grads(params, cfg, batch, None, 0, rand=_rand(case["rand"]), mesh=mesh)
         out[name] = {"loss": loss, "aux": {k: v.reshape(()) for k, v in aux.items()}, "grads": grads,
                      "new": new}
     cfg = taco_cfg(**TACO_CASES["loss_frames"])
@@ -114,8 +113,7 @@ def wavernn_checks(mesh, inp) -> dict:
     cfg = wavernn_cfg()
     params = _t(inp["params"])
     batch = PM.shard_batch(mesh, {k: v.long() if k == "y" else v for k, v in _t(inp["batch"]).items()})
-    with PM.data_parallel(mesh):
-        loss, new, grads = WTask.compute_grads(params, cfg, batch)
+    loss, new, grads = WTask.compute_grads(params, cfg, batch, mesh)
     state = WTask.TrainState(0, params, WTask.adam_init(params))
     state, metrics = WTask.train_step(state, batch, cfg, mesh)
     return {"loss": loss, "grads": grads, "new": new, "step": {"params": state.params, "loss": np.float64(
@@ -131,8 +129,7 @@ def tp_checks(inp) -> dict:
     state = TP.place_wavernn_state(mesh, WTask.TrainState(0, params, WTask.adam_init(params)))
     placed = {"fc3": tuple(state.params["fc3"]["w"].shape), "gru1": tuple(state.params["gru1"]["wi"].shape)}
     batches = [{k: v.long() if k == "y" else v for k, v in _t(b).items()} for b in inp["batches"]]
-    with PM.data_parallel(mesh):
-        loss, _, grads = WTask.compute_grads(state.params, cfg, batches[0], mesh)
+    loss, _, grads = WTask.compute_grads(state.params, cfg, batches[0], mesh)
     losses = []
     for b in batches:
         state, m = WTask.train_step(state, b, cfg, mesh)
@@ -175,16 +172,24 @@ def generation_checks(mesh, inp) -> dict:
 
 def run_training_check(inp, rank) -> dict:
     """Two data-parallel Tacotron steps with a checkpoint each, then a
-    resume to step 3; this rank's log lines and final params."""
+    resume to step 3; this rank's log lines and final params; and the
+    refusal of ``use_mesh=False`` under two ranks, before anything is read
+    or written."""
     cfg = run_cfg()
     logs = []
     log_dir, corpus = str(inp["log_dir"]), str(inp["corpus"])
     meta = os.path.join(corpus, "train.txt")
+    try:
+        TTrain.run_training(cfg, meta, corpus, log_dir + "_no_mesh", total_steps=1, device="cpu", use_mesh=False)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
     s1 = TTrain.run_training(cfg, meta, corpus, log_dir, total_steps=2, device="cpu", render_eval=False,
                              log=logs.append)
     s2 = TTrain.run_training(cfg, meta, corpus, log_dir, total_steps=3, device="cpu", render_eval=False,
                              log=logs.append)
-    return {"steps": np.asarray([s1.step, s2.step]), "logs": np.asarray("\n".join(logs)), "params": s2.params}
+    return {"steps": np.asarray([s1.step, s2.step]), "logs": np.asarray("\n".join(logs)), "params": s2.params,
+            "no_mesh_error": np.asarray(refused), "no_mesh_dir": np.asarray(os.path.exists(log_dir + "_no_mesh"))}
 
 
 def run(rank: int, world: int, init_file: str, in_path: str, out_dir: str) -> None:
@@ -204,12 +209,20 @@ def run(rank: int, world: int, init_file: str, in_path: str, out_dir: str) -> No
     D.shutdown()
 
 
-def spawn(tmp_dir: str, inputs: dict) -> list:
-    """Write ``inputs``, run a world of ``WORLD`` ranks over it, and return
-    each rank's results (nested numpy trees)."""
+def start(tmp_dir: str, inputs: dict):
+    """Write ``inputs`` and start a world of ``WORLD`` ranks over them;
+    the caller goes on while they run and collects them with ``join``."""
     in_path = os.path.join(tmp_dir, "in.npz")
     save_params_npz(in_path, inputs)
-    torch.multiprocessing.spawn(run, args=(WORLD, os.path.join(tmp_dir, "rendezvous"), in_path, tmp_dir),
-                                nprocs=WORLD)
+    return torch.multiprocessing.start_processes(
+        run, args=(WORLD, os.path.join(tmp_dir, "rendezvous"), in_path, tmp_dir), nprocs=WORLD, join=False,
+        start_method="spawn")
+
+
+def join(ctx, tmp_dir: str) -> list:
+    """Wait for the world ``start`` began (a rank's exception is raised
+    here) -> each rank's results (nested numpy trees)."""
+    while not ctx.join():
+        pass
     return [load_params_npz(os.path.join(tmp_dir, f"rank{r}.npz")) for r in range(WORLD)]
 
