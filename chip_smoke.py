@@ -1035,74 +1035,61 @@ def batch_scaling(params, tcfg, dev, batches, T: int, T_in: int) -> str:
     return ", ".join(parts)
 
 
-class EventHooks:
-    """Wraps module functions so each call records CUDA events around
-    itself (for one step's split); ``restore`` puts the originals back."""
+def traced_spans(fn) -> dict:
+    """Run ``fn`` twice with the program's spans on (``utils.metrics``);
+    the second run's spans by name (each name's first span)."""
+    from tacotronv2_wavernn_chinese_tpu_torch.utils import metrics as M
 
-    def __init__(self):
-        self.marks: dict = {}
-        self._orig: list = []
+    was = M.TRACER.on
+    M.enable()
+    try:
+        for _ in range(2):  # the second run is reported
+            M.drain()
+            fn()
+        spans = M.drain()
+    finally:
+        M.enable(was)
+    out = {}
+    for s in spans:
+        out.setdefault(s["name"], s)
+    return out
 
-    def wrap(self, module, name: str):
-        import torch
 
-        orig = getattr(module, name)
+def span_ms(s: dict) -> float:
+    """A span's device ms (its host ms in a rehearsal on the CPU, which has
+    no device events)."""
+    return s["dev_ms"] if "dev_ms" in s else (s["t1"] - s["t0"]) / 1e6
 
-        def wrapped(*a, **kw):
-            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            e0.record()
-            r = orig(*a, **kw)
-            e1.record()
-            self.marks.setdefault(name, []).append((e0, e1))
-            return r
 
-        setattr(module, name, wrapped)
-        self._orig.append((module, name, orig))
-
-    def restore(self):
-        for module, name, orig in reversed(self._orig):
-            setattr(module, name, orig)
-        self._orig.clear()
+def dev_gap_ms(a: dict, b: dict, edge_a: str = "t0", edge_b: str = "t0") -> float:
+    """Device-timeline ms between two span edges (host edges on the CPU)."""
+    return (b.get("dev_" + edge_b, b[edge_b]) - a.get("dev_" + edge_a, a[edge_a])) / 1e6
 
 
 def step_split(cfg, state, batch, dev) -> dict:
-    """One train step split by CUDA events: encoder + prenet, K3,
-    projections + postnet + loss, K4, the weight-gradient products after
-    K4, the rest of the backward, and the optimizer."""
+    """One train step split by the program's spans (CUDA events):
+    encoder + prenet, K3, projections + postnet + loss, K4, the
+    weight-gradient products after K4, the rest of the backward, and the
+    optimizer."""
     import torch
 
-    from tacotronv2_wavernn_chinese_tpu_torch.ops import tacotron_trainer_kernel as TK
     from tacotronv2_wavernn_chinese_tpu_torch.train import tacotron_task as task
 
-    hooks = EventHooks()
-    for module, name in ((TK, "train_fwd"), (TK, "train_bwd"), (TK, "weight_grads"),
-                         (task, "loss_fn"), (task, "apply_gradients")):
-        hooks.wrap(module, name)
-    try:
-        gen = torch.Generator(device=dev)
-        res = {}
-        for _ in range(2):  # the second call is reported
-            hooks.marks.clear()
-            gen.manual_seed(0)
-            s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            s0.record()
-            task.train_step(state, batch, gen, cfg)
-            s1.record()
-            torch.cuda.synchronize()
-            m = {k: v[0] for k, v in hooks.marks.items()}
-            ms = lambda a, b: a.elapsed_time(b)
-            lf, k3, k4, wg, opt = (m[k] for k in ("loss_fn", "train_fwd", "train_bwd", "weight_grads",
-                                                  "apply_gradients"))
-            res = {
-                "encoder_prenet": ms(lf[0], k3[0]), "k3": ms(*k3), "proj_postnet_loss": ms(k3[1], lf[1]),
-                "k4": ms(*k4), "weight_grad_matmuls": ms(*wg),
-                "rest_of_backward": ms(lf[1], opt[0]) - ms(*k4) - ms(*wg),
-                "optimizer": ms(*opt), "step": ms(s0, s1),
-            }
-    finally:
-        hooks.restore()
-    return res
+    gen = torch.Generator(device=dev)
+
+    def one():
+        gen.manual_seed(0)
+        task.train_step(state, batch, gen, cfg)
+
+    s = traced_spans(one)
+    fwd, k3, k4, wg, bwd, opt = (s[k] for k in ("train.forward", "k3", "k4", "train.weight_grads",
+                                                "train.backward", "train.optimizer"))
+    return {
+        "encoder_prenet": dev_gap_ms(fwd, k3), "k3": span_ms(k3), "proj_postnet_loss": dev_gap_ms(k3, fwd, "t1", "t1"),
+        "k4": span_ms(k4), "weight_grad_matmuls": span_ms(wg),
+        "rest_of_backward": span_ms(bwd) - span_ms(k4) - span_ms(wg),
+        "optimizer": span_ms(opt), "step": span_ms(s["train.step"]),
+    }
 
 
 def run_train_phase(cfg, dev, core_shape, corpus: dict, steps: int, ckpt_every: int,
@@ -1559,32 +1546,15 @@ def run_cli(cfg, gl_artifact: str, wavernn_npz: str, serve_frames: int) -> dict:
 
 
 def wavernn_step_split(cfg, state, batch) -> dict:
-    """One WaveRNN train step split by CUDA events: forward + loss
-    (``loss_fn``), backward (autograd, up to the optimizer) and the
-    optimizer (``apply_gradients``: clip and Adam)."""
-    import torch
-
+    """One WaveRNN train step split by the program's spans (CUDA events):
+    forward + loss, backward (autograd, up to the optimizer) and the
+    optimizer (clip and Adam)."""
     from tacotronv2_wavernn_chinese_tpu_torch.train import wavernn_task as WT
 
-    hooks = EventHooks()
-    for name in ("loss_fn", "apply_gradients"):
-        hooks.wrap(WT, name)
-    try:
-        res = {}
-        for _ in range(2):  # the second call is reported
-            hooks.marks.clear()
-            s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            s0.record()
-            WT.train_step(state, batch, cfg)
-            s1.record()
-            torch.cuda.synchronize()
-            lf, opt = hooks.marks["loss_fn"][0], hooks.marks["apply_gradients"][0]
-            res = {"forward": lf[0].elapsed_time(lf[1]), "backward": lf[1].elapsed_time(opt[0]),
-                   "optimizer": opt[0].elapsed_time(opt[1]), "step": s0.elapsed_time(s1)}
-    finally:
-        hooks.restore()
-    return res
+    s = traced_spans(lambda: WT.train_step(state, batch, cfg))
+    fwd, opt = s["train.forward"], s["train.optimizer"]
+    return {"forward": span_ms(fwd), "backward": dev_gap_ms(fwd, opt, "t1"),
+            "optimizer": span_ms(opt), "step": span_ms(s["train.step"])}
 
 
 def relu_pattern(masks=None):
@@ -3024,20 +2994,12 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
         # where one request's time goes: the acoustic decode vs the vocoder
         ids0 = synth.symbols.encode(get_pyin(SENTENCES[0])[0])
         box = {}
-        from tacotronv2_wavernn_chinese_tpu_torch.ops import tacotron_decoder_kernel as DK
-
-        hooks = EventHooks()
-        for module, name in ((T, "encode"), (DK, "decode_autoregressive_kernel"), (T, "apply_postnet")):
-            hooks.wrap(module, name)
-        try:
-            t_mel = cuda_ms(lambda: box.__setitem__("m", synth.mel_from_ids([ids0], seed=[0])))
-            parts = {k: v[0][0].elapsed_time(v[0][1]) for k, v in hooks.marks.items()}
-        finally:
-            hooks.restore()
+        parts = traced_spans(lambda: box.__setitem__("m", synth.mel_from_ids([ids0], seed=[0])))
+        t_mel = span_ms(parts["synth.decode"])
         t_voc = cuda_ms(lambda: synth.mels_to_wavs([box["m"][0][0]], seed=0))
         phase("serve", f"one request split (CUDA events): text->mel {t_mel:.1f} ms (encoder "
-              f"{parts['encode']:.1f}, decode K2 {parts['decode_autoregressive_kernel']:.1f}, postnet "
-              f"{parts['apply_postnet']:.1f}), mel->wav {t_voc:.1f} ms")
+              f"{span_ms(parts['tacotron.encoder']):.1f}, decode K2 {span_ms(parts['tacotron.decoder']):.1f}, "
+              f"postnet {span_ms(parts['tacotron.postnet']):.1f}), mel->wav {t_voc:.1f} ms")
         for k, v in launches.items():
             check(v > 0, f"serve: kernel {k} was never launched on the serve path")
     finally:

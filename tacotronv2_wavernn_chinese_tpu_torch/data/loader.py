@@ -26,6 +26,7 @@ import numpy as np
 from ..config import Config
 from ..frontend import default_symbols
 from ..utils import round_up as _round_up
+from ..utils.metrics import span
 
 
 @dataclass
@@ -112,7 +113,9 @@ class TacotronDataset:
                 batches = [b for b in batches if len(b) == bs]
             rng.shuffle(batches)
             for bidx in batches:
-                yield self._make_batch(bidx, input_multiple, mel_multiple)
+                with span("data.load", rows=len(bidx)):
+                    batch = self._make_batch(bidx, input_multiple, mel_multiple)
+                yield batch
 
     def _make_batch(self, row_indices, input_multiple: int, mel_multiple: int):
         cfg = self.cfg

@@ -28,6 +28,7 @@ from typing import Iterator
 import numpy as np
 
 from ..config import Config
+from ..utils.metrics import span
 from .loader import VocoderBatch
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -181,7 +182,7 @@ class NativeVocoderLoader:
         x = np.empty((self.batch, self.seq_len), np.float32)
         y = np.empty((self.batch, self.seq_len), np.int32)
         m = np.empty((self.batch, self.mel_win, self.n_mels), np.float32)
-        with self._call_lock:
+        with self._call_lock, span("data.load", rows=self.batch):
             if not self._h:
                 raise RuntimeError("native loader closed")
             ok = self._lib.vl_next_batch(

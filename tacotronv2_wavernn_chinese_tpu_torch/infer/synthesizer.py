@@ -29,6 +29,7 @@ from ..models import wavernn as W
 from ..ops import tacotron_decoder_kernel as DK
 from ..utils import resolve_device, round_up
 from ..utils.checkpoints import restore_params, tacotron_from_numpy, wavernn_from_numpy
+from ..utils.metrics import span
 from ..utils.plot import plot_alignment, plot_spectrogram
 
 
@@ -115,29 +116,32 @@ class Synthesizer:
         seeds = _seed_list(seed, B)
         inputs, lens = self._pad_ids(ids_batch, pad_batch)
         seeds = seeds + [seeds[-1]] * (inputs.shape[0] - B)
-        out = T.forward_inference(
-            self.params,
-            self.cfg.tacotron,
-            torch.as_tensor(inputs, device=self.device),
-            torch.as_tensor(np.asarray(lens, np.int64), device=self.device),
-            seeds,
-            int(self.max_iters),
-        )
+        with span("synth.decode", device=True, rows=B, padded_rows=int(inputs.shape[0]), T_in=int(inputs.shape[1])):
+            out = T.forward_inference(
+                self.params,
+                self.cfg.tacotron,
+                torch.as_tensor(inputs, device=self.device),
+                torch.as_tensor(np.asarray(lens, np.int64), device=self.device),
+                seeds,
+                int(self.max_iters),
+            )
         return out, lens
 
     def _trim(self, out, lens, B: int):
         """Per-row host copies trimmed at each stop: (mels [n, 80],
         alignments [ceil(n / r), T_in], stop frame counts n)."""
-        stop_len = out.stop_lengths.cpu().numpy()
-        mel_all = out.mel_outputs.cpu().numpy()
-        align_all = out.alignments.cpu().numpy()
-        mels, aligns, stops = [], [], []
-        r = self.cfg.tacotron.outputs_per_step
-        for i in range(B):
-            n = int(stop_len[i])
-            mels.append(mel_all[i, :n])
-            aligns.append(align_all[i, : -(-n // r), : lens[i]])  # decoder steps: r frames each
-            stops.append(n)
+        with span("synth.trim") as sp:
+            stop_len = out.stop_lengths.cpu().numpy()
+            mel_all = out.mel_outputs.cpu().numpy()
+            align_all = out.alignments.cpu().numpy()
+            mels, aligns, stops = [], [], []
+            r = self.cfg.tacotron.outputs_per_step
+            for i in range(B):
+                n = int(stop_len[i])
+                mels.append(mel_all[i, :n])
+                aligns.append(align_all[i, : -(-n // r), : lens[i]])  # decoder steps: r frames each
+                stops.append(n)
+            sp.set(frames=sum(stops))
         return mels, aligns, stops
 
     def mel_from_ids(self, ids_batch, seed: int | Sequence[int] = 0, pad_batch: bool = False):
@@ -149,8 +153,10 @@ class Synthesizer:
 
     def text_to_mel(self, text: str, seed: int = 0):
         """text -> (mel [-4,4], alignment, pyin string)."""
-        pyin, _ = get_pyin(text)
-        mels, aligns, _ = self.mel_from_ids([self.symbols.encode(pyin)], seed=seed)
+        with span("synth.g2p"):
+            pyin, _ = get_pyin(text)
+            ids = self.symbols.encode(pyin)
+        mels, aligns, _ = self.mel_from_ids([ids], seed=seed)
         return mels[0], aligns[0], pyin
 
     def mels_to_wavs(self, mels: Sequence[np.ndarray], seed: int = 0) -> list[np.ndarray]:
@@ -184,7 +190,7 @@ class Synthesizer:
         stacked = np.full((B_pad, T_pad, mels[0].shape[1]), -self.cfg.audio.max_abs_value, np.float32)
         for i, m in enumerate(mels):
             stacked[i, : m.shape[0]] = m
-        with torch.no_grad():
+        with torch.no_grad(), span("synth.griffin_lim", device=True, rows=B, frames=T_pad):
             wavs = inv_mel_spectrogram(stacked, self.pipe)
         hop = self.cfg.audio.hop_size
         return [w[: m.shape[0] * hop] for w, m in zip(wavs, mels)]
@@ -199,7 +205,8 @@ class Synthesizer:
         mel = torch.where(t < stop_lengths[:, None, None], mel, silence)
         T_pad = round_up(mel.shape[1] + 1, 64)
         mel = torch.nn.functional.pad(mel, (0, 0, 0, T_pad - mel.shape[1]), value=silence)
-        return inv_mel_spectrogram(mel, self.pipe)
+        with span("synth.griffin_lim", device=True, rows=int(mel.shape[0]), frames=T_pad):
+            return inv_mel_spectrogram(mel, self.pipe)
 
     def _synth_gl_batch(self, texts: Sequence[str], seed: int | Sequence[int] = 0, pad_batch: bool = False):
         """text -> wav on the Griffin-Lim path: the decode, then the masked,
@@ -219,10 +226,11 @@ class Synthesizer:
 
     def _encode_texts(self, texts: Sequence[str]):
         pyins, ids = [], []
-        for t in texts:
-            p, _ = get_pyin(t)
-            pyins.append(p)
-            ids.append(self.symbols.encode(p))
+        with span("synth.g2p", rows=len(texts)):
+            for t in texts:
+                p, _ = get_pyin(t)
+                pyins.append(p)
+                ids.append(self.symbols.encode(p))
         return pyins, ids
 
     def synthesize(self, text: str, out_dir: str | None = None, seed: int = 0):

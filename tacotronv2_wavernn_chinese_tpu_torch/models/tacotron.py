@@ -38,6 +38,7 @@ from ..ops import tacotron_decoder_kernel as DK
 from ..ops import tacotron_trainer_kernel as TK
 from ..parallel import mesh as PM
 from ..utils import precision as P
+from ..utils.metrics import span
 from . import attention as ATT
 from . import layers as L
 
@@ -324,12 +325,16 @@ def forward_inference(
     batched.  With ``predict_linear`` the CBHG head runs on the clipped
     postnet output (``linear_outputs``)."""
     with P.fp32_precision():
-        memory = encode(params, cfg, inputs, input_lengths)
-        mem_mask = input_mask(input_lengths, inputs.shape[1])
-        frames, stops, aligns, stop_len = decode_autoregressive(params, cfg, memory, mem_mask, seeds, max_iters)
-        frames = _clip_mel(frames, cfg)
-        mel_out = _clip_mel(apply_postnet(params, cfg, frames), cfg)
-        linear = apply_cbhg(params, cfg, mel_out) if cfg.predict_linear else None
+        with span("tacotron.encoder", device=True):
+            memory = encode(params, cfg, inputs, input_lengths)
+            mem_mask = input_mask(input_lengths, inputs.shape[1])
+        with span("tacotron.decoder", device=True):
+            frames, stops, aligns, stop_len = decode_autoregressive(params, cfg, memory, mem_mask, seeds,
+                                                                    max_iters)
+        with span("tacotron.postnet", device=True):
+            frames = _clip_mel(frames, cfg)
+            mel_out = _clip_mel(apply_postnet(params, cfg, frames), cfg)
+            linear = apply_cbhg(params, cfg, mel_out) if cfg.predict_linear else None
     return TacotronOutput(frames, mel_out, stops, aligns, stop_len, linear)
 
 
@@ -491,27 +496,30 @@ def forward_teacher_forced(
             raise ValueError("forward_teacher_forced needs rand or a torch.Generator")
         rand = draw_train_rand(params, cfg, inputs.shape[0], inputs.shape[1], mel_targets.shape[1],
                                generator, train, teacher_forcing_ratio)
-    if train:
-        memory, new_convs = encode_train(params, cfg, inputs, input_lengths, rand)
-    else:
-        memory, new_convs = encode(params, cfg, inputs, input_lengths), params["enc_convs"]
-    mem_mask = input_mask(input_lengths, inputs.shape[1])
-    frames, stops, aligns = decode_teacher_forced(
-        params, cfg, memory, mem_mask, mel_targets, train, rand, teacher_forcing_ratio, fused_decoder,
-    )
-    frames = _clip_mel(frames, cfg)
-    if train:
-        mel_out, new_post = apply_postnet_train(params, cfg, frames, rand.post_drop)
-    else:
-        mel_out, new_post = apply_postnet(params, cfg, frames), params["postnet"]
-    mel_out = _clip_mel(mel_out, cfg)
-    new_params = dict(params, enc_convs=new_convs, postnet=new_post)
-    linear = None
-    if cfg.predict_linear:
+    with span("tacotron.encoder", device=True):
         if train:
-            linear, new_params["cbhg"] = apply_cbhg_train(params, cfg, mel_out)
+            memory, new_convs = encode_train(params, cfg, inputs, input_lengths, rand)
         else:
-            linear = apply_cbhg(params, cfg, mel_out)
+            memory, new_convs = encode(params, cfg, inputs, input_lengths), params["enc_convs"]
+        mem_mask = input_mask(input_lengths, inputs.shape[1])
+    with span("tacotron.decoder", device=True):
+        frames, stops, aligns = decode_teacher_forced(
+            params, cfg, memory, mem_mask, mel_targets, train, rand, teacher_forcing_ratio, fused_decoder,
+        )
+    with span("tacotron.postnet", device=True):
+        frames = _clip_mel(frames, cfg)
+        if train:
+            mel_out, new_post = apply_postnet_train(params, cfg, frames, rand.post_drop)
+        else:
+            mel_out, new_post = apply_postnet(params, cfg, frames), params["postnet"]
+        mel_out = _clip_mel(mel_out, cfg)
+        new_params = dict(params, enc_convs=new_convs, postnet=new_post)
+        linear = None
+        if cfg.predict_linear:
+            if train:
+                linear, new_params["cbhg"] = apply_cbhg_train(params, cfg, mel_out)
+            else:
+                linear = apply_cbhg(params, cfg, mel_out)
     return TacotronOutput(frames, mel_out, stops, aligns, None, linear), new_params
 
 

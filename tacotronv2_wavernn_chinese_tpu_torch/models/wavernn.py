@@ -32,6 +32,7 @@ from ..dsp.mulaw import label_2_float, mu_law_expand
 from ..ops import distribution as D
 from ..ops import wavernn_kernel as K
 from ..utils import round_up, tree_leaves
+from ..utils.metrics import span
 from . import layers as L
 
 Params = dict
@@ -157,8 +158,10 @@ def forward(params: Params, cfg: WaveRNNModelConfig, x: torch.Tensor, mels: torc
         (mels_up, aux), new_params = upsample(params, cfg, mels), params
     a1, a2, a3, a4 = torch.split(aux, aux_d, dim=-1)
     h = dense(params["I"], torch.cat([x[..., None], mels_up, a1], dim=-1))  # [B, T, rnn]
-    h = gru(params["gru1"], h) + h
-    h = gru(params["gru2"], torch.cat([h, a2], dim=-1)) + h
+    with span("wavernn.gru", device=True, layer=1):
+        h = gru(params["gru1"], h) + h
+    with span("wavernn.gru", device=True, layer=2):
+        h = gru(params["gru2"], torch.cat([h, a2], dim=-1)) + h
     h = torch.relu(dense(params["fc1"], torch.cat([h, a3], dim=-1)))
     h = torch.relu(dense(params["fc2"], torch.cat([h, a4], dim=-1)))
     return dense(params["fc3"], h), new_params
@@ -407,33 +410,37 @@ def generate_batch(
     t_frames = gen_cfg.target // hop
     ov_frames = gen_cfg.overlap // hop
 
-    all_folds, counts, lens = [], [], []
-    if gen_cfg.batched:
-        for mel in mels:
-            folds, n = fold_with_overlap(np.asarray(mel, np.float32), t_frames, ov_frames)
-            all_folds.append(np.stack([pad_mel_for_generation(f, model_cfg.pad) for f in folds]))
-            counts.append(n)
-            lens.append(mel.shape[0] * hop)
-    else:
-        T_max = round_up(max(m.shape[0] for m in mels), 64)
-        for mel in mels:
-            mel = np.asarray(mel, np.float32)
-            lens.append(mel.shape[0] * hop)
-            mel = np.pad(mel, ((0, T_max - mel.shape[0]), (0, 0)), mode="edge")
-            all_folds.append(pad_mel_for_generation(mel, model_cfg.pad)[None])
-            counts.append(1)
-    stacked = bucket_folds(np.concatenate(all_folds, axis=0))
-
-    gen = generate_fn or default_generate_fn(model_cfg)
-    mels_t = torch.as_tensor(stacked, device=params["fc3"]["w"].device)
-    wav_folds = gen(params, model_cfg, mels_t, seed, bits, apply_mu_law).cpu().numpy()
-
-    out, offset = [], 0
-    for n, wave_len in zip(counts, lens):
+    with span("vocode.prepare", device=True):
+        all_folds, counts, lens = [], [], []
         if gen_cfg.batched:
-            wav = xfade_and_unfold(wav_folds[offset: offset + n], gen_cfg.overlap)[:wave_len]
+            for mel in mels:
+                folds, n = fold_with_overlap(np.asarray(mel, np.float32), t_frames, ov_frames)
+                all_folds.append(np.stack([pad_mel_for_generation(f, model_cfg.pad) for f in folds]))
+                counts.append(n)
+                lens.append(mel.shape[0] * hop)
         else:
-            wav = wav_folds[offset][:wave_len]
-        out.append(_fade_out(wav, wave_len, hop))
-        offset += n
+            T_max = round_up(max(m.shape[0] for m in mels), 64)
+            for mel in mels:
+                mel = np.asarray(mel, np.float32)
+                lens.append(mel.shape[0] * hop)
+                mel = np.pad(mel, ((0, T_max - mel.shape[0]), (0, 0)), mode="edge")
+                all_folds.append(pad_mel_for_generation(mel, model_cfg.pad)[None])
+                counts.append(1)
+        stacked = bucket_folds(np.concatenate(all_folds, axis=0))
+        gen = generate_fn or default_generate_fn(model_cfg)
+        mels_t = torch.as_tensor(stacked, device=params["fc3"]["w"].device)
+
+    with span("vocode.k1", device=True, folds=int(stacked.shape[0]), samples=sum(lens)):
+        wav_t = gen(params, model_cfg, mels_t, seed, bits, apply_mu_law)
+
+    with span("vocode.unfold", device=True):
+        wav_folds = wav_t.cpu().numpy()
+        out, offset = [], 0
+        for n, wave_len in zip(counts, lens):
+            if gen_cfg.batched:
+                wav = xfade_and_unfold(wav_folds[offset: offset + n], gen_cfg.overlap)[:wave_len]
+            else:
+                wav = wav_folds[offset][:wave_len]
+            out.append(_fade_out(wav, wave_len, hop))
+            offset += n
     return out

@@ -10,7 +10,9 @@ edited source triggers a rebuild and an unchanged one is loaded as is.
 Nothing is built or imported from CUDA when this module is imported.
 
 Counters.  ``LAUNCHES[name]`` is incremented by a wrapper exactly where it
-launches its kernel; the plain versions never touch it.
+launches its kernel, which with the spans on (``utils.metrics``) also
+stamps the launch's host time on the innermost open span (``k1`` to
+``k4``); the plain versions never touch either.
 
 Random bits.  ``hash_bits(seed, row, step, lane)`` is a counter-based
 32-bit hash (three rounds of the murmur3 finalizer over seed, row and step,

@@ -45,6 +45,7 @@ import torch
 
 from ..config import TacotronModelConfig
 from ..utils import device_index
+from ..utils import metrics as M
 from . import (
     LAUNCHES, check_launch, hash_bits, keep_threshold, load, ptr, require_f32_contiguous,
     stream_ptr,
@@ -594,6 +595,7 @@ def decode_autoregressive_kernel(params, cfg: TacotronModelConfig, memory, mem_m
                 keep_threshold(rate) if rate > 0.0 else 0xFFFFFFFF, stream_ptr(dev),
             )
         LAUNCHES["tacotron_decode"] += 1
+        M.stamp("k2")
         check_launch(err, "tacotron_decode")
         return frames.transpose(0, 1), stops.transpose(0, 1), aligns.transpose(0, 1)
 

@@ -52,6 +52,7 @@ import torch.nn.functional as F
 
 from ..config import TacotronModelConfig
 from ..utils import device_index
+from ..utils import metrics as M
 from . import LAUNCHES, check_launch, load, require_f32_contiguous, stream_ptr
 
 NEG_INF = -1e9
@@ -594,6 +595,7 @@ def train_fwd(w, pre_seq, masks, keys, values, mem_mask, zoneout: float) -> dict
             int(masks is not None), float(zoneout), stream_ptr(dev),
         )
     LAUNCHES["tacotron_train_fwd"] += 1
+    M.stamp("k3")
     check_launch(err, "tacotron_train_fwd")
     return outs
 
@@ -652,6 +654,7 @@ def train_bwd(w, pre_seq, masks, keys, values, mem_mask, zoneout: float, saves: 
             int(masks is not None), float(zoneout), stream_ptr(dev),
         )
     LAUNCHES["tacotron_train_bwd"] += 1
+    M.stamp("k4")
     check_launch(err, "tacotron_train_bwd")
     return outs
 
@@ -692,7 +695,8 @@ class FusedCore(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, zoneout, masks, mem_mask, pre_seq, keys, values, *w):
-        outs = train_fwd(w, pre_seq, masks, keys, values, mem_mask, zoneout)
+        with M.span("k3", device=True):
+            outs = train_fwd(w, pre_seq, masks, keys, values, mem_mask, zoneout)
         m = list(masks) if masks is not None else []
         ctx.zoneout, ctx.n_masks = zoneout, len(m)
         ctx.save_for_backward(pre_seq, keys, values, mem_mask, *m, *w, *[outs[k] for k in FWD_OUTS])
@@ -708,8 +712,11 @@ class FusedCore(torch.autograd.Function):
         saves = dict(zip(FWD_OUTS, saved[k + len(CORE_WEIGHTS):]))
         cots = [torch.zeros_like(saves[n]) if g is None else g
                 for g, n in zip((g_out2, g_ctx, g_align), ("out2", "ctx", "align"))]
-        bwd = train_bwd(w, pre_seq, masks, keys, values, mem_mask, ctx.zoneout, saves, cots)
-        dW, d_pre, d_values = weight_grads(w, pre_seq, saves, bwd)
+        # autograd's device thread holds no span of the step: link to it
+        with M.span("k4", device=True, parent=M.linked()):
+            bwd = train_bwd(w, pre_seq, masks, keys, values, mem_mask, ctx.zoneout, saves, cots)
+        with M.span("train.weight_grads", device=True, parent=M.linked()):
+            dW, d_pre, d_values = weight_grads(w, pre_seq, saves, bwd)
         return (None, None, None, d_pre, bwd["d_keys"], d_values, *dW)
 
 

@@ -33,6 +33,7 @@ import torch
 
 from ..config import WaveRNNModelConfig
 from ..dsp.mulaw import label_2_float
+from ..utils import metrics as M
 from . import (
     LAUNCHES, check_launch, gumbel_from_bits, hash_bits, load, ptr, require_f32_contiguous,
     stream_ptr,
@@ -205,6 +206,7 @@ def sample_labels(cond: torch.Tensor, w: dict, seed: int, greedy: bool = False) 
             T, B, H, FC, NC, G, FT, int(bool(greedy)), int(seed) & 0xFFFFFFFF, stream_ptr(dev),
         )
     LAUNCHES["wavernn_sample"] += 1
+    M.stamp("k1")
     check_launch(err, "wavernn_sample")
     return labels
 

@@ -40,6 +40,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from ..config import Config, default_config
+from ..utils.metrics import current, span
 
 _log = logging.getLogger(__name__)
 
@@ -195,19 +196,27 @@ class TTSService:
             take = (self.max_batch if len(self._queue) <= self.max_batch
                     else min(len(self._queue), self.max_batch_hard))
             batch, self._queue = self._queue[:take], self._queue[take:]
-            return batch
+        for item in batch:
+            item["queue"].end()
+        return batch
 
     def _run_batch(self, batch: list[dict]) -> None:
         t0 = time.time()
+        rows = len(batch)
         try:
-            if len(batch) == 1:
-                results = [self.synth.synthesize(batch[0]["text"], seed=batch[0]["seed"])]
-            else:
-                results = self.synth.synthesize_batch(
-                    [i["text"] for i in batch],
-                    seed=[i["seed"] for i in batch],
-                    pad_batch=True,
-                )
+            # a call serves several requests: it joins the first one's trace
+            with span("serve.call", device=True, parent=batch[0]["parent"], rows=rows,
+                      padded_rows=1 << (rows - 1).bit_length()) as sp:
+                if sp:
+                    sp.set(requests=[i["queue"].trace for i in batch])
+                if rows == 1:
+                    results = [self.synth.synthesize(batch[0]["text"], seed=batch[0]["seed"])]
+                else:
+                    results = self.synth.synthesize_batch(
+                        [i["text"] for i in batch],
+                        seed=[i["seed"] for i in batch],
+                        pad_batch=True,
+                    )
             with self._mutex:
                 self._batch_s_ema = 0.7 * self._batch_s_ema + 0.3 * (time.time() - t0)
                 self.n_device_calls += 1
@@ -241,6 +250,7 @@ class TTSService:
             "done": threading.Event(),
             "result": None,
             "error": None,
+            "parent": current(),
         }
         with self._mutex:
             if len(self._queue) >= self.max_queue:
@@ -248,6 +258,7 @@ class TTSService:
                 # hint: time to drain the queued batches at the current rate
                 waves = -(-len(self._queue) // max(self.max_batch, 1))
                 raise OverloadedError(round(max(0.1, waves * self._batch_s_ema), 1))
+            item["queue"] = span("serve.queue")
             self._queue.append(item)
         # re-pump on timeout: covers the race where the leader released the
         # device just before our item hit the queue
@@ -258,8 +269,9 @@ class TTSService:
             raise item["error"]
         r = item["result"]
         wav, align, pyin = r["wav"], r["alignment"], r["pyin"]
-        wav_b64 = wav_to_base64(wav, self.cfg.audio.sample_rate)
-        align_b64 = alignment_to_base64_png(align)
+        with span("serve.respond"):
+            wav_b64 = wav_to_base64(wav, self.cfg.audio.sample_rate)
+            align_b64 = alignment_to_base64_png(align)
         return {
             "status": 0,
             "pyin": pyin,
@@ -277,23 +289,25 @@ class TTSService:
         """Batched endpoint: one acoustic decode + one fused vocoder call."""
         t0 = time.time()
         with self._device:
-            results = self.synth.synthesize_batch(texts, seed=seed, pad_batch=True)
+            with span("serve.call", device=True, rows=len(texts), padded_rows=1 << (len(texts) - 1).bit_length()):
+                results = self.synth.synthesize_batch(texts, seed=seed, pad_batch=True)
             with self._mutex:
                 self.n_device_calls += 1
                 self.n_requests += len(texts)
         sr = self.cfg.audio.sample_rate
-        return {
-            "status": 0,
-            "synthesis_s": round(time.time() - t0, 3),
-            "results": [
-                {
-                    "pyin": r["pyin"],
-                    "duration_s": float(len(r["wav"]) / sr),
-                    "wav_b64": wav_to_base64(r["wav"], sr),
-                }
-                for r in results
-            ],
-        }
+        with span("serve.respond"):
+            return {
+                "status": 0,
+                "synthesis_s": round(time.time() - t0, 3),
+                "results": [
+                    {
+                        "pyin": r["pyin"],
+                        "duration_s": float(len(r["wav"]) / sr),
+                        "wav_b64": wav_to_base64(r["wav"], sr),
+                    }
+                    for r in results
+                ],
+            }
 
 
 def make_handler(service: TTSService):
@@ -360,7 +374,10 @@ def make_handler(service: TTSService):
                     if len(texts) > 64 or any(len(t) > 500 for t in texts):
                         self._json(400, {"status": 1, "error": "too many/long texts"})
                         return
-                    self._json(200, service.generate_many(texts, seed=int(req.get("seed", 0))))
+                    with span("serve.request", rows=len(texts)):
+                        answer = service.generate_many(texts, seed=int(req.get("seed", 0)))
+                        with span("serve.respond"):
+                            self._json(200, answer)
                     return
                 text = (req.get("text") or "").strip()
                 if not text:
@@ -369,7 +386,12 @@ def make_handler(service: TTSService):
                 if len(text) > 500:
                     self._json(400, {"status": 1, "error": "text too long (max 500 chars)"})
                     return
-                self._json(200, service.generate(text, seed=int(req.get("seed", 0))))
+                # the request's trace: its queue wait, the call that served
+                # it, and its answer's encoding and write
+                with span("serve.request"):
+                    answer = service.generate(text, seed=int(req.get("seed", 0)))
+                    with span("serve.respond"):
+                        self._json(200, answer)
             except OverloadedError as e:
                 # bounded-queue admission control (TF Serving's role in the
                 # reference deployment): shed load instead of queueing

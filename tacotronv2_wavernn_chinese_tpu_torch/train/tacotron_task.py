@@ -37,6 +37,7 @@ from ..parallel import mesh as PM
 from ..utils import precision as P
 from ..utils import tree_leaves, tree_map
 from ..utils.checkpoints import init_tacotron
+from ..utils.metrics import span
 
 FROZEN_TOP = ("embedding", "enc_convs", "enc_lstm_fw", "enc_lstm_bw")
 
@@ -149,13 +150,14 @@ def loss_fn(params, cfg: Config, batch: dict, generator: torch.Generator, train:
     if tc.mixed_precision:
         new_params = P.merge_master(master, new_params)
         out = P.cast_to_float32(out)
-    loss, aux = T.tacotron_loss(
-        out, batch["mel_targets"], batch["stop_targets"], batch["target_lengths"],
-        new_params if tc.mixed_precision else params, cfg.tacotron,
-        reg_weight=_reg_weight(cfg), mask_decoder=tc.mask_decoder, stop_pos_weight=tc.stop_pos_weight,
-        linear_targets=batch.get("linear_targets"), sample_rate=cfg.audio.sample_rate,
-        loss_frames=batch.get("loss_frames"),
-    )
+    with span("tacotron.loss", device=True):
+        loss, aux = T.tacotron_loss(
+            out, batch["mel_targets"], batch["stop_targets"], batch["target_lengths"],
+            new_params if tc.mixed_precision else params, cfg.tacotron,
+            reg_weight=_reg_weight(cfg), mask_decoder=tc.mask_decoder, stop_pos_weight=tc.stop_pos_weight,
+            linear_targets=batch.get("linear_targets"), sample_rate=cfg.audio.sample_rate,
+            loss_frames=batch.get("loss_frames"),
+        )
     return loss, (aux, new_params, out)
 
 
@@ -181,9 +183,11 @@ def compute_grads(params, cfg: Config, batch: dict, generator: torch.Generator, 
                 rand = T.draw_train_rand(params, cfg.tacotron, inputs.shape[0] * shards, inputs.shape[1],
                                          mels.shape[1], generator, True, ratio)
             rand = T.shard_train_rand(rand, PM.batch_index(), shards)
-        loss, (aux, new_params, _) = loss_fn(leaves, cfg, batch, generator, True, ratio, rand=rand)
+        with span("train.forward", device=True):
+            loss, (aux, new_params, _) = loss_fn(leaves, cfg, batch, generator, True, ratio, rand=rand)
         flat = tree_leaves(leaves)
-        gs = torch.autograd.grad(loss, flat, allow_unused=True)
+        with span("train.backward", device=True):
+            gs = torch.autograd.grad(loss, flat, allow_unused=True)
         it = iter([torch.zeros_like(p) if g is None else g for p, g in zip(flat, gs)])
         grads = tree_map(lambda _: next(it), leaves)
         if sharded:  # the ranks' shares summed: the global loss, terms and gradients
@@ -199,7 +203,7 @@ def apply_gradients(state: TrainState, new_params, grads, cfg: Config):
     are zero).  Returns (new state, grad norm, lr)."""
     tc = cfg.tacotron_train
     lr = lr_schedule(cfg)(state.step)
-    with torch.no_grad():
+    with torch.no_grad(), span("train.optimizer", device=True):
         clipped, norm = clip_by_global_norm(grads, tc.grad_clip_norm)
         updates, opt_state = tf1_adam(clipped, state.opt_state, lr, tc.adam_beta1, tc.adam_beta2,
                                       tc.adam_eps)
@@ -215,11 +219,14 @@ def train_step(state: TrainState, batch: dict, generator: torch.Generator, cfg: 
     masks are drawn from ``generator``.  With a ``mesh`` (``compute_grads``),
     ``batch`` is this rank's rows of the global batch and ``generator`` is
     seeded alike on every rank."""
-    with P.fp32_precision():
+    inputs, mels = batch["inputs"], batch["mel_targets"]
+    with P.fp32_precision(), span("train.step", device=True, anchor=True, step=state.step,
+                                  rows=int(inputs.shape[0]), T_in=int(inputs.shape[1]), T=int(mels.shape[1])):
         _, aux, new_params, grads = compute_grads(state.params, cfg, batch, generator, state.step, mesh=mesh)
         new_state, norm, lr = apply_gradients(state, new_params, grads, cfg)
         names = list(aux) + ["grad_norm"]
-        values = torch.stack([aux[k].detach().reshape(()) for k in aux] + [norm.reshape(())]).tolist()
+        with span("train.readback"):
+            values = torch.stack([aux[k].detach().reshape(()) for k in aux] + [norm.reshape(())]).tolist()
     metrics = dict(zip(names, values))
     metrics["lr"] = lr
     return new_state, metrics

@@ -45,7 +45,7 @@ from ..parallel import mesh as PM
 from ..utils import logging as infolog
 from ..utils import resolve_device
 from ..utils.checkpoints import CheckpointManager
-from ..utils.metrics import MetricsWriter, Profiler, dump_embedding_projector
+from ..utils.metrics import MetricsWriter, Profiler, dump_embedding_projector, span
 from ..utils.plot import plot_alignment, plot_spectrogram
 from . import tacotron_task as task
 from .grouping import fused_groups
@@ -57,14 +57,15 @@ class LossExplosion(Exception):
 
 def batch_to_device(batch, device) -> dict:
     t = lambda a: torch.as_tensor(a).to(device)
-    return {
-        "inputs": t(batch.inputs),
-        "input_lengths": t(batch.input_lengths),
-        "mel_targets": t(batch.mel_targets),
-        "stop_targets": t(batch.stop_targets),
-        "target_lengths": t(batch.target_lengths),
-        "loss_frames": t(batch.loss_frames),
-    }
+    with span("data.to_device"):
+        return {
+            "inputs": t(batch.inputs),
+            "input_lengths": t(batch.input_lengths),
+            "mel_targets": t(batch.mel_targets),
+            "stop_targets": t(batch.stop_targets),
+            "target_lengths": t(batch.target_lengths),
+            "loss_frames": t(batch.loss_frames),
+        }
 
 
 def step_seed(cfg: Config, step: int) -> int:
@@ -243,7 +244,7 @@ def main() -> None:
     ap.add_argument("--override", default="", help="comma-separated a.b=c overrides")
     ap.add_argument("--no-render", action="store_true")
     ap.add_argument("--profile-dir", default=None,
-                    help="write a torch.profiler trace of steps 10-15 here")
+                    help="write a torch.profiler trace of steps 10-15 here (CUDA activity, with the program's spans)")
     ap.add_argument("--fine-tune", action="store_true",
                     help="speaker adaptation: freeze embedding + encoder "
                          "(reference tacotron.py:167-169)")

@@ -48,6 +48,7 @@ from ..parallel import tp as TP
 from ..utils import precision as P
 from ..utils import tree_leaves, tree_map
 from ..utils.checkpoints import init_wavernn
+from ..utils.metrics import span
 from ..utils.precision import fp32_precision
 from .tacotron_task import TrainState, adam_init, clip_by_global_norm
 
@@ -102,10 +103,12 @@ def compute_grads(params, cfg: Config, batch: dict, mesh=None):
     with PM.data_parallel(mesh):
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
         layers = TP.layers(mesh) if TP.model_parallel(mesh) else None
-        loss, (new_params, _) = loss_fn(leaves, cfg, batch, True, layers)
-        share = loss / PM.batch_shards()  # the global mean over equal windows is the sum of the shares
+        with span("train.forward", device=True):
+            loss, (new_params, _) = loss_fn(leaves, cfg, batch, True, layers)
+            share = loss / PM.batch_shards()  # the global mean over equal windows is the sum of the shares
         flat = tree_leaves(leaves)
-        gs = torch.autograd.grad(share, flat, allow_unused=True)
+        with span("train.backward", device=True):
+            gs = torch.autograd.grad(share, flat, allow_unused=True)
         it = iter([torch.zeros_like(p) if g is None else g for p, g in zip(flat, gs)])
         grads = tree_map(lambda _: next(it), leaves)
         if PM.batch_sharded():
@@ -118,7 +121,7 @@ def apply_gradients(state: TrainState, new_params, grads, cfg: Config, norm: tor
     ``norm`` is the gradients' global norm where the tree alone does not
     give it (tensor-parallel blocks)."""
     wc = cfg.wavernn_train
-    with torch.no_grad():
+    with torch.no_grad(), span("train.optimizer", device=True):
         clipped, norm = clip_by_global_norm(grads, wc.grad_clip_norm, norm)
         updates, opt_state = optax_adam(clipped, state.opt_state, wc.lr)
         params = tree_map(lambda p, u: p.detach() + u, new_params, updates)
@@ -132,11 +135,14 @@ def train_step(state: TrainState, batch: dict, cfg: Config, mesh=None):
     rank's rows over its ``data`` axis (``parallel/mesh.py``), and over a
     ``model`` axis ``state`` holds ``parallel.tp.place_wavernn_state``'s
     blocks."""
-    with fp32_precision():
+    x = batch["x"]
+    with fp32_precision(), span("train.step", device=True, anchor=True, step=state.step, rows=int(x.shape[0]),
+                                T=int(x.shape[1])):
         loss, new_params, grads = compute_grads(state.params, cfg, batch, mesh)
         norm = TP.global_norm(grads, mesh) if TP.model_parallel(mesh) else None
         new_state, norm = apply_gradients(state, new_params, grads, cfg, norm)
-        loss_v, norm_v = torch.stack([loss.reshape(()), norm.reshape(())]).tolist()
+        with span("train.readback"):
+            loss_v, norm_v = torch.stack([loss.reshape(()), norm.reshape(())]).tolist()
     return new_state, {"loss": loss_v, "grad_norm": norm_v}
 
 
@@ -161,5 +167,6 @@ def eval_step(params, batch: dict, cfg: Config) -> dict:
 def batch_to_device(batch, device) -> dict:
     """A ``VocoderBatch`` (numpy) -> the step's tensors on ``device``."""
     t = lambda a: torch.as_tensor(a).to(device)
-    return {"x": t(batch.x), "y": t(batch.y).long(), "mels": t(batch.mels)}
+    with span("data.to_device"):
+        return {"x": t(batch.x), "y": t(batch.y).long(), "mels": t(batch.mels)}
 
