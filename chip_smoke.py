@@ -1017,6 +1017,135 @@ def run_k34(params, tcfg, x, tag: str) -> dict:
     return out
 
 
+def encoder_work(B: int, T_in: int, U: int, D: int, lengths, backward: bool):
+    """(flops, bytes) of K5 (saving for a backward) or K6 at B rows padded to
+    T_in, over the steps the rows' ``lengths`` need
+    (ops/tacotron_encoder_kernel.py): the recurrent product h @ W_h (K5) or
+    dz @ W_h^T (K6) of both directions; every input byte read once and every
+    output byte written once (K5: zx, W_h, the keep-masks, the output and
+    the saves; K6: the saves, the masks, the cotangent and dz)."""
+    steps = float(sum(int(n) for n in lengths))
+    macs = 2 * steps * U * 4 * U
+    rows = B * T_in  # what the wrapper allocates and the kernels write or read
+    masks = 4 * steps * U / 4.0  # bool keep-masks, in f32 words
+    if not backward:
+        nbytes = rows * 8 * U + 2 * U * 4 * U + masks + rows * 2 * U + rows * (8 * U + 6 * U)
+    else:
+        nbytes = 2 * U * 4 * U + masks + rows * (8 * U + 4 * U) + rows * 2 * U + rows * 8 * U
+    return 2.0 * macs, 4.0 * nbytes
+
+
+def encoder_inputs(dev, B: int, T_in: int, U: int, D: int, seed: int) -> dict:
+    """K5/K6 inputs from a numpy seed: ragged lengths (the longest T_in),
+    inputs in (-1, 1), weights at the init's scale, zoneout keep-masks
+    (keep 0.9) and a random cotangent."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0: torch.as_tensor(rng.uniform(-scale, scale, s), dtype=torch.float32, device=dev)
+    lens = np.linspace(T_in, max(1, T_in // 3), B).astype(np.int64)
+    layer = lambda: {"w": f(D + U, 4 * U, scale=1.0 / np.sqrt(D + U)), "b": f(4 * U, scale=0.1)}
+    masks = [tuple(torch.as_tensor(rng.uniform(size=(T_in, B, U)) < 0.9, device=dev) for _ in range(2))
+             for _ in range(2)]
+    return {"x": f(B, T_in, D), "lengths": torch.as_tensor(lens, device=dev), "fw": layer(), "bw": layer(),
+            "masks": masks, "cot": f(B, T_in, 2 * U)}
+
+
+def _encoder_vjp(apply, x):
+    import torch
+
+    leaf = lambda t: t.detach().clone().requires_grad_(True)
+    fw, bw, xs = {k: leaf(v) for k, v in x["fw"].items()}, {k: leaf(v) for k, v in x["bw"].items()}, leaf(x["x"])
+    out = apply(fw, bw, xs, x["lengths"], 0.1, *x["masks"])
+    grads = torch.autograd.grad((out * x["cot"]).sum(), [xs, fw["w"], fw["b"], bw["w"], bw["b"]])
+    return out.detach(), dict(zip(("x", "fw/w", "fw/b", "bw/w", "bw/b"), grads))
+
+
+def run_k56(dev, B: int, T_in: int, U: int, D: int, tag: str) -> dict:
+    """K5 and K6 against the plain forward differentiated by autograd, at
+    one shape in train mode: the output's and every gradient's error, each
+    kernel's time alone, the products after K6, and the plain versions'
+    times, by CUDA events."""
+    import torch
+
+    from tacotronv2_wavernn_chinese_tpu_torch.ops import tacotron_encoder_kernel as EK
+
+    x = encoder_inputs(dev, B, T_in, U, D, 50 + B + T_in)
+    ok, gk = _encoder_vjp(EK.bidirectional_lstm, x)
+    op, gp = _encoder_vjp(EK.bidirectional_lstm_plain, x)
+    out = {"B": B, "T_in": T_in, "k5_err": float((ok - op).abs().max())}
+    rel = {n: (float((gk[n] - gp[n]).abs().max()), float(gp[n].abs().max())) for n in gp}
+    out["k6_err"] = max(d for d, _ in rel.values())
+    out["k6_rel"] = max(d / max(g, 1e-6) for d, g in rel.values())
+    phase("encoder", f"{tag}: K5 output max|d| {out['k5_err']:.2e}; gradients max|d| / max|g| "
+          + ", ".join(f"{n} {d:.2e}/{g:.2e}" for n, (d, g) in rel.items()))
+    check(out["k5_err"] <= 1e-5, f"{tag}: K5 output max|d| {out['k5_err']:.3e} > 1e-5")
+    for n, (d, g) in rel.items():
+        check(d <= 1e-4 * max(g, 1e-6), f"{tag}: gradient {n} max|d| {d:.3e} > 1e-4 * max|g| {g:.3e}")
+    D_ = x["x"].shape[-1]
+    wx = torch.cat([x["fw"]["w"][:D_], x["bw"]["w"][:D_]], dim=1)
+    wh = torch.stack([x["fw"]["w"][D_:], x["bw"]["w"][D_:]]).contiguous()
+    zx = (x["x"] @ wx + torch.cat([x["fw"]["b"], x["bw"]["b"]])).contiguous()
+    masks = tuple(m for pair in x["masks"] for m in pair)
+    box = {}
+    out["k5_ms"] = cuda_ms(lambda: box.__setitem__("f", EK.encoder_fwd(zx, wh, x["lengths"], masks, 0.1, True)),
+                           reps=5, warmup=True)
+    out["k5_eval_ms"] = cuda_ms(lambda: EK.encoder_fwd(zx, wh, x["lengths"], None, 0.1, False), reps=5, warmup=True)
+    saves = box["f"][1]
+    out["k6_ms"] = cuda_ms(lambda: box.__setitem__("dz", EK.encoder_bwd(wh, x["lengths"], masks, 0.1, saves,
+                                                                         x["cot"])), reps=5, warmup=True)
+    out["grads_ms"] = cuda_ms(lambda: EK.encoder_grads(x["x"], wx, wh, saves, box["dz"]), reps=5, warmup=True)
+    with torch.no_grad():
+        out["k5_plain_ms"] = cuda_ms(lambda: EK.encoder_fwd_plain(zx, wh, x["lengths"], masks, 0.1, True))
+    out["k6_plain_ms"] = cuda_ms(lambda: EK.encoder_bwd_plain(wh, x["lengths"], masks, 0.1, saves, x["cot"]))
+    plan = EK.enc_plan(B, U, EK.card_clusters(dev))
+    out["clusters"], out["groups"], out["rows"] = 2 * plan.groups, plan.groups, plan.rows
+    out["bound5"] = bound(*encoder_work(B, T_in, U, D, x["lengths"].tolist(), False))
+    out["bound6"] = bound(*encoder_work(B, T_in, U, D, x["lengths"].tolist(), True))
+    phase("encoder", f"{tag}: K5 {out['k5_ms']:.3f} ms ({out['k5_ms'] / T_in * 1e3:.2f} us/step; eval, no saves "
+          f"{out['k5_eval_ms']:.3f}), bound {out['bound5'][0]:.4f} ms ({out['bound5'][1]}), plain "
+          f"{out['k5_plain_ms']:.1f} ms; K6 {out['k6_ms']:.3f} ms ({out['k6_ms'] / T_in * 1e3:.2f} us/step), bound "
+          f"{out['bound6'][0]:.4f} ms, plain {out['k6_plain_ms']:.1f} ms; products {out['grads_ms']:.3f} ms; "
+          f"grid {2 * plan.groups} clusters x {EK.CLUSTER} blocks, {plan.rows} rows a group, shared memory "
+          f"{plan.smem_bytes('fwd')} / {plan.smem_bytes('bwd')} bytes")
+    return out
+
+
+def encoder_entries(k56: list, ptxas_log: str, paths: dict) -> list:
+    """The kernels line's K5 and K6 entries, one per ``run_k56`` shape:
+    times, bounds, errors, each instantiation's registers and spill bytes
+    (from ``ptxas_log``, keyed fwd1/fwd2/bwd1/bwd2 by rows / 4) and the
+    launches of each path (``paths``: path -> launch counts, or for
+    ``train_configs`` config -> launch counts)."""
+    regs = {}
+    for n, r, st, ld in ptxas_entries(ptxas_log):
+        i = n.index("ILi") + 3
+        regs[("bwd" if "bwd" in n else "fwd") + n[i]] = (r, st + ld)
+    phase("kernels", "encoder kernels' registers / spill bytes by instantiation (rows / 4): "
+          + ", ".join(f"{k} {r} / {sp}" for k, (r, sp) in sorted(regs.items())))
+    out = []
+    for key, kind in (("tacotron_encoder_fwd", "k5"), ("tacotron_encoder_bwd", "k6")):
+        by_path = {}
+        for path, counts in paths.items():
+            if path == "train_configs":
+                by_path[path] = sum(c[key] for c in counts.values())
+            elif key in counts:
+                by_path[path] = counts[key]
+        for r in k56:
+            b = r[f"bound{kind[1]}"]
+            out.append({
+                "name": key, "route": "cuda", "source": "tacotronv2_wavernn_chinese_tpu_torch/csrc/tacotron_encoder.cu",
+                "replaces": None, "why": "the JAX encoder is a lax.scan; the eager loop launched ~20 ops a step",
+                "shape": f"B={r['B']} T_in={r['T_in']}", "launches": by_path["train"],
+                "max_abs_err": r[f"{kind}_err"], "ms": r[f"{kind}_ms"], "plain_ms": r[f"{kind}_plain_ms"],
+                "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+                "registers_spills": {k: v for k, v in regs.items() if k.startswith(key[-3:])},
+                "launches_by_path": by_path, "clusters": r["clusters"], "rows": r["rows"],
+                **({"products_ms": r["grads_ms"], "max_rel_err": r["k6_rel"]} if kind == "k6"
+                   else {"eval_ms": r["k5_eval_ms"]})})
+    return out
+
+
 def batch_scaling(params, tcfg, dev, batches, T: int, T_in: int) -> str:
     """K3 and K4 us/step at each batch size (kernels alone, CUDA events):
     every block holds its weight slices for all rows, so the products grow
@@ -1139,7 +1268,7 @@ def run_train_phase(cfg, dev, core_shape, corpus: dict, steps: int, ckpt_every: 
     state = TR.run_training(tcfg_run, meta, corpus_dir, log_dir, total_steps=steps, log=log, device=dev)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {k: ops.LAUNCHES[k] for k in ("tacotron_train_fwd", "tacotron_train_bwd")}
+    launches = {k: ops.LAUNCHES[k] for k in ("tacotron_train_fwd", "tacotron_train_bwd", *ENCODER_KEYS)}
     renders = sum("eval render at step" in m for m in logs)
     phase("train", f"run_training: {state.step} steps in {wall:.1f} s wall (build, checkpoints and "
           f"renders included); launches {launches}; {renders} eval renders")
@@ -1153,6 +1282,9 @@ def run_train_phase(cfg, dev, core_shape, corpus: dict, steps: int, ckpt_every: 
           f"times in {steps} steps")
     check(launches["tacotron_train_fwd"] == steps + renders,
           f"train: K3 launched {launches['tacotron_train_fwd']} times for {steps} steps + {renders} renders")
+    check(launches["tacotron_encoder_bwd"] == steps and launches["tacotron_encoder_fwd"] >= steps + renders,
+          f"train: K5/K6 launched {launches['tacotron_encoder_fwd']}/{launches['tacotron_encoder_bwd']} times "
+          f"for {steps} steps + {renders} renders")
     sec_step = [float(m.split("[")[1].split(" sec/step")[0]) for m in logs if m.startswith("Step")]
     phase("train", f"sec/step (run_training's rolling window, host clock): {sec_step[-1]:.3f}")
 
@@ -1481,7 +1613,8 @@ def run_preprocess_gta(cfg, dev, tp, n_utts: int = 32, batch: int = 32) -> dict:
     phase("preprocess + gta", f"generate_gta B={batch}: K3 {runs['kernel'][1]:.2f} s ({n_utts / runs['kernel'][1]:.1f} "
           f"utt/s, host clock, first call, file writes included), plain core {runs['plain'][1]:.2f} s; K3 "
           f"launches {k3} (plain run {k3_plain}); predicted mel max|d| {worst_gta:.2e} (bound 1e-3, unit range)")
-    return {"gta_launches": k3, "gta_err": worst_gta, "pre_err": worst}
+    return {"gta_launches": k3, "gta_k5": runs["kernel"][2]["tacotron_encoder_fwd"], "gta_err": worst_gta,
+            "pre_err": worst}
 
 
 # ---------------------------------------------------------------------------
@@ -1985,8 +2118,10 @@ def run_train_configs(cfg, dev, smi: str, batch: dict, taco_params, taco_ckpt: s
             torch.cuda.synchronize()
             losses.append(metrics["loss"])
             ms.append(e0.elapsed_time(e1))
-        launches = {k: ops.LAUNCHES[k] for k in ("tacotron_train_fwd", "tacotron_train_bwd")}
+        launches = {k: ops.LAUNCHES[k] for k in ("tacotron_train_fwd", "tacotron_train_bwd", *ENCODER_KEYS)}
         check(all(np.isfinite(losses)), f"{tag}: {name} losses {losses}")
+        check(launches["tacotron_encoder_bwd"] == steps,
+              f"{tag}: {name} launched K6 {launches['tacotron_encoder_bwd']} times in {steps} steps")
         want = steps if name in KERNEL_CONFIGS else 0
         check(launches["tacotron_train_fwd"] == want and launches["tacotron_train_bwd"] == want,
               f"{tag}: {name} launched K3/K4 {launches} in {steps} steps, expected {want} each")
@@ -2242,7 +2377,7 @@ def run_cbhg_variants(cfg, dev, smi: str, batch: dict, wavernn_params, corpus_me
             torch.cuda.synchronize()
             ms.append(e0.elapsed_time(e1))
             metrics.append(m)
-        k34 = {k: ops.LAUNCHES[k] for k in ("tacotron_train_fwd", "tacotron_train_bwd")}
+        k34 = {k: ops.LAUNCHES[k] for k in ("tacotron_train_fwd", "tacotron_train_bwd", *ENCODER_KEYS)}
         step_ms[name] = ms
         if name == "head":
             head_params, out["train_launches"] = s.params, k34
@@ -2881,6 +3016,8 @@ def main() -> int:
 
 
 TRAIN_CORE_SHAPE = (32, 128, 400)  # B, T_in, T of the K3/K4 check
+ENCODER_KEYS = ("tacotron_encoder_fwd", "tacotron_encoder_bwd")
+ENCODER_SHAPES = ((32, 160), (4, 48))  # B, T_in of K5/K6: the training cell's batch, a serving call's
 SCALING_SHAPE = (160, 200)  # T_in, T of the batch-scaling line
 TRAIN_CORPUS = {"utts": 64, "symbols": (40, 150), "frames": (200, 600)}
 TRAIN_STEPS, TRAIN_CKPT_EVERY = 6, 3
@@ -2989,7 +3126,7 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
         for j, r_ in enumerate(body["results"]):
             check_wav(r_["wav_b64"], f"/generate_tts_batch[{j}]", serve_frames * 275)
         phase("serve", f"/generate_tts_batch x{len(SENTENCES)}: {host_ms:.1f} ms host, {ev_ms:.1f} ms CUDA events")
-        launches = {k: ops.LAUNCHES[k] for k in ("wavernn_sample", "tacotron_decode")}
+        launches = {k: ops.LAUNCHES[k] for k in ("wavernn_sample", "tacotron_decode", "tacotron_encoder_fwd")}
         phase("serve", f"kernel launches on the serve path: {launches}")
         # where one request's time goes: the acoustic decode vs the vocoder
         ids0 = synth.symbols.encode(get_pyin(SENTENCES[0])[0])
@@ -3066,6 +3203,7 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
     # the serve phase already ran this kernel at this shape: no extra warmup
     k1 = run_k1(synth.vocoder_params, wcfg, mels_s, 5, False, f"serve shape {n_folds} folds", warmup=False)
 
+    from tacotronv2_wavernn_chinese_tpu_torch.ops import tacotron_decoder_kernel as DK
     from tacotronv2_wavernn_chinese_tpu_torch.ops import wavernn_kernel as WK
 
     k1_plan = WK.choose_k1_plan(wcfg.rnn_dims, wcfg.fc_dims, synth.vocoder_params["fc3"]["w"].shape[1],
@@ -3083,6 +3221,14 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
     bms4, by4 = bound(*trainer_work(tcfg, Bm, Tm, Tim, backward=True, blocks=k34["blocks"]))
     phase("kernels", f"K3 + K4 at the train shape: {k34['k3_ms'] + k34['k4_ms']:.2f} ms, bound "
           f"{bms3 + bms4:.3f} ms")
+    # K5/K6 at the training cell's batch and a serving call's
+    k56 = [run_k56(dev, B_, Ti_, tcfg.encoder_lstm_units, tcfg.enc_conv_channels, f"encoder B={B_} T_in={Ti_}")
+           for B_, Ti_ in ENCODER_SHAPES]
+    with open(os.path.join(ops.BUILD_INFO["dir"], "tacotron_encoder.so.log")) as f:
+        enc_log = f.read()
+    paths = {"serve": launches, "griffin_lim": gl["launches"], "cli_synthesize": cli["synthesize"],
+             "train": tr["launches"], "train_configs": tc["launches"], "cbhg_train": cb["train_launches"],
+             "gta": {"tacotron_encoder_fwd": pg["gta_k5"]}}
     kernels = {"kernels": [
         {"name": "wavernn_sample", "route": "cuda",
          "source": "tacotronv2_wavernn_chinese_tpu_torch/csrc/wavernn_sample.cu",
@@ -3134,7 +3280,7 @@ def run_all(cfg, dev, serve_frames: int, core_shape=TRAIN_CORE_SHAPE, corpus=TRA
              "cbhg_train": cb["train_launches"]["tacotron_train_bwd"],
              "dp_train": par["dp_train"]["tacotron_train_bwd"]},
          "grid_blocks": k34["blocks"], "clusters": k34["clusters"]},
-        *branch_entries,
+        *encoder_entries(k56, enc_log, paths), *branch_entries,
     ]}
     phase("kernels", f"shapes: K1 T={k1['T']} folds={k1['B']}; K2 B={mem_s.shape[0]} "
           f"T_in={mem_s.shape[1]} steps={k2['steps']}; K3/K4 B={Bm} T_in={Tim} T={Tm}; "

@@ -138,62 +138,16 @@ def zoneout_train(new: torch.Tensor, prev: torch.Tensor, mask: torch.Tensor) -> 
     return torch.where(mask.bool(), new - prev, torch.zeros_like(new)) + prev
 
 
-def zoneout_lstm_step(p: Params, x, c, h, rate: float, zx=None, masks=None):
+def zoneout_lstm_step(p: Params, x, c, h, rate: float, masks=None):
     """Returns ``(c_carry, h_carry, out)``: zoneout mixes only the carried
     state, the raw ``new_h`` goes downstream (reference modules.py:114-142).
-    ``zx`` is the precomputed input half of the gate matmul; ``masks``
-    (cell, hidden keep-masks) select train-mode zoneout, None eval mode."""
-    if zx is not None:
-        units = h.shape[-1]
-        z = zx + h @ p["w"][p["w"].shape[0] - units:] + p["b"]
-        new_c, new_h = _lstm_gates(z, c)
-    else:
-        new_c, new_h = lstm_step(p, x, c, h)
+    ``masks`` (cell, hidden keep-masks) select train-mode zoneout, None eval
+    mode.  The encoder's LSTMs run as whole sequences in
+    ``ops.tacotron_encoder_kernel``."""
+    new_c, new_h = lstm_step(p, x, c, h)
     if masks is not None and rate > 0.0:
         return zoneout_train(new_c, c, masks[0]), zoneout_train(new_h, h, masks[1]), new_h
     return zoneout_eval(new_c, c, rate), zoneout_eval(new_h, h, rate), new_h
-
-
-def reverse_sequence(xs: torch.Tensor, lengths: torch.Tensor | None) -> torch.Tensor:
-    """Reverse each sequence within its own valid length (positions past it
-    stay in place), like tf.reverse_sequence."""
-    if lengths is None:
-        return torch.flip(xs, dims=[1])
-    T = xs.shape[1]
-    ar = torch.arange(T, device=xs.device)[None, :]
-    idx = lengths.to(xs.device)[:, None].long() - 1 - ar
-    idx = torch.where(idx >= 0, idx, ar)
-    return torch.gather(xs, 1, idx[..., None].expand(-1, -1, xs.shape[-1]))
-
-
-def unidir_lstm(
-    p: Params,
-    xs: torch.Tensor,
-    units: int,
-    zoneout_rate: float = 0.0,
-    reverse: bool = False,
-    lengths: torch.Tensor | None = None,
-    masks=None,
-) -> torch.Tensor:
-    """LSTM over [B, T, D] -> [B, T, units]; with ``reverse`` and
-    ``lengths`` it is tf.nn.bidirectional_dynamic_rnn's backward pass.
-    ``masks`` (cell, hidden) zoneout keep-masks [T, B, units], indexed by
-    loop step (after the per-length reversal), select train mode."""
-    B, T, D = xs.shape
-    if reverse:
-        xs = reverse_sequence(xs, lengths)
-    zx_all = xs.transpose(0, 1) @ p["w"][:D]  # [T, B, 4H]
-    c = xs.new_zeros(B, units)
-    h = xs.new_zeros(B, units)
-    outs = []
-    for t in range(T):
-        m = None if masks is None else (masks[0][t], masks[1][t])
-        c, h, out = zoneout_lstm_step(p, None, c, h, zoneout_rate, zx=zx_all[t], masks=m)
-        outs.append(out)
-    hs = torch.stack(outs, dim=1)
-    if reverse:
-        hs = reverse_sequence(hs, lengths)
-    return hs
 
 
 def gru_step_from_gates(p: Params, gi: torch.Tensor, h: torch.Tensor) -> torch.Tensor:

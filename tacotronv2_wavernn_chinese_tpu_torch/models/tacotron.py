@@ -7,6 +7,9 @@ frames a step) -> 5-layer postnet -> with ``predict_linear``, the CBHG
 mel->linear head (conv bank, max-pool, projections, highways, BiGRU,
 1025 bins).
 
+The encoder's BiLSTM runs as one CUDA kernel forward and one backward on
+the card (``ops.tacotron_encoder_kernel``), in every mode and route.
+
 Inference: the autoregressive decode runs as one CUDA kernel on the card
 (``ops.tacotron_decoder_kernel``); ``decoder_step`` below is the step the
 plain version loops over.
@@ -35,6 +38,7 @@ import torch
 
 from ..config import TacotronModelConfig
 from ..ops import tacotron_decoder_kernel as DK
+from ..ops import tacotron_encoder_kernel as EK
 from ..ops import tacotron_trainer_kernel as TK
 from ..parallel import mesh as PM
 from ..utils import precision as P
@@ -151,13 +155,9 @@ def _encode(params, cfg, inputs, input_lengths, rand):
         x, new_convs = L.conv_stack(params["enc_convs"], x), params["enc_convs"]
     else:
         x, new_convs = L.conv_stack_train(params["enc_convs"], x, cfg.dropout_rate, rand.enc_drop)
-    fw = L.unidir_lstm(params["enc_lstm_fw"], x, cfg.encoder_lstm_units, cfg.zoneout_rate,
-                       masks=None if rand is None else rand.enc_fw)
-    bw = L.unidir_lstm(
-        params["enc_lstm_bw"], x, cfg.encoder_lstm_units, cfg.zoneout_rate,
-        reverse=True, lengths=input_lengths, masks=None if rand is None else rand.enc_bw,
-    )
-    memory = torch.cat([fw, bw], dim=-1)
+    memory = EK.bidirectional_lstm(params["enc_lstm_fw"], params["enc_lstm_bw"], x, input_lengths,
+                                   cfg.zoneout_rate, None if rand is None else rand.enc_fw,
+                                   None if rand is None else rand.enc_bw)
     return memory * input_mask(input_lengths, inputs.shape[1])[..., None], new_convs
 
 

@@ -1,6 +1,7 @@
-"""Hand-written CUDA kernels (the two autoregressive loops of serving and
-the teacher-forced decoder core of training, forward and backward), plus
-what they share: the build, the launch counters and the random generator.
+"""Hand-written CUDA kernels (the two autoregressive loops of serving, the
+teacher-forced decoder core of training and the encoder's bidirectional
+LSTM, each forward and backward), plus what they share: the build, the
+launch counters and the random generator.
 
 Build.  The sources under ``csrc/`` are compiled at first use with ``nvcc``
 for ``sm_90a`` into plain-C shared libraries (one per ``.cu`` file, all
@@ -12,7 +13,7 @@ Nothing is built or imported from CUDA when this module is imported.
 Counters.  ``LAUNCHES[name]`` is incremented by a wrapper exactly where it
 launches its kernel, which with the spans on (``utils.metrics``) also
 stamps the launch's host time on the innermost open span (``k1`` to
-``k4``); the plain versions never touch either.
+``k6``); the plain versions never touch either.
 
 Random bits.  ``hash_bits(seed, row, step, lane)`` is a counter-based
 32-bit hash (three rounds of the murmur3 finalizer over seed, row and step,
@@ -37,13 +38,15 @@ import torch
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
-SOURCES = ("wavernn_sample.cu", "tacotron_decode.cu", "tacotron_train_fwd.cu", "tacotron_train_bwd.cu")
+SOURCES = ("wavernn_sample.cu", "tacotron_decode.cu", "tacotron_train_fwd.cu", "tacotron_train_bwd.cu",
+           "tacotron_encoder.cu")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
-LAUNCHES = {"wavernn_sample": 0, "tacotron_decode": 0, "tacotron_train_fwd": 0, "tacotron_train_bwd": 0}
+LAUNCHES = {"wavernn_sample": 0, "tacotron_decode": 0, "tacotron_train_fwd": 0, "tacotron_train_bwd": 0,
+            "tacotron_encoder_fwd": 0, "tacotron_encoder_bwd": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -136,6 +139,10 @@ _ARGTYPES = {
     "tacotron_train_bwd_scratch_floats": [ctypes.c_int] * 8,
     "tacotron_train_fwd_clusters": [],
     "tacotron_train_bwd_clusters": [],
+    "tacotron_encoder_fwd_launch": [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
+    "tacotron_encoder_bwd_launch": [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
+    "tacotron_encoder_smem_bytes": [ctypes.c_int] * 4,
+    "tacotron_encoder_clusters": [],
 }
 
 
