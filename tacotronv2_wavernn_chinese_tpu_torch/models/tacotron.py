@@ -48,6 +48,20 @@ from . import layers as L
 
 Params = dict
 
+# decoder steps decoded, by route: "kernel" and "eager" (``core_route``) for
+# teacher-forced decodes, "k2" for autoregressive ones; each decode adds its
+# padded step count (``utils.metrics.counters()`` hands this dict over)
+DECODER_STEPS = {"kernel": 0, "eager": 0, "k2": 0}
+
+
+def decoder_span(route: str, cfg: TacotronModelConfig, rows: int, steps: int, positions: int):
+    """Count a decode of ``steps`` steps on ``route`` and open its
+    ``tacotron.decoder`` span, which carries the route, the attention mode,
+    the rows, the steps and the encoder positions attended over."""
+    DECODER_STEPS[route] += steps
+    return span("tacotron.decoder", device=True, route=route, mode=cfg.attention_mode, rows=rows, steps=steps,
+                positions=positions)
+
 
 class TacotronOutput(NamedTuple):
     decoder_output: torch.Tensor  # [B, T_out, M] pre-postnet mels
@@ -328,9 +342,9 @@ def forward_inference(
         with span("tacotron.encoder", device=True):
             memory = encode(params, cfg, inputs, input_lengths)
             mem_mask = input_mask(input_lengths, inputs.shape[1])
-        with span("tacotron.decoder", device=True):
-            frames, stops, aligns, stop_len = decode_autoregressive(params, cfg, memory, mem_mask, seeds,
-                                                                    max_iters)
+        T = max_iters if max_iters is not None else cfg.max_iters
+        with decoder_span("k2", cfg, int(inputs.shape[0]), T, int(inputs.shape[1])):
+            frames, stops, aligns, stop_len = decode_autoregressive(params, cfg, memory, mem_mask, seeds, T)
         with span("tacotron.postnet", device=True):
             frames = _clip_mel(frames, cfg)
             mel_out = _clip_mel(apply_postnet(params, cfg, frames), cfg)
@@ -502,7 +516,9 @@ def forward_teacher_forced(
         else:
             memory, new_convs = encode(params, cfg, inputs, input_lengths), params["enc_convs"]
         mem_mask = input_mask(input_lengths, inputs.shape[1])
-    with span("tacotron.decoder", device=True):
+    route = core_route(cfg, train, teacher_forcing_ratio)
+    with decoder_span(route, cfg, int(inputs.shape[0]), mel_targets.shape[1] // cfg.outputs_per_step,
+                      int(inputs.shape[1])):
         frames, stops, aligns = decode_teacher_forced(
             params, cfg, memory, mem_mask, mel_targets, train, rand, teacher_forcing_ratio, fused_decoder,
         )
