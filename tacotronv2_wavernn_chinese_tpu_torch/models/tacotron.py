@@ -23,7 +23,9 @@ K3/K4 on the card (``ops.tacotron_trainer_kernel``).  Every other
 configuration (LSA, GMM, Graves, smoothing, anti-repeat at eval,
 scheduled sampling) runs an eager loop over ``decoder_step`` on every
 device, the counterpart of the JAX package's ``lax.scan``: the JAX package
-trains these through XLA too, not through its Pallas kernel.  All
+trains these through XLA too, not through its Pallas kernel.  On the card,
+under full teacher forcing, that loop replays one captured CUDA graph a
+step, forward and backward (``models.decoder_graph``).  All
 randomness of one forward (encoder and postnet dropout, zoneout, prenet
 dropout, GMM attention dropout, the scheduled-sampling draws) is drawn up
 front into a ``TrainRand`` from an explicit ``torch.Generator``, or handed
@@ -44,6 +46,7 @@ from ..parallel import mesh as PM
 from ..utils import precision as P
 from ..utils.metrics import span
 from . import attention as ATT
+from . import decoder_graph as DG
 from . import layers as L
 
 Params = dict
@@ -52,15 +55,20 @@ Params = dict
 # teacher-forced decodes, "k2" for autoregressive ones; each decode adds its
 # padded step count (``utils.metrics.counters()`` hands this dict over)
 DECODER_STEPS = {"kernel": 0, "eager": 0, "k2": 0}
+# graphs captured and forward steps replayed from one on the eager route
+# (``models.decoder_graph``; ``utils.metrics.counters()`` hands it over)
+DECODER_GRAPHS = DG.DECODER_GRAPHS
 
 
-def decoder_span(route: str, cfg: TacotronModelConfig, rows: int, steps: int, positions: int):
+def decoder_span(route: str, cfg: TacotronModelConfig, rows: int, steps: int, positions: int,
+                 graphed: bool = False):
     """Count a decode of ``steps`` steps on ``route`` and open its
     ``tacotron.decoder`` span, which carries the route, the attention mode,
-    the rows, the steps and the encoder positions attended over."""
+    the rows, the steps, the encoder positions attended over and whether
+    the steps replay a CUDA graph."""
     DECODER_STEPS[route] += steps
     return span("tacotron.decoder", device=True, route=route, mode=cfg.attention_mode, rows=rows, steps=steps,
-                positions=positions)
+                positions=positions, graphed=graphed)
 
 
 class TacotronOutput(NamedTuple):
@@ -408,7 +416,9 @@ def _eager_decode(params, cfg, keys, memory, mem_mask, dec_inputs_t, train: bool
     its ground-truth frame where ``use_gt`` is set, else the last frame
     the model predicted at the step before (not detached: gradients flow
     through the model's own predictions, as in the JAX package), and the
-    prenet and the projections run inside the step."""
+    prenet and the projections run inside the step.  Under full teacher
+    forcing on the card (``DG.usable``) the loop replays captured CUDA
+    graphs (``DG.decode``)."""
     T, B, M = dec_inputs_t.shape
     carry = init_decoder_carry(cfg, B, memory.shape[1], memory.shape[2], memory.device)
     att = params["attention"]
@@ -425,10 +435,15 @@ def _eager_decode(params, cfg, keys, memory, mem_mask, dec_inputs_t, train: bool
     outs = []
     if use_gt is None:
         pre_all = L.prenet(params["prenet"], dec_inputs_t, cfg.dropout_rate, masks=rand.pre)
-        for t in range(T):
-            out2, ctx, align, carry = step(t, carry, pre=pre_all[t], project=False)
-            outs.append((out2, ctx, align))
-        out2, ctx, aligns = (torch.stack(v) for v in zip(*outs))
+        if DG.usable(memory):
+            out2, ctx, aligns = DG.decode(params, cfg, train, pre_all, None if zone is None else rand.z1 + rand.z2,
+                                          None if rand.att is None or not train else rand.att, keys, memory,
+                                          mem_mask, w_comb, b_comb)
+        else:
+            for t in range(T):
+                out2, ctx, align, carry = step(t, carry, pre=pre_all[t], project=False)
+                outs.append((out2, ctx, align))
+            out2, ctx, aligns = (torch.stack(v) for v in zip(*outs))
         frames, stops = projections(params, torch.cat([out2, ctx], dim=-1))
         return frames, stops, aligns
     prev = dec_inputs_t.new_zeros(B, M)
@@ -517,8 +532,9 @@ def forward_teacher_forced(
             memory, new_convs = encode(params, cfg, inputs, input_lengths), params["enc_convs"]
         mem_mask = input_mask(input_lengths, inputs.shape[1])
     route = core_route(cfg, train, teacher_forcing_ratio)
+    graphed = route == "eager" and full_teacher_forcing(teacher_forcing_ratio) and DG.usable(memory)
     with decoder_span(route, cfg, int(inputs.shape[0]), mel_targets.shape[1] // cfg.outputs_per_step,
-                      int(inputs.shape[1])):
+                      int(inputs.shape[1]), graphed):
         frames, stops, aligns = decode_teacher_forced(
             params, cfg, memory, mem_mask, mel_targets, train, rand, teacher_forcing_ratio, fused_decoder,
         )

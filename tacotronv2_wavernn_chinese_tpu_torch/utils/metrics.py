@@ -17,8 +17,9 @@ stream; the events come from a pool and are read only by ``drain()``,
 after one ``synchronize``, so the traced path gains no synchronisation.
 Tracing is off until ``enable()``: ``span()`` then returns one shared
 object that records, allocates and synchronises nothing.  ``counters()``
-hands over the launch counters (``ops.LAUNCHES``) and the decoder's steps
-by route (``models.tacotron.DECODER_STEPS``) by reference.  Backward runs
+hands over the launch counters (``ops.LAUNCHES``), the decoder's steps
+by route (``models.tacotron.DECODER_STEPS``) and the eager route's CUDA
+graphs (``models.tacotron.DECODER_GRAPHS``) by reference.  Backward runs
 on autograd's device thread, where no span of the step is open: the spans
 there take ``parent=linked()``, the innermost open span of the thread
 that opened the step (a span with ``anchor=True``).
@@ -300,12 +301,13 @@ def drain() -> list:
 
 def counters() -> dict:
     """The program's counters, by reference: {"launches": ops.LAUNCHES,
-    "decoder_steps": models.tacotron.DECODER_STEPS} (launches by kernel,
-    decoder steps by route)."""
-    from ..models.tacotron import DECODER_STEPS
+    "decoder_steps": models.tacotron.DECODER_STEPS, "decoder_graphs":
+    models.tacotron.DECODER_GRAPHS} (launches by kernel, decoder steps by
+    route, the eager route's graphs captured and steps replayed)."""
+    from ..models.tacotron import DECODER_GRAPHS, DECODER_STEPS
     from ..ops import LAUNCHES
 
-    return {"launches": LAUNCHES, "decoder_steps": DECODER_STEPS}
+    return {"launches": LAUNCHES, "decoder_steps": DECODER_STEPS, "decoder_graphs": DECODER_GRAPHS}
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 span carries the route a decode took ("kernel" for forward attention
 under full teacher forcing, "eager" for every other teacher-forced
 configuration, "k2" for an autoregressive decode), the attention mode, the
-rows, the steps and the encoder positions; ``counters()["decoder_steps"]``
+rows, the steps, the encoder positions and whether the steps replayed a
+CUDA graph (never on the CPU); ``counters()["decoder_steps"]``
 adds each decode's padded step count to its route, with the spans on or
 off; off, nothing is allocated."""
 
@@ -64,7 +65,8 @@ def test_a_training_step_records_its_route(mode, route):
     M.enable()
     _step(cfg)
     (s,) = _decoder_spans()
-    assert s["attrs"] == {"route": route, "mode": mode, "rows": 2, "steps": 8, "positions": 9}
+    assert s["attrs"] == {"route": route, "mode": mode, "rows": 2, "steps": 8, "positions": 9,
+                          "graphed": False}
 
 
 def test_an_autoregressive_decode_records_k2():
@@ -75,7 +77,8 @@ def test_an_autoregressive_decode_records_k2():
     M.enable()
     T.forward_inference(params, cfg.tacotron, ids, lens, [11, 12], max_iters=5)
     (s,) = _decoder_spans()
-    assert s["attrs"] == {"route": "k2", "mode": "forward", "rows": 2, "steps": 5, "positions": 4}
+    assert s["attrs"] == {"route": "k2", "mode": "forward", "rows": 2, "steps": 5, "positions": 4,
+                          "graphed": False}
     assert M.counters()["decoder_steps"] == dict(before, k2=before["k2"] + 5)
 
 
