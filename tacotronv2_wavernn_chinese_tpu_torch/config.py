@@ -160,10 +160,6 @@ class TacotronTrainConfig:
     # bf16 weights / f32 master+activations (utils/precision.py) — halves the
     # decoder scan's per-step weight HBM reads; the reference is f32-only
     mixed_precision: bool = False
-    # fuse K optimizer steps into one device dispatch (lax.scan over steps,
-    # train_step_many): amortizes host dispatch latency; checkpoints/summaries
-    # land on the first boundary after a fused group (exact at 1)
-    steps_per_dispatch: int = 1
     # lax.scan unroll factor for the teacher-forced decoder scan: >1 trades
     # compile time/code size for fewer per-iteration loop overheads on the
     # recurrence-bound step (measured on v5e B=32: 72.1 -> 58.6 ms/step at
@@ -252,8 +248,6 @@ class WaveRNNTrainConfig:
     max_checkpoints_to_keep: int = 20
     # bf16 weights / f32 master+activations (utils/precision.py)
     mixed_precision: bool = False
-    # fuse K optimizer steps into one device dispatch (train_step_many)
-    steps_per_dispatch: int = 1
     # compile the (fixed-window) train-step programs before the first real
     # step, like tacotron_train.precompile_buckets — kills the multi-second
     # first-dispatch tail in step-time percentiles (RESUME_r4: p95 5.87 s vs

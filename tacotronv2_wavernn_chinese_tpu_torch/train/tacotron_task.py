@@ -1,4 +1,5 @@
-"""Tacotron training: state, optimizer and the train step.
+"""Tacotron training: the recipe, the loss and the train step (the state,
+the optimizer and the step skeleton are ``train/optim.py``'s).
 
 Optimization recipe per reference tacotron.py:255-313: Adam(0.9, 0.999,
 1e-6) with TF-1 epsilon semantics, exponential LR decay from
@@ -26,8 +27,6 @@ metrics are global, so every rank applies the one-process step's update.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Any
 
 import torch
 
@@ -35,18 +34,11 @@ from ..config import Config
 from ..models import tacotron as T
 from ..parallel import mesh as PM
 from ..utils import precision as P
-from ..utils import tree_leaves, tree_map
 from ..utils.checkpoints import init_tacotron
 from ..utils.metrics import span
+from .optim import TrainState, adam_init, grads_of, optimizer_step, readback, tf1_rule
 
 FROZEN_TOP = ("embedding", "enc_convs", "enc_lstm_fw", "enc_lstm_bw")
-
-
-@dataclass
-class TrainState:
-    step: int
-    params: Any  # nested dict of f32 tensors (the JAX package's tree)
-    opt_state: dict  # {"count": int, "mu": tree, "nu": tree}
 
 
 def lr_schedule(cfg: Config):
@@ -78,44 +70,6 @@ def teacher_forcing_schedule(cfg: Config, step: int) -> float:
     t = min(max(float(step) - tc.teacher_forcing_start_decay, 0.0), float(tc.teacher_forcing_decay_steps))
     cosine = 0.5 * (1.0 + math.cos(math.pi * t / tc.teacher_forcing_decay_steps))
     return tc.teacher_forcing_init_ratio * ((1.0 - alpha) * cosine + alpha)
-
-
-def adam_init(params) -> dict:
-    zeros = lambda: tree_map(lambda p: torch.zeros_like(p, memory_format=torch.contiguous_format), params)
-    return {"count": 0, "mu": zeros(), "nu": zeros()}
-
-
-def tf1_adam(grads, state: dict, lr: float, b1: float, b2: float, eps: float):
-    """Adam with TF-1.x epsilon semantics (tf.train.AdamOptimizer, the
-    reference optimizer): ``update = -lr * sqrt(1-b2^t)/(1-b1^t) *
-    m / (sqrt(v) + eps)`` — epsilon on the uncorrected second-moment root,
-    unlike torch.optim.Adam.  Returns (updates, new state); the moments are
-    updated in place."""
-    count = state["count"] + 1
-    c = torch.tensor(float(count), dtype=torch.float32)
-    lr_factor = float(torch.sqrt(1.0 - b2 ** c) / (1.0 - b1 ** c))
-
-    def leaf(g, m, v):
-        m.mul_(b1).add_((1.0 - b1) * g)
-        v.mul_(b2).add_((1.0 - b2) * g * g)
-        return lr_factor * m / (torch.sqrt(v) + eps) * -lr
-
-    updates = tree_map(leaf, grads, state["mu"], state["nu"])
-    return updates, {"count": count, "mu": state["mu"], "nu": state["nu"]}
-
-
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(g * g) for g in tree_leaves(tree)))
-
-
-def clip_by_global_norm(grads, max_norm: float, norm: torch.Tensor | None = None):
-    """optax.clip_by_global_norm: unchanged below the limit, else g/|g|*max.
-    ``norm`` is the tree's global norm when the caller knows it (a
-    tensor-parallel tree whose shards live on several ranks)."""
-    norm = global_norm(grads) if norm is None else norm
-    if float(norm) < max_norm:
-        return grads, norm
-    return tree_map(lambda g: g / norm * max_norm, grads), norm
 
 
 def init_state(seed: int, cfg: Config, device) -> TrainState:
@@ -174,7 +128,6 @@ def compute_grads(params, cfg: Config, batch: dict, generator: torch.Generator, 
     returned loss, aux terms and gradients are the global batch's, equal on
     every rank."""
     with PM.data_parallel(mesh):
-        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
         ratio = teacher_forcing_schedule(cfg, step)
         sharded, shards = PM.batch_sharded(), PM.batch_shards()
         if sharded:
@@ -183,13 +136,8 @@ def compute_grads(params, cfg: Config, batch: dict, generator: torch.Generator, 
                 rand = T.draw_train_rand(params, cfg.tacotron, inputs.shape[0] * shards, inputs.shape[1],
                                          mels.shape[1], generator, True, ratio)
             rand = T.shard_train_rand(rand, PM.batch_index(), shards)
-        with span("train.forward", device=True):
-            loss, (aux, new_params, _) = loss_fn(leaves, cfg, batch, generator, True, ratio, rand=rand)
-        flat = tree_leaves(leaves)
-        with span("train.backward", device=True):
-            gs = torch.autograd.grad(loss, flat, allow_unused=True)
-        it = iter([torch.zeros_like(p) if g is None else g for p, g in zip(flat, gs)])
-        grads = tree_map(lambda _: next(it), leaves)
+        loss, (aux, new_params, _), grads = grads_of(
+            lambda leaves: loss_fn(leaves, cfg, batch, generator, True, ratio, rand=rand), params)
         if sharded:  # the ranks' shares summed: the global loss, terms and gradients
             names = list(aux)
             aux = dict(zip(names, PM.batch_sum(torch.stack([aux[k].detach().reshape(()) for k in names]))))
@@ -198,20 +146,13 @@ def compute_grads(params, cfg: Config, batch: dict, generator: torch.Generator, 
 
 
 def apply_gradients(state: TrainState, new_params, grads, cfg: Config):
-    """Clip, Adam, fine-tune freeze, then ``new_params + updates`` (the BN
-    statistics advance with the forward's moving averages; their updates
-    are zero).  Returns (new state, grad norm, lr)."""
+    """Clip, TF-1 Adam, fine-tune freeze, then ``new_params + updates``
+    (``optim.optimizer_step``).  Returns (new state, grad norm, lr)."""
     tc = cfg.tacotron_train
     lr = lr_schedule(cfg)(state.step)
-    with torch.no_grad(), span("train.optimizer", device=True):
-        clipped, norm = clip_by_global_norm(grads, tc.grad_clip_norm)
-        updates, opt_state = tf1_adam(clipped, state.opt_state, lr, tc.adam_beta1, tc.adam_beta2,
-                                      tc.adam_eps)
-        if tc.fine_tune:
-            updates = {k: tree_map(torch.zeros_like, v) if k in FROZEN_TOP else v
-                       for k, v in updates.items()}
-        params = tree_map(lambda p, u: p.detach() + u, new_params, updates)
-    return TrainState(state.step + 1, params, opt_state), norm, lr
+    new_state, norm = optimizer_step(state, new_params, grads, tc.grad_clip_norm, tf1_rule, lr, tc.adam_beta1,
+                                     tc.adam_beta2, tc.adam_eps, frozen=FROZEN_TOP if tc.fine_tune else ())
+    return new_state, norm, lr
 
 
 def train_step(state: TrainState, batch: dict, generator: torch.Generator, cfg: Config, mesh=None):
@@ -224,23 +165,9 @@ def train_step(state: TrainState, batch: dict, generator: torch.Generator, cfg: 
                                   rows=int(inputs.shape[0]), T_in=int(inputs.shape[1]), T=int(mels.shape[1])):
         _, aux, new_params, grads = compute_grads(state.params, cfg, batch, generator, state.step, mesh=mesh)
         new_state, norm, lr = apply_gradients(state, new_params, grads, cfg)
-        names = list(aux) + ["grad_norm"]
-        with span("train.readback"):
-            values = torch.stack([aux[k].detach().reshape(()) for k in aux] + [norm.reshape(())]).tolist()
-    metrics = dict(zip(names, values))
+        metrics = readback(dict(aux, grad_norm=norm))
     metrics["lr"] = lr
     return new_state, metrics
-
-
-def train_step_many(state: TrainState, batches: list, generator: torch.Generator, cfg: Config, mesh=None):
-    """K optimization steps in a row -> (new state, {metric: [K values]});
-    ``run_training`` applies its guards to every sub-step afterwards."""
-    stacked: dict = {}
-    for batch in batches:
-        state, metrics = train_step(state, batch, generator, cfg, mesh)
-        for k, v in metrics.items():
-            stacked.setdefault(k, []).append(v)
-    return state, stacked
 
 
 def eval_step(params, batch: dict, cfg: Config, generator: torch.Generator):

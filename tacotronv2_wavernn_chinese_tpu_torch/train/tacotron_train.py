@@ -48,7 +48,6 @@ from ..utils.checkpoints import CheckpointManager
 from ..utils.metrics import MetricsWriter, Profiler, dump_embedding_projector, span
 from ..utils.plot import plot_alignment, plot_spectrogram
 from . import tacotron_task as task
-from .grouping import fused_groups
 
 
 class LossExplosion(Exception):
@@ -129,65 +128,46 @@ def run_training(
 
     gen = torch.Generator(device=dev)
     time_win, loss_win = infolog.ValueWindow(100), infolog.ValueWindow(100)
-    step = state.step
     epoch = 0
-    spd = max(1, int(tc.steps_per_dispatch))
 
-    def dispatch(group):
-        """Run len(group) steps back to back, then apply the per-step
-        guards/logging to every sub-step."""
-        nonlocal state, step
+    def dispatch(batch):
+        """One step on ``batch``, then its guards, logging and checkpoint."""
+        nonlocal state
         t0 = time.time()
-        k = len(group)
-        arrays = [batch_to_device(b, dev) for b in group]
+        arrays = batch_to_device(batch, dev)
         if mesh is not None:
-            arrays = [PM.shard_batch(mesh, a) for a in arrays]
-        gen.manual_seed(step_seed(cfg, step))
-        if k == 1:
-            state, metrics = task.train_step(state, arrays[0], gen, cfg, mesh)
-            mhost = {kk: [v] for kk, v in metrics.items()}
-        else:
-            state, mhost = task.train_step_many(state, arrays, gen, cfg, mesh)
-        dt = (time.time() - t0) / k
-        ckpt_due = False
-        for i in range(k):
-            sub = step + i + 1
-            loss = float(mhost["loss"][i])
-            time_win.append(dt)
-            loss_win.append(loss)
-            profiler.step(sub)
-            if np.isnan(loss) or loss > tc.loss_explosion_threshold:
-                log(f"Loss exploded to {loss:.5f} at step {sub}")
-                raise LossExplosion("loss exploded, aborting")
-            if metrics_writer is not None and (sub % tc.summary_interval == 0 or sub < 5):
-                metrics_writer.write(sub, {kk: v[i] for kk, v in mhost.items()})
-            if sub % 10 == 0 or sub < 10:
-                log(
-                    f"Step {sub:7d} [{time_win.average:.3f} sec/step, "
-                    f"loss={loss:.5f}, avg_loss={loss_win.average:.5f}, "
-                    f"lr={float(mhost['lr'][i]):.2e}]"
-                )
-            if sub % tc.checkpoint_interval == 0:
-                ckpt_due = True
-        step = state.step
-        if ckpt_due and primary:
-            # with K>1 the save lands at the end of the group — at most K-1
-            # steps past the exact boundary (exact when spd == 1)
+            arrays = PM.shard_batch(mesh, arrays)
+        gen.manual_seed(step_seed(cfg, state.step))
+        state, metrics = task.train_step(state, arrays, gen, cfg, mesh)
+        step, loss = state.step, metrics["loss"]
+        time_win.append(time.time() - t0)
+        loss_win.append(loss)
+        profiler.step(step)
+        if np.isnan(loss) or loss > tc.loss_explosion_threshold:
+            log(f"Loss exploded to {loss:.5f} at step {step}")
+            raise LossExplosion("loss exploded, aborting")
+        if metrics_writer is not None and (step % tc.summary_interval == 0 or step < 5):
+            metrics_writer.write(step, metrics)
+        if step % 10 == 0 or step < 10:
+            log(
+                f"Step {step:7d} [{time_win.average:.3f} sec/step, "
+                f"loss={loss:.5f}, avg_loss={loss_win.average:.5f}, "
+                f"lr={metrics['lr']:.2e}]"
+            )
+        if step % tc.checkpoint_interval == 0 and primary:
             mgr.save(step, state.params, state.opt_state)
             log(f"saved checkpoint at step {step}")
             if render_eval:
-                _render_eval(cfg, state.params, group[-1], arrays[-1], eval_dir, step, log, dev)
+                _render_eval(cfg, state.params, batch, arrays, eval_dir, step, log, dev)
                 _dump_embedding(state.params, eval_dir, log)
 
-    while step < total_steps:
-        stream = dataset.batches(epoch_seed=tc.data_seed + epoch)
-        step_at_epoch_start = step
-        for group in fused_groups(
-            stream, spd, lambda: step, total_steps,
-            key_fn=lambda b: (b.inputs.shape, b.mel_targets.shape),
-        ):
-            dispatch(group)
-        if step == step_at_epoch_start:
+    while state.step < total_steps:
+        step_at_epoch_start = state.step
+        for batch in dataset.batches(epoch_seed=tc.data_seed + epoch):
+            dispatch(batch)
+            if state.step >= total_steps:
+                break
+        if state.step == step_at_epoch_start:
             # zero batches this epoch (fewer utterances than batch_size with
             # drop_remainder): fail loudly instead of spinning
             raise ValueError(
@@ -196,7 +176,7 @@ def run_training(
             )
         epoch += 1
     if primary:
-        mgr.save(step, state.params, state.opt_state)
+        mgr.save(state.step, state.params, state.opt_state)
         metrics_writer.close()
     profiler.close()
     D.barrier()

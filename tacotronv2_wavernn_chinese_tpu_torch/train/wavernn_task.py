@@ -1,4 +1,5 @@
-"""WaveRNN training: state, optimizer and the train step.
+"""WaveRNN training: the recipe, the loss and the train step (the state,
+the optimizer and the step skeleton are ``train/optim.py``'s).
 
 Recipe per reference wavernn_train.py:20-153, as the JAX package's
 ``train/wavernn_task.py`` runs it: optax's ``clip_by_global_norm(4.0)``
@@ -46,34 +47,15 @@ from ..models import wavernn as W
 from ..parallel import mesh as PM
 from ..parallel import tp as TP
 from ..utils import precision as P
-from ..utils import tree_leaves, tree_map
 from ..utils.checkpoints import init_wavernn
 from ..utils.metrics import span
 from ..utils.precision import fp32_precision
-from .tacotron_task import TrainState, adam_init, clip_by_global_norm
+from .optim import TrainState, adam_init, grads_of, optax_rule, optimizer_step, readback
 
 
 def init_state(seed: int, cfg: Config, device) -> TrainState:
     params = init_wavernn(seed, cfg.wavernn, cfg.audio.num_mels, cfg.audio.bits, device=device)
     return TrainState(0, params, adam_init(params))
-
-
-def optax_adam(grads, state: dict, lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
-    """optax.adam: ``update = -lr * m̂ / (sqrt(v̂) + eps)`` with m̂ = m / (1 -
-    b1^t), v̂ = v / (1 - b2^t), the corrections in f32 as optax computes
-    them.  Returns (updates, new state); the moments are updated in place."""
-    count = state["count"] + 1
-    c = torch.tensor(float(count), dtype=torch.float32)
-    bc1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** c)
-    bc2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** c)
-
-    def leaf(g, m, v):
-        m.mul_(b1).add_((1.0 - b1) * g)
-        v.mul_(b2).add_((1.0 - b2) * (g * g))
-        return -lr * ((m / bc1) / (torch.sqrt(v / bc2) + eps))
-
-    updates = tree_map(leaf, grads, state["mu"], state["nu"])
-    return updates, {"count": count, "mu": state["mu"], "nu": state["nu"]}
 
 
 def loss_fn(params, cfg: Config, batch: dict, train: bool = True, layers: dict | None = None):
@@ -101,31 +83,25 @@ def compute_grads(params, cfg: Config, batch: dict, mesh=None):
     batch's; with one whose ``model`` axis spans several ranks the sharded
     leaves (and their gradients) are this rank's column blocks."""
     with PM.data_parallel(mesh):
-        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
         layers = TP.layers(mesh) if TP.model_parallel(mesh) else None
-        with span("train.forward", device=True):
+
+        def share_of(leaves):  # the global mean over equal windows is the sum of the shares
             loss, (new_params, _) = loss_fn(leaves, cfg, batch, True, layers)
-            share = loss / PM.batch_shards()  # the global mean over equal windows is the sum of the shares
-        flat = tree_leaves(leaves)
-        with span("train.backward", device=True):
-            gs = torch.autograd.grad(share, flat, allow_unused=True)
-        it = iter([torch.zeros_like(p) if g is None else g for p, g in zip(flat, gs)])
-        grads = tree_map(lambda _: next(it), leaves)
+            return loss / PM.batch_shards(), new_params
+
+        share, new_params, grads = grads_of(share_of, params)
         if PM.batch_sharded():
             share, grads = PM.batch_sum(share.detach()), PM.batch_sum_tree(grads)
     return share.detach(), new_params, grads
 
 
 def apply_gradients(state: TrainState, new_params, grads, cfg: Config, norm: torch.Tensor | None = None):
-    """Clip, Adam, then ``new_params + updates`` -> (new state, grad norm).
-    ``norm`` is the gradients' global norm where the tree alone does not
-    give it (tensor-parallel blocks)."""
+    """Clip, optax's Adam, then ``new_params + updates``
+    (``optim.optimizer_step``) -> (new state, grad norm).  ``norm`` is the
+    gradients' global norm where the tree alone does not give it
+    (tensor-parallel blocks)."""
     wc = cfg.wavernn_train
-    with torch.no_grad(), span("train.optimizer", device=True):
-        clipped, norm = clip_by_global_norm(grads, wc.grad_clip_norm, norm)
-        updates, opt_state = optax_adam(clipped, state.opt_state, wc.lr)
-        params = tree_map(lambda p, u: p.detach() + u, new_params, updates)
-    return TrainState(state.step + 1, params, opt_state), norm
+    return optimizer_step(state, new_params, grads, wc.grad_clip_norm, optax_rule, wc.lr, norm=norm)
 
 
 def train_step(state: TrainState, batch: dict, cfg: Config, mesh=None):
@@ -141,20 +117,8 @@ def train_step(state: TrainState, batch: dict, cfg: Config, mesh=None):
         loss, new_params, grads = compute_grads(state.params, cfg, batch, mesh)
         norm = TP.global_norm(grads, mesh) if TP.model_parallel(mesh) else None
         new_state, norm = apply_gradients(state, new_params, grads, cfg, norm)
-        with span("train.readback"):
-            loss_v, norm_v = torch.stack([loss.reshape(()), norm.reshape(())]).tolist()
-    return new_state, {"loss": loss_v, "grad_norm": norm_v}
-
-
-def train_step_many(state: TrainState, batches: list, cfg: Config, mesh=None):
-    """K optimization steps in a row -> (new state, {metric: [K values]});
-    ``run_training`` applies its guards to every sub-step afterwards."""
-    stacked: dict = {}
-    for batch in batches:
-        state, metrics = train_step(state, batch, cfg, mesh)
-        for k, v in metrics.items():
-            stacked.setdefault(k, []).append(v)
-    return state, stacked
+        metrics = readback({"loss": loss, "grad_norm": norm})
+    return new_state, metrics
 
 
 def eval_step(params, batch: dict, cfg: Config) -> dict:

@@ -52,7 +52,6 @@ from ..utils import resolve_device
 from ..utils.checkpoints import CheckpointManager
 from ..utils.metrics import MetricsWriter
 from . import wavernn_task as task
-from .grouping import fused_groups
 
 
 def run_training(
@@ -121,54 +120,44 @@ def run_training(
 
     metrics_writer = MetricsWriter(log_dir) if primary else None
     time_win, loss_win = infolog.ValueWindow(100), infolog.ValueWindow(100)
-    step = state.step
     epoch = 0
-    spd = max(1, int(wc.steps_per_dispatch))
 
-    def dispatch(group):
-        """Run len(group) steps back to back, then apply the per-step
-        guards and logging to every sub-step."""
-        nonlocal state, step
+    def dispatch(batch):
+        """One step on ``batch``, then its guards, logging and checkpoint."""
+        nonlocal state
         t0 = time.time()
-        k = len(group)
-        arrays = [task.batch_to_device(b, dev) for b in group]
+        arrays = task.batch_to_device(batch, dev)
         if mesh is not None:
-            arrays = [PM.shard_batch(mesh, a) for a in arrays]
-        state, mhost = task.train_step_many(state, arrays, cfg, mesh)
-        dt = (time.time() - t0) / k
-        ckpt_due = False
-        for i in range(k):
-            sub = step + i + 1
-            loss = float(mhost["loss"][i])
-            gnorm = float(mhost["grad_norm"][i])
-            time_win.append(dt)
-            loss_win.append(loss)
-            if np.isnan(gnorm):
-                log(f"WARNING: NaN grad norm at step {sub}")  # wavernn_train.py:126-128
-            if np.isnan(loss):
-                raise RuntimeError(f"loss is NaN at step {sub}")
-            if sub % 10 == 0 or sub < 10:
-                log(f"Step {sub:7d} [{time_win.average:.3f} sec/step, "
-                    f"loss={loss:.5f}, avg={loss_win.average:.5f}]")
-            if metrics_writer is not None and (sub % wc.summary_interval == 0 or sub < 5):
-                metrics_writer.write(sub, {"loss": loss, "grad_norm": gnorm})
-            if sub % wc.checkpoint_every == 0:
-                ckpt_due = True
-        step = state.step
-        if ckpt_due and primary:
+            arrays = PM.shard_batch(mesh, arrays)
+        state, metrics = task.train_step(state, arrays, cfg, mesh)
+        step, loss, gnorm = state.step, metrics["loss"], metrics["grad_norm"]
+        time_win.append(time.time() - t0)
+        loss_win.append(loss)
+        if np.isnan(gnorm):
+            log(f"WARNING: NaN grad norm at step {step}")  # wavernn_train.py:126-128
+        if np.isnan(loss):
+            raise RuntimeError(f"loss is NaN at step {step}")
+        if step % 10 == 0 or step < 10:
+            log(f"Step {step:7d} [{time_win.average:.3f} sec/step, "
+                f"loss={loss:.5f}, avg={loss_win.average:.5f}]")
+        if metrics_writer is not None and (step % wc.summary_interval == 0 or step < 5):
+            metrics_writer.write(step, metrics)
+        if step % wc.checkpoint_every == 0 and primary:
             mgr.save(step, state.params, state.opt_state)
             log(f"saved checkpoint at step {step}")
             if gen_at_checkpoint:
                 _gen_testset(cfg, state.params, dataset, out_dir, step, log)
 
     try:
-        if wc.precompile and step < total_steps:
+        if wc.precompile and state.step < total_steps:
             _warm_step(cfg, state, dev, log, 1 if mesh is None else mesh.size)
-        while step < total_steps:
-            step_at_epoch_start = step
-            for group in fused_groups(batch_stream(epoch), spd, lambda: step, total_steps):
-                dispatch(group)
-            if step == step_at_epoch_start:
+        while state.step < total_steps:
+            step_at_epoch_start = state.step
+            for batch in batch_stream(epoch):
+                dispatch(batch)
+                if state.step >= total_steps:
+                    break
+            if state.step == step_at_epoch_start:
                 # zero batches this epoch (train split smaller than batch size):
                 # fail loudly instead of spinning epochs forever
                 raise ValueError(
@@ -178,7 +167,7 @@ def run_training(
                 )
             epoch += 1
         if primary:
-            mgr.save(step, state.params, state.opt_state)
+            mgr.save(state.step, state.params, state.opt_state)
     finally:
         if metrics_writer is not None:
             metrics_writer.close()

@@ -29,6 +29,7 @@ from tacotronv2_wavernn_chinese_tpu_torch.data import loader as TL
 from tacotronv2_wavernn_chinese_tpu_torch.data import native_loader as TNL
 from tacotronv2_wavernn_chinese_tpu_torch.models import layers as TLayers
 from tacotronv2_wavernn_chinese_tpu_torch.models import wavernn as TW
+from tacotronv2_wavernn_chinese_tpu_torch.train import optim as O
 from tacotronv2_wavernn_chinese_tpu_torch.train import wavernn_task as TTask
 from tacotronv2_wavernn_chinese_tpu_torch.train import wavernn_train as TTrain
 from tacotronv2_wavernn_chinese_tpu_torch.utils.checkpoints import CheckpointManager, wavernn_from_numpy
@@ -158,19 +159,20 @@ def test_wavernn_loss_matches_jax(mode):
 
 
 def test_optax_adam_matches_optax():
-    """``optax_adam`` against optax.adam over 4 updates: within 1e-7 of
-    1e-4-sized updates (measured 0: the same f32 operations)."""
+    """``optim.adam`` with the optax rule against optax.adam over 4
+    updates: within 1e-7 of 1e-4-sized updates (measured 0: the same f32
+    operations)."""
     import optax
 
     rng = np.random.default_rng(0)
     theta = {"a": rng.normal(0, 1, (4, 3)).astype(np.float32), "b": rng.normal(0, 1, 5).astype(np.float32)}
     opt = optax.adam(1e-4)
     js = opt.init(theta)
-    tstate = TTask.adam_init({k: torch.as_tensor(v) for k, v in theta.items()})
+    tstate = O.adam_init({k: torch.as_tensor(v) for k, v in theta.items()})
     for i in range(4):
         g = {k: rng.normal(0, 10.0 ** -i, v.shape).astype(np.float32) for k, v in theta.items()}
         ju, js = opt.update(g, js)
-        tu, tstate = TTask.optax_adam({k: torch.as_tensor(v) for k, v in g.items()}, tstate, 1e-4)
+        tu, tstate = O.adam({k: torch.as_tensor(v) for k, v in g.items()}, tstate, O.optax_rule, 1e-4)
         for k in theta:
             np.testing.assert_allclose(tu[k].numpy(), np.asarray(ju[k]), rtol=0, atol=1e-7)
 
@@ -267,22 +269,6 @@ def test_train_steps_match_jax(mode, n_steps):
     assert history[0][3]["grad_norm"] > 0.0
     # the BN running statistics advanced with the forward
     assert not torch.equal(history[-1][1]["resnet"]["bn_in"]["mean"], history[0][1]["resnet"]["bn_in"]["mean"])
-
-
-def test_train_step_many_is_steps_in_a_row():
-    _, tcfg = _cfgs()
-    p = TTask.init_state(4, tcfg, "cpu").params
-    batches = [_t(_batch(tcfg, 20 + i)) for i in range(3)]
-    s1 = TTask.TrainState(0, p, TTask.adam_init(p))
-    s2 = TTask.TrainState(0, p, TTask.adam_init(p))
-    s1, m = TTask.train_step_many(s1, batches, tcfg)
-    losses = []
-    for b in batches:
-        s2, mm = TTask.train_step(s2, b, tcfg)
-        losses.append(mm["loss"])
-    assert s1.step == s2.step == 3 and m["loss"] == losses
-    torch.testing.assert_close(s1.params["gru1"]["wh"], s2.params["gru1"]["wh"], rtol=0, atol=0)
-    torch.testing.assert_close(s1.opt_state["nu"]["fc3"]["w"], s2.opt_state["nu"]["fc3"]["w"], rtol=0, atol=0)
 
 
 def _write_vocoder_corpus(root, n=6, frames=(14, 24), hop=275, seed=0):
@@ -407,6 +393,26 @@ def test_run_training_checkpoints_resumes_and_listens(tmp_path):
                                  device="cpu", gen_at_checkpoint=False)
     assert "restored checkpoint at step 4" in logs and state2.step == 5
     assert mgr.all_steps() == [2, 4, 5]
+
+
+@pytest.mark.parametrize("every,total", [(3, 5), (2, 4)])
+def test_run_training_checkpoints_on_every_interval(tmp_path, every, total):
+    """One step per batch: a checkpoint at every multiple of
+    ``checkpoint_every`` and at the end, across epochs, and at no other
+    step."""
+    meta, _ = _write_vocoder_corpus(str(tmp_path / "data"))
+    cfg = _train_cfg(_cfgs()[1])
+    cfg = dataclasses.replace(cfg, wavernn_train=dataclasses.replace(cfg.wavernn_train, checkpoint_every=every))
+    logs = []
+    log_dir = str(tmp_path / "logs")
+    state = TTrain.run_training(cfg, meta, str(tmp_path / "data"), log_dir, total_steps=total, log=logs.append,
+                                device="cpu", gen_at_checkpoint=False)
+    assert state.step == state.opt_state["count"] == total
+    multiples = list(range(every, total + 1, every))
+    assert [m for m in logs if m.startswith("saved checkpoint")] == [f"saved checkpoint at step {s}"
+                                                                      for s in multiples]
+    assert CheckpointManager(os.path.join(log_dir, "checkpoints")).all_steps() == sorted(set(multiples) | {total})
+    assert [r["step"] for r in read_scalars(os.path.join(log_dir, "scalars.jsonl"))] == list(range(1, total + 1))
 
 
 def test_run_training_native_loader_and_empty_epoch(tmp_path):

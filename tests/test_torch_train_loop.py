@@ -1,6 +1,7 @@
 """The port's training data path and training loop: the loader gives the JAX
 package's batches on the same corpus, ``run_training`` on the CPU trains,
-checkpoints and resumes, and a NaN loss aborts the run."""
+checkpoints (at exactly each interval) and resumes, and a NaN loss aborts
+the run."""
 
 import dataclasses
 import os
@@ -109,11 +110,18 @@ def test_nan_loss_raises_loss_explosion(corpus, tmp_path, monkeypatch):
         TR.run_training(_tiny(), meta, d, str(tmp_path), total_steps=3, device="cpu", log=lambda m: None)
 
 
-def test_steps_per_dispatch_groups_steps(corpus, tmp_path):
+@pytest.mark.parametrize("interval,total", [(2, 5), (2, 4)])
+def test_checkpoints_land_on_every_interval(corpus, tmp_path, interval, total):
+    """One step per batch: a checkpoint at every multiple of
+    ``checkpoint_interval`` and at the end, across epochs, and at no other
+    step."""
     d, meta = corpus
-    cfg = _tiny(steps_per_dispatch=2, checkpoint_interval=3)
-    st = TR.run_training(cfg, meta, d, str(tmp_path), total_steps=4, device="cpu", render_eval=False,
-                         log=lambda m: None)
-    assert st.step == 4
+    logs = []
+    st = TR.run_training(_tiny(checkpoint_interval=interval), meta, d, str(tmp_path), total_steps=total,
+                         device="cpu", render_eval=False, log=logs.append)
+    assert st.step == st.opt_state["count"] == total
+    multiples = list(range(interval, total + 1, interval))
+    assert [m for m in logs if m.startswith("saved checkpoint")] == [f"saved checkpoint at step {s}"
+                                                                      for s in multiples]
     steps = CheckpointManager(os.path.join(str(tmp_path), "taco_pretrained")).all_steps()
-    assert 4 in steps and all(s >= 3 for s in steps)
+    assert steps == sorted(set(multiples) | {total})

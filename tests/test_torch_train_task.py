@@ -1,7 +1,7 @@
 """The port's optimizer and train step against the JAX package's
 ``tacotron_task``: two full steps (parameters after each), the LR and
-teacher-forcing schedules, TF-1 Adam, global-norm clipping and the
-fine-tune freeze.
+teacher-forcing schedules, ``train/optim.py``'s Adam with the TF-1 rule,
+global-norm clipping and the fine-tune freeze.
 
 dropout 0 and zoneout 0 keep both sides deterministic.  The JAX step runs
 its XLA scan on the CPU; the port's runs the autograd Function over the
@@ -17,8 +17,9 @@ import torch
 
 from tacotronv2_wavernn_chinese_tpu.config import default_config
 from tacotronv2_wavernn_chinese_tpu.train import tacotron_task as JTask
+from tacotronv2_wavernn_chinese_tpu_torch.train import optim as O
 from tacotronv2_wavernn_chinese_tpu_torch.train import tacotron_task as TTask
-from tacotronv2_wavernn_chinese_tpu_torch.utils import tree_map
+from tacotronv2_wavernn_chinese_tpu_torch.utils import tree_leaves, tree_map
 from tacotronv2_wavernn_chinese_tpu_torch.utils.checkpoints import tacotron_from_numpy
 
 B, T_IN, T_OUT = 2, 12, 16
@@ -133,14 +134,14 @@ def test_tf1_adam_semantics():
     bias correction, against a numpy TF-1 reference."""
     b1, b2, eps, lr = 0.9, 0.999, 1e-6, 1e-3
     theta = torch.tensor([1.0, -2.0, 3.0])
-    state = TTask.adam_init({"w": theta})
+    state = O.adam_init({"w": theta})
     rng = np.random.RandomState(0)
     m = np.zeros(3)
     v = np.zeros(3)
     ref = theta.numpy().astype(np.float64)
     for t in range(1, 6):
         g = rng.randn(3).astype(np.float32)
-        upd, state = TTask.tf1_adam({"w": torch.as_tensor(g)}, state, lr, b1, b2, eps)
+        upd, state = O.adam({"w": torch.as_tensor(g)}, state, O.tf1_rule, lr, b1, b2, eps)
         theta = theta + upd["w"]
         m = b1 * m + (1 - b1) * g
         v = b2 * v + (1 - b2) * g * g
@@ -151,27 +152,33 @@ def test_tf1_adam_semantics():
 
 def test_clip_by_global_norm():
     g = {"a": torch.tensor([3.0, 0.0]), "b": [torch.tensor([4.0])]}
-    same, n = TTask.clip_by_global_norm(g, 10.0)
-    assert same is g and float(n) == 5.0
-    clipped, _ = TTask.clip_by_global_norm(g, 1.0)
+    same, n = O.clip_by_global_norm(g, 10.0)
+    assert float(n) == 5.0
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(same), tree_leaves(g)))
+    clipped, _ = O.clip_by_global_norm(g, 1.0)
     np.testing.assert_allclose(clipped["a"].numpy(), [0.6, 0.0], rtol=1e-6)
-    np.testing.assert_allclose(float(TTask.global_norm(clipped)), 1.0, rtol=1e-6)
+    np.testing.assert_allclose(float(O.global_norm(clipped)), 1.0, rtol=1e-6)
     assert tree_map(lambda x: x.shape, clipped) == tree_map(lambda x: x.shape, g)
 
 
-def test_train_step_many_is_steps_in_a_row():
-    cfg = _cfg()
-    b = [{k: torch.as_tensor(v) for k, v in x.items()} for x in _batches(2)]
-    params = tacotron_from_numpy(jax.device_get(JTask.init_state(jax.random.PRNGKey(1), cfg).params),
-                                 cfg.tacotron)
-    s1 = TTask.TrainState(0, params, TTask.adam_init(params))
-    s2 = TTask.TrainState(0, params, TTask.adam_init(params))
-    gen = torch.Generator().manual_seed(0)
-    s1, m = TTask.train_step_many(s1, b, gen, cfg)
-    ms = []
-    for x in b:
-        s2, mm = TTask.train_step(s2, x, gen, cfg)
-        ms.append(mm["loss"])
-    assert s1.step == s2.step == 2 and m["loss"] == ms
-    torch.testing.assert_close(s1.params["prenet"]["layers"][0]["w"], s2.params["prenet"]["layers"][0]["w"],
-                               rtol=0, atol=0)
+@pytest.mark.parametrize("max_norm", [100.0, 0.5], ids=["below_limit", "above_limit"])
+def test_clip_reads_nothing_back_and_matches_optax(max_norm, monkeypatch):
+    """The clip decides on the device: no tensor reaches the host during
+    the call, and the result is optax.clip_by_global_norm's within 1e-7."""
+    import optax
+
+    rng = np.random.default_rng(0)
+    g = {"a": rng.normal(0, 1, (4, 3)).astype(np.float32), "b": [rng.normal(0, 1, 5).astype(np.float32)]}
+    tg = tree_map(torch.as_tensor, g)
+
+    def no_readback(*_a, **_k):
+        raise AssertionError("the clip read a tensor back to the host")
+
+    with monkeypatch.context() as m:
+        for name in ("__float__", "__bool__", "item", "tolist"):
+            m.setattr(torch.Tensor, name, no_readback)
+        clipped, norm = O.clip_by_global_norm(tg, max_norm)
+    want, _ = optax.clip_by_global_norm(max_norm).update(g, optax.EmptyState())
+    assert (float(norm) < max_norm) == (max_norm == 100.0)
+    for a, b in zip(tree_leaves(clipped), jax.tree_util.tree_leaves(want)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-7)
