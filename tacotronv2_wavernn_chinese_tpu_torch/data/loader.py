@@ -5,11 +5,30 @@ compile prewarm has no counterpart here; plus ``read_metadata`` from its
 ``data/preprocess.py``).
 
 Replaces the reference's feeder-thread + tf.FIFOQueue(8)
-(tacotron/feeder.py:14-168) with a synchronous numpy iterator producing
-*static-shape* padded batches: within each shuffled group, examples are
-sorted by mel length (bucketing) and split into batches, then batch order is
-shuffled (feeder.py:95-100).  Pad lengths are rounded up to configurable
-multiples, so a run meets a small, finite set of batch shapes.
+(tacotron/feeder.py:14-168) with *static-shape* padded batches: within each
+shuffled group, examples are sorted by mel length (bucketing) and split into
+batches, then batch order is shuffled (feeder.py:95-100).  Pad lengths are
+rounded up to configurable multiples, so a run meets a small, finite set of
+batch shapes.
+
+Read-ahead.  ``TacotronDataset.batches`` plans the whole epoch first (the
+same shuffle, groups, sort and batch order as the JAX loader), then
+assembles its batches on a worker thread of its own, up to ``AHEAD``
+batches beyond the one the consumer holds.  A batch is two calls into a
+C++ row reader (``csrc/tacotron_reader.cc``, built with g++ at first
+use), each spreading the rows over ``THREADS`` threads with the
+interpreter lock released: the rows' ``.npy`` headers, then the arrays
+filled (each mel read from its file straight into place, pads, stop
+targets, the symbol ids encoded once when the dataset was built).  So the
+thread launching the device's work meets a handful of lock hand-offs a
+batch, not the thousands a Python row loop makes.  On a CUDA machine the
+arrays are views of pinned tensors (``TacotronBatch.pinned``) that
+``train.tacotron_train.batch_to_device`` copies without blocking.  The
+thread ends with its epoch: closing the generator early (or dropping it)
+drops the pending batches and stops it; a worker's exception is raised in
+the consumer at the batch that needed it.  Spans: ``data.load`` on the
+worker thread, ``data.wait`` in the consumer while a batch was not ready;
+counters: ``LOADER``.
 
 Padding conventions (feeder.py:49-57,140-161): inputs pad 0 (the ``_``
 symbol), mels pad -max_abs_value, stop targets are 0 for frames < len-1 and
@@ -18,7 +37,12 @@ symbol), mels pad -max_abs_value, stop targets are 0 for frames < len-1 and
 
 from __future__ import annotations
 
+import ctypes
 import os
+import queue
+import threading
+import time
+from collections import deque
 from dataclasses import dataclass
 
 import numpy as np
@@ -27,6 +51,20 @@ from ..config import Config
 from ..frontend import default_symbols
 from ..utils import round_up as _round_up
 from ..utils.metrics import span
+
+AHEAD = 2  # batches assembled beyond the one the consumer holds
+# Threads reading one batch's rows: half the cores, up to 8, leaving the
+# rest to the trainer's own threads (the one launching the device's work,
+# autograd's, the CUDA runtime's).  On the card's 8-core host 4 read a
+# batch of 32 rows in about 5 ms, 8 in 7-8 ms, with no gain in the step.
+THREADS = max(1, min(8, (os.cpu_count() or 2) // 2))
+READER_SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc", "tacotron_reader.cc")
+_READER = None  # the built row reader (``_reader``)
+
+# The read-ahead's counters (``utils.metrics.counters()["loader"]``):
+# batches handed out, those handed out with no wait, and the consumer's
+# total wait in ns.
+LOADER = {"batches": 0, "ready": 0, "wait_ns": 0}
 
 
 @dataclass
@@ -45,6 +83,9 @@ class TacotronBatch:
     # pre-postnet and stop streams are exactly reference-shaped.)
     loss_frames: np.ndarray  # [B] int32
     indices: list  # metadata row indices (for GTA bookkeeping)
+    # the pinned tensors the arrays above are views of (the read-ahead on a
+    # CUDA machine), by field name; None for pageable arrays
+    pinned: dict | None = None
 
 
 class TacotronDataset:
@@ -71,6 +112,11 @@ class TacotronDataset:
         n_test = test_size if test_size is not None else 0
         self.test_indices = sorted(order[:n_test].tolist())
         self.train_indices = sorted(order[n_test:].tolist())
+        self._ids = [np.asarray(self.symbols.encode(r[5]), np.int32) for r in self.rows]
+        self._ids_len = np.array([len(i) for i in self._ids], np.int64)
+        self._ids_start = np.cumsum(self._ids_len) - self._ids_len
+        self._ids_flat = np.concatenate(self._ids) if self._ids else np.zeros(0, np.int32)
+        self._paths = [os.fsencode(os.path.join(mel_dir, r[1])) for r in self.rows]
 
     def _multiples(self, input_multiple, mel_multiple):
         tc = self.cfg.tacotron_train
@@ -80,10 +126,30 @@ class TacotronDataset:
         )
 
     def example(self, row_idx: int):
-        row = self.rows[row_idx]
-        ids = np.asarray(self.symbols.encode(row[5]), np.int32)
-        mel = np.load(os.path.join(self.mel_dir, row[1]))
-        return ids, mel.astype(np.float32)
+        mel = np.load(os.path.join(self.mel_dir, self.rows[row_idx][1]))
+        return self._ids[row_idx], mel.astype(np.float32)
+
+    def plan(self, epoch_seed: int, batch_size: int | None = None, indices: list[int] | None = None,
+             drop_remainder: bool = True) -> list[list[int]]:
+        """One epoch's batches as row indices, in order: shuffled, grouped
+        by ``batches_per_group``, each group sorted by mel length and split,
+        the group's batches shuffled."""
+        bs = batch_size or self.cfg.tacotron_train.batch_size
+        idx = list(indices if indices is not None else self.train_indices)
+        rng = np.random.RandomState(epoch_seed)
+        rng.shuffle(idx)
+        group = bs * self.cfg.tacotron_train.batches_per_group
+        out = []
+        for gstart in range(0, len(idx), group):
+            gidx = idx[gstart : gstart + group]
+            # bucket: sort group members by mel length
+            gidx.sort(key=lambda i: int(self.rows[i][3]))
+            batches = [gidx[i : i + bs] for i in range(0, len(gidx), bs)]
+            if drop_remainder:
+                batches = [b for b in batches if len(b) == bs]
+            rng.shuffle(batches)
+            out += batches
+        return out
 
     def batches(
         self,
@@ -94,28 +160,64 @@ class TacotronDataset:
         mel_multiple: int | None = None,
         drop_remainder: bool = True,
     ):
-        """Yield TacotronBatch for one epoch (bucketed + batch-shuffled).
-        Pad multiples default to the config knobs
+        """Yield TacotronBatch for one epoch (``plan``'s batches in its
+        order), assembled ahead on a worker thread of the epoch's own
+        (module docstring).  Pad multiples default to the config knobs
         (tacotron_train.input_pad_multiple / mel_pad_multiple)."""
-        cfg = self.cfg
-        input_multiple, mel_multiple = self._multiples(input_multiple, mel_multiple)
-        bs = batch_size or cfg.tacotron_train.batch_size
-        idx = list(indices if indices is not None else self.train_indices)
-        rng = np.random.RandomState(epoch_seed)
-        rng.shuffle(idx)
-        group = bs * cfg.tacotron_train.batches_per_group
-        for gstart in range(0, len(idx), group):
-            gidx = idx[gstart : gstart + group]
-            # bucket: sort group members by mel length
-            gidx.sort(key=lambda i: int(self.rows[i][3]))
-            batches = [gidx[i : i + bs] for i in range(0, len(gidx), bs)]
-            if drop_remainder:
-                batches = [b for b in batches if len(b) == bs]
-            rng.shuffle(batches)
-            for bidx in batches:
-                with span("data.load", rows=len(bidx)):
-                    batch = self._make_batch(bidx, input_multiple, mel_multiple)
-                yield batch
+        import torch
+
+        multiples = self._multiples(input_multiple, mel_multiple)
+        plan = iter(self.plan(epoch_seed, batch_size, indices, drop_remainder))
+        worker = _Worker(torch.cuda.is_available(), _reader())
+        pending: deque = deque()
+        try:
+            while True:
+                while len(pending) <= AHEAD and (rows := next(plan, None)) is not None:
+                    pending.append(_Job(self, worker, rows, *multiples))
+                    worker.submit(pending[-1])
+                if not pending:
+                    break
+                yield pending.popleft().take()
+        finally:
+            for job in pending:
+                job.dropped = True
+            worker.stop()
+
+    def _assemble(self, rows: list, input_multiple: int, mel_multiple: int, worker: _Worker) -> TacotronBatch:
+        """``_make_batch``'s batch, on the worker thread: the rows' mel
+        headers, then the arrays (pinned on a CUDA machine) filled by the
+        C++ reader, each call on ``THREADS`` threads outside the interpreter
+        lock; a file that is not a C-order float32 ``.npy`` is loaded here."""
+        lib, B = worker.lib, len(rows)
+        paths = (ctypes.c_char_p * B)(*(self._paths[i] for i in rows))
+        T, M, offset = (np.empty(B, np.int64) for _ in range(3))
+        err = np.empty(B, np.int32)
+        lib.tr_probe(B, paths, T.ctypes.data, M.ctypes.data, offset.ctypes.data, err.ctypes.data, THREADS)
+        _raise_row_error(err, paths)
+        loaded = (ctypes.c_void_p * B)()
+        mels_in_memory = [np.ascontiguousarray(np.load(os.fsdecode(paths[k])), np.float32)
+                          for k in np.flatnonzero(offset < 0)]
+        for k, mel in zip(np.flatnonzero(offset < 0), mels_in_memory):
+            T[k], M[k] = mel.shape
+            loaded[k] = mel.ctypes.data
+        if (M != M[0]).any():
+            raise ValueError(f"mels of {M[0]} and {M[M != M[0]][0]} channels in one batch (rows {rows})")
+        r = self.cfg.tacotron.outputs_per_step
+        lens, starts = self._ids_len[rows], self._ids_start[rows]
+        max_in = _round_up(int(lens.max()), input_multiple)
+        ref_out = _round_up(int(T.max()), r)
+        max_out = _round_up(ref_out, mel_multiple)
+        shapes = {"inputs": ((B, max_in), np.int32), "input_lengths": ((B,), np.int32),
+                  "mel_targets": ((B, max_out, int(M[0])), np.float32), "stop_targets": ((B, max_out), np.float32),
+                  "target_lengths": ((B,), np.int32), "loss_frames": ((B,), np.int32)}
+        made = {k: _host_array(shape, dtype, worker.pin) for k, (shape, dtype) in shapes.items()}
+        a = {k: arr for k, (arr, _) in made.items()}
+        lib.tr_fill(B, paths, offset.ctypes.data, T.ctypes.data, loaded, int(M[0]), max_out,
+                    -self.cfg.audio.max_abs_value, ref_out, self._ids_flat.ctypes.data, starts.ctypes.data,
+                    lens.ctypes.data, max_in, *(a[k].ctypes.data for k in _FILL_ORDER), err.ctypes.data, THREADS)
+        _raise_row_error(err, paths)
+        pinned = {k: t for k, (_, t) in made.items()} if worker.pin else None
+        return TacotronBatch(**a, indices=list(rows), pinned=pinned)
 
     def _make_batch(self, row_indices, input_multiple: int, mel_multiple: int):
         cfg = self.cfg
@@ -153,8 +255,7 @@ class TacotronDataset:
         mel_multiple: int | None = None,
     ) -> dict:
         """Measured padding waste of the bucketed batches, from metadata
-        lengths only (no mel loads) — replays the exact shuffle+bucket
-        logic of ``batches``.
+        lengths only (no mel loads), over ``plan``'s batches.
 
         Three numbers matter, because the padded frames have three different
         costs: ``frac_pad_mel`` is ALL decoder frames beyond each example's
@@ -165,35 +266,23 @@ class TacotronDataset:
         framework's static-shape design is responsible for; and
         ``frac_pad_inputs`` is the same for encoder tokens.  The trainer
         logs these at startup."""
-        cfg = self.cfg
         input_multiple, mel_multiple = self._multiples(input_multiple, mel_multiple)
-        bs = batch_size or cfg.tacotron_train.batch_size
-        r = cfg.tacotron.outputs_per_step
-        idx_base = list(indices if indices is not None else self.train_indices)
-        in_len = {i: len(self.symbols.encode(self.rows[i][5])) for i in idx_base}
-        mel_len = {i: int(self.rows[i][3]) for i in idx_base}
-        group = bs * cfg.tacotron_train.batches_per_group
+        r = self.cfg.tacotron.outputs_per_step
         real_f = ref_f = pad_f = real_t = pad_t = 0
         n_batches = 0
         for seed in epoch_seeds:
-            idx = list(idx_base)
-            np.random.RandomState(seed).shuffle(idx)
-            for gstart in range(0, len(idx), group):
-                gidx = idx[gstart : gstart + group]
-                gidx.sort(key=lambda i: mel_len[i])
-                for s in range(0, len(gidx), bs):
-                    b = gidx[s : s + bs]
-                    if len(b) != bs:  # drop_remainder (training default)
-                        continue
-                    n_batches += 1
-                    max_in = _round_up(max(in_len[i] for i in b), input_multiple)
-                    ref_out = _round_up(max(mel_len[i] for i in b), r)
-                    max_out = _round_up(ref_out, mel_multiple)
-                    real_f += sum(mel_len[i] for i in b)
-                    ref_f += bs * ref_out
-                    pad_f += bs * max_out
-                    real_t += sum(in_len[i] for i in b)
-                    pad_t += bs * max_in
+            for b in self.plan(seed, batch_size, indices):
+                n_batches += 1
+                in_len = [len(self._ids[i]) for i in b]
+                mel_len = [int(self.rows[i][3]) for i in b]
+                max_in = _round_up(max(in_len), input_multiple)
+                ref_out = _round_up(max(mel_len), r)
+                max_out = _round_up(ref_out, mel_multiple)
+                real_f += sum(mel_len)
+                ref_f += len(b) * ref_out
+                pad_f += len(b) * max_out
+                real_t += sum(in_len)
+                pad_t += len(b) * max_in
         if pad_f == 0:
             return {"n_batches": 0}
         return {
@@ -210,6 +299,112 @@ class TacotronDataset:
         im, mm = self._multiples(input_multiple, mel_multiple)
         for s in range(0, len(idx), batch_size):
             yield self._make_batch(idx[s : s + batch_size], im, mm)
+
+
+def _host_array(shape, dtype, pin: bool):
+    """(array, its pinned tensor or None): fresh memory that the batch's
+    rows overwrite whole; ``dtype`` np.int32 or np.float32."""
+    if not pin:
+        return np.empty(shape, dtype), None
+    import torch
+
+    t = torch.empty(shape, dtype={np.int32: torch.int32, np.float32: torch.float32}[dtype], pin_memory=True)
+    return t.numpy(), t
+
+
+def _reader():
+    """The C++ row reader (``csrc/tacotron_reader.cc``), built with g++
+    at first use."""
+    global _READER
+    if _READER is None:
+        from .native_loader import build_library
+
+        lib = ctypes.CDLL(build_library(READER_SOURCE))
+        p, ptrs = ctypes.c_void_p, ctypes.POINTER(ctypes.c_char_p)
+        lib.tr_probe.restype = lib.tr_fill.restype = None
+        lib.tr_probe.argtypes = [ctypes.c_int, ptrs, p, p, p, p, ctypes.c_int]
+        lib.tr_fill.argtypes = [ctypes.c_int, ptrs, p, p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int64,
+                                ctypes.c_int64, ctypes.c_float, ctypes.c_int32, p, p, p, ctypes.c_int64,
+                                p, p, p, p, p, p, p, ctypes.c_int]
+        _READER = lib
+    return _READER
+
+
+# the arrays in ``tr_fill``'s order of arguments
+_FILL_ORDER = ("mel_targets", "stop_targets", "inputs", "input_lengths", "target_lengths", "loss_frames")
+
+
+def _raise_row_error(err: np.ndarray, paths) -> None:
+    """The first failed row's error: OSError by its errno, ValueError for
+    a file shorter than its header says."""
+    bad = np.flatnonzero(err)
+    if bad.size:
+        e, path = int(err[bad[0]]), os.fsdecode(paths[bad[0]])
+        if e < 0:
+            raise ValueError(f"{path}: shorter than its .npy header says")
+        raise OSError(e, os.strerror(e), path)
+
+
+class _Worker:
+    """The thread that assembles one epoch's batches, in the order they
+    were asked for; ``stop`` lets it end after the batches queued before."""
+
+    def __init__(self, pin: bool, lib):
+        self.pin, self.lib = pin, lib
+        self._q: queue.SimpleQueue = queue.SimpleQueue()
+        self.thread = threading.Thread(target=self._run, args=(self._q,), name="tacotron-loader", daemon=True)
+        self.thread.start()
+
+    def submit(self, job: _Job) -> None:
+        self._q.put(job)
+
+    @staticmethod
+    def _run(q) -> None:
+        while True:
+            job = q.get()
+            if job is None:
+                return
+            job.run()
+            del job  # an idle thread keeps no batch, and no dataset, alive
+
+    def stop(self) -> None:
+        self._q.put(None)
+
+
+class _Job:
+    """One batch for the worker (``run``) and the consumer (``take``)."""
+
+    def __init__(self, ds: TacotronDataset, worker: _Worker, rows: list, input_multiple: int, mel_multiple: int):
+        self.ds, self.worker, self.rows = ds, worker, list(rows)
+        self.multiples = (input_multiple, mel_multiple)
+        self.done = threading.Event()
+        self.dropped = False
+        self.batch = self.error = None
+
+    def run(self) -> None:
+        if self.dropped:
+            return
+        try:
+            with span("data.load", rows=len(self.rows)):
+                self.batch = self.ds._assemble(self.rows, *self.multiples, self.worker)
+        except Exception as e:  # raised in the consumer at this batch
+            self.error = e
+        self.done.set()
+
+    def take(self) -> TacotronBatch:
+        """The batch, once assembled (counted in ``LOADER``; a wait is
+        timed by the ``data.wait`` span)."""
+        ready = self.done.is_set()
+        if not ready:
+            t0 = time.monotonic_ns()
+            with span("data.wait", rows=len(self.rows)):
+                self.done.wait()
+            LOADER["wait_ns"] += time.monotonic_ns() - t0
+        if self.error is not None:
+            raise self.error
+        LOADER["batches"] += 1
+        LOADER["ready"] += ready
+        return self.batch
 
 
 @dataclass

@@ -11,7 +11,9 @@ device loop.
 Build.  ``build_library`` compiles the source with ``g++`` and the flags of
 ``native/Makefile`` into ``build/native_loader/<hash of the source and
 flags>/libvocoder_loader.so`` beside the package (never under ``native/``),
-at first use; nothing is built when this module is imported.
+at first use (the Tacotron loader's row reader, ``csrc/tacotron_reader.cc``
+in the package, is built the same way, into ``libtacotron_reader.so``);
+nothing is built when this module is imported.
 ``NativeVocoderLoader.available()`` says whether the library builds and
 loads; ``VocoderDataset.batches`` remains the pure-Python path.
 """
@@ -40,26 +42,28 @@ _lock = threading.Lock()
 _lib = None
 
 
-def library_path() -> str:
+def library_path(source: str = SOURCE) -> str:
     h = hashlib.sha256()
-    with open(SOURCE, "rb") as f:
+    with open(source, "rb") as f:
         h.update(f.read())
     h.update(" ".join(CXX_FLAGS).encode())
-    return os.path.join(BUILD_ROOT, h.hexdigest()[:16], "libvocoder_loader.so")
+    name = "lib" + os.path.splitext(os.path.basename(source))[0] + ".so"
+    return os.path.join(BUILD_ROOT, h.hexdigest()[:16], name)
 
 
-def build_library() -> str:
-    """Compile the loader if its library is missing; returns its path.
-    Raises RuntimeError with the compiler's output when g++ fails, and
-    FileNotFoundError when there is no g++."""
-    path = library_path()
+def build_library(source: str = SOURCE) -> str:
+    """Compile ``source`` (the vocoder loader, or the Tacotron loader's row
+    reader ``csrc/tacotron_reader.cc``) if its library is missing;
+    returns its path.  Raises RuntimeError with the compiler's output when
+    g++ fails, and FileNotFoundError when there is no g++."""
+    path = library_path(source)
     if os.path.exists(path):
         return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    out = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, SOURCE], capture_output=True, text=True)
+    out = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, source], capture_output=True, text=True)
     if out.returncode != 0:
-        raise RuntimeError(f"g++ failed for {SOURCE}:\n{out.stdout}{out.stderr}")
+        raise RuntimeError(f"g++ failed for {source}:\n{out.stdout}{out.stderr}")
     os.replace(tmp, path)
     return path
 

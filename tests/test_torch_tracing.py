@@ -300,12 +300,13 @@ def test_device_events_come_from_a_pool_and_are_read_once(monkeypatch):
 
 def test_counters_are_the_launch_counts_by_reference():
     from tacotronv2_wavernn_chinese_tpu_torch import ops
+    from tacotronv2_wavernn_chinese_tpu_torch.data import loader as DL
     from tacotronv2_wavernn_chinese_tpu_torch.models import tacotron as T
 
     assert M.counters() == {"launches": ops.LAUNCHES, "decoder_steps": T.DECODER_STEPS,
-                            "decoder_graphs": T.DECODER_GRAPHS}
+                            "decoder_graphs": T.DECODER_GRAPHS, "loader": DL.LOADER}
     assert M.counters()["launches"] is ops.LAUNCHES and M.counters()["decoder_steps"] is T.DECODER_STEPS
-    assert M.counters()["decoder_graphs"] is T.DECODER_GRAPHS
+    assert M.counters()["decoder_graphs"] is T.DECODER_GRAPHS and M.counters()["loader"] is DL.LOADER
 
 
 def test_stamp_marks_the_innermost_span():

@@ -14,8 +14,11 @@ error, and whether the splits close.  ``--alternate N`` (training cells)
 first runs N rounds of four blocks of five steps with the spans on, off,
 off, on, and prints the mean host step time of each, the spans' cost.
 ``--tracer 0`` runs the cell with the spans off (the benchmark's own
-way), for its end-to-end metrics.  ``--dump`` writes the spans and the
-trace's events, to read them again without the card.  One JSON line goes to standard output
+way), for its end-to-end metrics.  Training cells also report the host
+ms of each step phase (``phase_host_ms``: the launching thread's pace)
+and the Tacotron loader's read-ahead (``loader``: its hit share and
+waits).  ``--dump`` writes the spans and the trace's events, to read
+them again without the card.  One JSON line goes to standard output
 and to ``--out``; a summary to standard error.  Needs a CUDA card.
 """
 
@@ -74,6 +77,25 @@ def span_cost(M, n: int = 2000) -> dict:
     return out
 
 
+def loader_reading(rec) -> dict:
+    """The Tacotron loader's read-ahead over the run: batches handed out,
+    the share ready when asked for, the consumer's wait a batch (its
+    ``loader`` counter), and the host ms of the ``data.wait`` and
+    ``data.load`` spans a step over the steps before the trace (``data.load``
+    runs on the worker thread, beside the step).  Empty for a program
+    without the counter."""
+    c = (rec.get("program_counters") or {}).get("loader")
+    if not c or not c.get("batches"):
+        return {}
+    want = [s for s in rec.get("steps") or [] if not s.get("profiled")]
+    lo, hi = round(want[0]["t0"] * 1e9), round(want[-1]["t1"] * 1e9)
+    per_step = {k: sum((s["t1"] - s["t0"]) / 1e6 for s in rec["spans"] if s["name"] == k and lo <= s["t0"] < hi)
+                / len(want) for k in ("data.wait", "data.load")}
+    return {"batches": c["batches"], "ready": c["ready"], "hit_share": c["ready"] / c["batches"],
+            "wait_ms_a_batch": c["wait_ns"] / 1e6 / c["batches"], "data_wait_ms_a_step": per_step["data.wait"],
+            "data_load_ms_a_step": per_step["data.load"]}
+
+
 def run(ctx, tracer: bool, rounds: int = 0, dump: str | None = None) -> dict:
     from benchmark import core, spans as SP
     from benchmark.drivers import train_common as TC
@@ -129,6 +151,13 @@ def run(ctx, tracer: bool, rounds: int = 0, dump: str | None = None) -> dict:
                 if "dev_ms" in p:
                     phases.setdefault(p["name"], []).append(p["dev_ms"])
         res["phase_dev_ms"] = {k: sum(v) / len(steps) for k, v in phases.items()}
+        host = {}
+        for st in steps:
+            host.setdefault(st["name"], []).append((st["t1"] - st["t0"]) / 1e6)
+            for p in under[st["id"]]:
+                host.setdefault(p["name"], []).append((p["t1"] - p["t0"]) / 1e6)
+        res["phase_host_ms"] = {k: sum(v) / len(steps) for k, v in host.items()}
+        res["loader"] = loader_reading(rec)
     else:
         res["split"] = SP.serve_split(rec)
         calls, under = SP.serve_calls(rec)
@@ -185,7 +214,7 @@ def main(argv=None) -> int:
     with open(args.out, "a", encoding="utf-8") as f:
         f.write(line + "\n")
     brief = {k: res.get(k) for k in ("workload", "seed", "tracer", "e2e", "correct", "metrics", "split", "clock",
-                                      "alternate", "span_cost")}
+                                      "alternate", "span_cost", "loader")}
     print(json.dumps(brief, indent=1), file=sys.stderr)
     print(line, flush=True)
     return 0
