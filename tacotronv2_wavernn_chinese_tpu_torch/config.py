@@ -277,6 +277,59 @@ class WaveRNNGenConfig:
 
 
 @dataclass(frozen=True)
+class HiFiGANConfig:
+    """HiFi-GAN V1 (Kong et al. 2020, §2 and App. A; widths as
+    jik876/hifi-gan ``config_v1.json``): the generator, the multi-period
+    and the multi-scale discriminators (``models/hifigan.py``), and the
+    mel both the input and the loss are computed with
+    (``dsp.spectrogram.hifigan_mel``).  The generator is V1's (ResBlock1);
+    the discriminators' widths are fields so that tests can shrink them,
+    the published ones the defaults, and their periods, kernels, strides
+    and groups ``models.hifigan``'s constants."""
+
+    sample_rate: int = 22050
+    n_fft: int = 1024
+    hop_size: int = 256
+    win_size: int = 1024
+    num_mels: int = 80
+    fmin: float = 0.0
+    fmax: float = 8000.0
+    fmax_for_loss: float | None = None  # None: sample_rate / 2
+    upsample_rates: Tuple[int, ...] = (8, 8, 2, 2)
+    upsample_kernel_sizes: Tuple[int, ...] = (16, 16, 4, 4)
+    upsample_initial_channel: int = 512
+    resblock_kernel_sizes: Tuple[int, ...] = (3, 7, 11)
+    resblock_dilation_sizes: Tuple[Tuple[int, ...], ...] = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+    mpd_channels: Tuple[int, ...] = (32, 128, 512, 1024, 1024)
+    msd_channels: Tuple[int, ...] = (128, 128, 256, 512, 1024, 1024, 1024)
+
+
+@dataclass(frozen=True)
+class HiFiGANTrainConfig:
+    """HiFi-GAN training (jik876/hifi-gan ``config_v1.json`` and
+    ``train.py``): AdamW on each network with decoupled decay (torch's
+    default 0.01, which ``train.py`` keeps), the learning rate times
+    ``lr_decay`` each epoch, no clipping, the mel loss x 45 and
+    ``feature_loss``'s factor of 2."""
+
+    batch_size: int = 16
+    segment_size: int = 8192
+    learning_rate: float = 2e-4
+    adam_b1: float = 0.8
+    adam_b2: float = 0.99
+    adam_eps: float = 1e-8
+    weight_decay: float = 0.01
+    lr_decay: float = 0.999
+    mel_loss_weight: float = 45.0
+    fm_loss_weight: float = 2.0
+    total_steps: int = 2500000
+    checkpoint_every: int = 5000
+    summary_interval: int = 100
+    seed: int = 1234
+    max_checkpoints_to_keep: int = 20
+
+
+@dataclass(frozen=True)
 class DataConfig:
     dataset_root: str = "./dataset/BZNSYP"
     out_dir: str = "./training_data"
@@ -303,6 +356,8 @@ class Config:
     wavernn: WaveRNNModelConfig = field(default_factory=WaveRNNModelConfig)
     wavernn_train: WaveRNNTrainConfig = field(default_factory=WaveRNNTrainConfig)
     wavernn_gen: WaveRNNGenConfig = field(default_factory=WaveRNNGenConfig)
+    hifigan: HiFiGANConfig = field(default_factory=HiFiGANConfig)
+    hifigan_train: HiFiGANTrainConfig = field(default_factory=HiFiGANTrainConfig)
     data: DataConfig = field(default_factory=DataConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
 
@@ -399,7 +454,7 @@ def _config_from_dict(d: dict) -> Config:
                     updates[f.name] = new
             return dataclasses.replace(template, **updates)
         if isinstance(template, tuple) and isinstance(data, list):
-            return tuple(data)
+            return tuple(tuple(x) if isinstance(x, list) else x for x in data)
         return data
 
     return rebuild(cfg, d)

@@ -1,21 +1,25 @@
-"""ctypes binding to the native C++ vocoder batch sampler.
+"""ctypes binding to the native C++ window sampler of the vocoder trainers.
 
-The C++ engine (``native/vocoder_loader.cc`` at the repository root)
-replaces the reference's framework-runtime data paths (TF FIFOQueue feeder
-thread feeder.py:70-72, torch DataLoader workers dataset.py:90-95): a
-worker pool samples random training windows from the corpus buffers and
-keeps a prefetch ring full, so ``next_batch()`` is a memcpy — no
-Python-side sampling on the step path and no GIL contention with the
-device loop.
+The C++ engine (``csrc/vocoder_loader.cc`` in the package) replaces the
+reference's framework-runtime data paths (TF FIFOQueue feeder thread
+feeder.py:70-72, torch DataLoader workers dataset.py:90-95): a worker pool
+samples random training windows from the corpus buffers and keeps a
+prefetch ring full, so ``next_batch()`` is a memcpy — no Python-side
+sampling on the step path and no GIL contention with the device loop.
+``NativeWindowLoader`` takes the buffers and the window's geometry (its
+hops, the hop and the mel pad) as arguments; ``NativeVocoderLoader`` reads
+WaveRNN's labels and GTA mels for it from a metadata file and ``cfg``, and
+``NativeSegmentLoader`` hands it HiFi-GAN's 16-bit PCM (segments at random
+sample offsets, scaled by each utterance's peak gain, no mels).
 
-Build.  ``build_library`` compiles the source with ``g++`` and the flags of
-``native/Makefile`` into ``build/native_loader/<hash of the source and
-flags>/libvocoder_loader.so`` beside the package (never under ``native/``),
-at first use (the Tacotron loader's row reader, ``csrc/tacotron_reader.cc``
-in the package, is built the same way, into ``libtacotron_reader.so``);
-nothing is built when this module is imported.
-``NativeVocoderLoader.available()`` says whether the library builds and
-loads; ``VocoderDataset.batches`` remains the pure-Python path.
+Build.  ``build_library`` compiles the source with ``g++`` and
+``CXX_FLAGS`` into ``build/native_loader/<hash of the source and
+flags>/libvocoder_loader.so`` at the repository root, at first use (the
+Tacotron loader's row reader, ``csrc/tacotron_reader.cc``, is built the
+same way, into ``libtacotron_reader.so``); nothing is built when this
+module is imported.  ``NativeVocoderLoader.available()`` says whether the
+library builds and loads; ``VocoderDataset.batches`` remains the
+pure-Python path.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from ..utils.metrics import span
 from .loader import VocoderBatch
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-SOURCE = os.path.join(_REPO, "native", "vocoder_loader.cc")
+SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc", "vocoder_loader.cc")
 BUILD_ROOT = os.path.join(_REPO, "build", "native_loader")
 CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared"]
 
@@ -85,7 +89,7 @@ def _load_lib():
             i64p, i64p, i64p, i64p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_uint64,
+            ctypes.c_uint64, ctypes.POINTER(ctypes.c_float),
         ]
         lib.vl_next_batch.restype = ctypes.c_int  # 1 ok, 0 destroyed while waiting
         lib.vl_next_batch.argtypes = [
@@ -116,54 +120,45 @@ def _ptr(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
 
 
-class NativeVocoderLoader:
-    """Owns the corpus buffers + the C++ loader handle.  Reads each row's
-    GTA mel (column 2), as ``VocoderDataset`` does."""
+class NativeWindowLoader:
+    """Owns the corpus buffers and the C++ loader handle.  ``labels``: one
+    int16 stream per utterance; ``mels``: one [frames, n_mels] float32
+    array per utterance, or None (no mels: each utterance then counts
+    ``len(labels) // hop`` frames); ``gains``: one float per utterance, the
+    factor each sample is taken as a float with (16-bit PCM), or None for
+    WaveRNN's mu-law labels.  A window is ``seq_hops`` hops of ``hop``
+    samples starting at least ``pad`` frames in, with its ``seq_hops + 2 x
+    pad`` frames of mel."""
 
     @staticmethod
     def available() -> bool:
         return _load_lib() is not None
 
-    def __init__(
-        self,
-        metadata_rows: list[list[str]],
-        data_dir: str,
-        cfg: Config,
-        n_workers: int = 2,
-        ring_size: int = 8,
-        seed: int = 1234,
-        indices: list[int] | None = None,
-    ):
+    def __init__(self, labels: list, mels: list | None, *, batch: int, seq_hops: int, hop: int, pad: int,
+                 n_mels: int, bits: int, gains=None, n_workers: int = 2, ring_size: int = 8, seed: int = 1234):
         lib = _load_lib()
         if lib is None:
             raise RuntimeError("native loader unavailable (g++ missing or the build failed)")
         self._lib = lib
-        wc = cfg.wavernn_train
-        self.batch = wc.batch_size
-        self.seq_len = wc.seq_len_hops * cfg.audio.hop_size
-        self.mel_win = wc.seq_len_hops + 2 * cfg.wavernn.pad
-        self.n_mels = cfg.audio.num_mels
+        self.batch = batch
+        self.seq_len = seq_hops * hop
+        self.mel_win = seq_hops + 2 * pad if mels is not None else 0
+        self.n_mels = n_mels if mels is not None else 0
 
-        rows = metadata_rows if indices is None else [metadata_rows[i] for i in indices]
-        labels_list, mels_list = [], []
-        label_offs, label_lens, mel_offs, mel_frames = [], [], [], []
-        lo = mo = 0
-        for r in rows:
-            lab = np.load(os.path.join(data_dir, r[0])).astype(np.int16)
-            mel = np.load(os.path.join(data_dir, r[2])).astype(np.float32)
-            labels_list.append(lab)
-            mels_list.append(mel)
-            label_offs.append(lo)
-            label_lens.append(len(lab))
-            mel_offs.append(mo)
-            mel_frames.append(mel.shape[0])
-            lo += len(lab)
-            mo += mel.shape[0]
+        labels = [np.asarray(a, np.int16) for a in labels]
+        lens = [len(a) for a in labels]
+        frames = [m.shape[0] for m in mels] if mels is not None else [n // hop for n in lens]
         # keep references alive for the lifetime of the handle
-        self._labels = np.concatenate(labels_list) if labels_list else np.zeros(0, np.int16)
-        self._mels = (np.concatenate(mels_list, axis=0).reshape(-1) if mels_list
-                      else np.zeros(0, np.float32))
-        self._meta = tuple(np.asarray(x, np.int64) for x in (label_offs, label_lens, mel_offs, mel_frames))
+        self._labels = np.concatenate(labels) if labels else np.zeros(0, np.int16)
+        self._mels = (np.concatenate([np.asarray(m, np.float32) for m in mels], axis=0).reshape(-1)
+                      if mels else np.zeros(1, np.float32))
+        offs = lambda ns: np.concatenate([[0], np.cumsum(ns)[:-1]]) if ns else np.zeros(0)
+        self._meta = tuple(np.asarray(x, np.int64) for x in (offs(lens), lens, offs(frames), frames))
+        self._gains = None if gains is None else np.ascontiguousarray(gains, np.float32)
+        if self._gains is not None and self._gains.shape != (len(labels),):
+            raise ValueError(f"{self._gains.shape} gains for {len(labels)} utterances")
+        if mels is not None and len(mels) != len(labels):
+            raise ValueError(f"{len(mels)} mels for {len(labels)} utterances")
 
         # serializes C calls so close() can wait out an in-flight next_batch
         self._call_lock = threading.Lock()
@@ -171,9 +166,9 @@ class NativeVocoderLoader:
             _ptr(self._labels, ctypes.c_int16),
             _ptr(self._mels, ctypes.c_float),
             *(_ptr(a, ctypes.c_int64) for a in self._meta),
-            len(rows), self.n_mels, cfg.wavernn.pad, wc.seq_len_hops,
-            cfg.audio.hop_size, self.batch, cfg.audio.bits,
+            len(labels), self.n_mels, pad, seq_hops, hop, batch, bits,
             n_workers, ring_size, seed,
+            None if self._gains is None else _ptr(self._gains, ctypes.c_float),
         )
         if not self._h:
             raise RuntimeError("no utterance long enough for one training window")
@@ -210,6 +205,49 @@ class NativeVocoderLoader:
         with self._call_lock:
             self._h = None
         self._lib.vl_destroy(h)
+
+
+class NativeVocoderLoader(NativeWindowLoader):
+    """WaveRNN's windows: each row's mu-law labels (column 0) and GTA mel
+    (column 2), as ``VocoderDataset`` reads them, at ``cfg``'s geometry."""
+
+    def __init__(
+        self,
+        metadata_rows: list[list[str]],
+        data_dir: str,
+        cfg: Config,
+        n_workers: int = 2,
+        ring_size: int = 8,
+        seed: int = 1234,
+        indices: list[int] | None = None,
+    ):
+        rows = metadata_rows if indices is None else [metadata_rows[i] for i in indices]
+        labels = [np.load(os.path.join(data_dir, r[0])) for r in rows]
+        mels = [np.load(os.path.join(data_dir, r[2])).astype(np.float32) for r in rows]
+        wc = cfg.wavernn_train
+        super().__init__(labels, mels, batch=wc.batch_size, seq_hops=wc.seq_len_hops, hop=cfg.audio.hop_size,
+                         pad=cfg.wavernn.pad, n_mels=cfg.audio.num_mels, bits=cfg.audio.bits, n_workers=n_workers,
+                         ring_size=ring_size, seed=seed)
+
+
+def peak_gains(audio: list) -> np.ndarray:
+    """The factor that takes each utterance's int16 samples to floats peak-
+    normalised to 0.95 (``meldataset.py``: ``normalize(audio / 32768) *
+    0.95``); 1/32768 for a silent one."""
+    peaks = np.array([np.abs(np.asarray(a, np.int32)).max(initial=0) for a in audio], np.float64)
+    return np.where(peaks > 0, 0.95 / np.maximum(peaks, 1), 1.0 / 32768).astype(np.float32)
+
+
+class NativeSegmentLoader(NativeWindowLoader):
+    """HiFi-GAN's segments: ``segment`` samples of each utterance's 16-bit
+    PCM at a random sample offset, as floats peak-normalised to 0.95
+    (``peak_gains``), ``batch`` of them a batch, every utterance once an
+    epoch; ``next_batch().x`` is the [batch, segment] audio."""
+
+    def __init__(self, audio: list, segment: int, batch: int, n_workers: int = 2, ring_size: int = 8,
+                 seed: int = 1234):
+        super().__init__(audio, None, batch=batch, seq_hops=segment, hop=1, pad=0, n_mels=0, bits=16,
+                         gains=peak_gains(audio), n_workers=n_workers, ring_size=ring_size, seed=seed)
 
 
 def preemphasis_native(x: np.ndarray, k: float) -> np.ndarray:

@@ -152,6 +152,21 @@ def istft(spec: torch.Tensor, n_fft: int, hop_size: int, win_size: int, length: 
     return y.reshape(*lead, y.shape[1])
 
 
+def hifigan_mel(y: torch.Tensor, basis: torch.Tensor, n_fft: int, hop_size: int, win_size: int) -> torch.Tensor:
+    """HiFi-GAN's log mel (jik876/hifi-gan ``meldataset.mel_spectrogram``)
+    of [B, samples] -> [B, num_mels, frames]: reflect-pad (n_fft - hop)/2
+    on each side, frames with no centring, a periodic Hann window of
+    ``win_size`` centred in ``n_fft``, the magnitude ``sqrt(re² + im² +
+    1e-9)``, the Slaney ``basis`` [num_mels, 1 + n_fft/2] (``mel_basis``),
+    then ``log(clamp(·, 1e-5))``.  A framing of its own beside ``stft``,
+    which the other paths keep."""
+    pad = (n_fft - hop_size) // 2
+    ypad = F.pad(y.unsqueeze(1), (pad, pad), mode="reflect").squeeze(1)
+    spec = torch.fft.rfft(ypad.unfold(-1, n_fft, hop_size) * _window(win_size, n_fft, y.device), dim=-1)
+    mag = torch.sqrt(spec.real * spec.real + spec.imag * spec.imag + 1e-9)
+    return torch.log(torch.clamp_min(torch.matmul(basis, mag.transpose(1, 2)), 1e-5))
+
+
 def amp_to_db(x: torch.Tensor, min_level_db: float) -> torch.Tensor:
     min_level = math.exp(min_level_db / 20.0 * math.log(10.0))
     return 20.0 * torch.log10(torch.clamp_min(x, min_level))

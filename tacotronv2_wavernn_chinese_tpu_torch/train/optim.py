@@ -1,12 +1,14 @@
 """The trainers' shared optimizer and step skeleton.
 
-Both task modules (``tacotron_task``, ``wavernn_task``) turn a loss into
-new parameters the same way: the gradient of every params leaf
-(``grads_of``), then ``optimizer_step``: optax's global-norm clip, Adam,
-and ``new_params + updates`` (the BN statistics advance with the forward's
-moving averages; their gradients, so their updates, are zero).  The two
-recipes differ only in where Adam puts epsilon and the bias corrections:
+The task modules (``tacotron_task``, ``wavernn_task``, ``hifigan_task``)
+turn a loss into new parameters the same way: the gradient of every params
+leaf (``grads_of``), then ``optimizer_step``: optax's global-norm clip,
+Adam, and ``new_params + updates`` (the BN statistics advance with the
+forward's moving averages; their gradients, so their updates, are zero).
+The recipes differ in where Adam puts epsilon and the bias corrections:
 each task passes its rule (``tf1_rule``, ``optax_rule``) as an argument.
+HiFi-GAN steps two parameter trees, each with a state of its own, without
+clipping and with AdamW's decoupled decay (``weight_decay``).
 
 Nothing here reads a tensor back to the host: the step's one readback is
 ``readback``, after the update has been queued.
@@ -54,10 +56,13 @@ def optax_rule(count: int, lr: float, b1: float, b2: float, eps: float) -> Calla
     return lambda m, v: -lr * ((m / bc1) / (torch.sqrt(v / bc2) + eps))
 
 
-def adam(grads, state: dict, rule: Callable, lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+def adam(grads, state: dict, rule: Callable, lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+         weight_decay: float = 0.0, params=None):
     """Adam whose update from the moments is ``rule``'s (``tf1_rule`` or
     ``optax_rule``).  Returns (updates, new state); the moments are updated
-    in place."""
+    in place.  A ``weight_decay`` other than 0 decays ``params`` apart from
+    the moments, as torch's AdamW: the update gains ``-lr * weight_decay *
+    p``."""
     count = state["count"] + 1
     update = rule(count, lr, b1, b2, eps)
 
@@ -67,6 +72,8 @@ def adam(grads, state: dict, rule: Callable, lr: float, b1: float = 0.9, b2: flo
         return update(m, v)
 
     updates = tree_map(leaf, grads, state["mu"], state["nu"])
+    if weight_decay:
+        updates = tree_map(lambda u, p: u - (lr * weight_decay) * p.detach(), updates, params)
     return updates, {"count": count, "mu": state["mu"], "nu": state["nu"]}
 
 
@@ -107,14 +114,19 @@ def grads_of(loss_of: Callable, params):
     return loss, extra, _like(leaves, [torch.zeros_like(p) if g is None else g for p, g in zip(flat, gs)])
 
 
-def optimizer_step(state: TrainState, new_params, grads, max_norm: float, rule: Callable, lr: float,
+def optimizer_step(state: TrainState, new_params, grads, max_norm: float | None, rule: Callable, lr: float,
                    b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, norm: torch.Tensor | None = None,
-                   frozen: tuple = ()):
+                   frozen: tuple = (), weight_decay: float = 0.0):
     """Clip, Adam, then ``new_params + updates`` -> (new state, grad norm).
-    The top-level params in ``frozen`` take zero updates."""
+    The top-level params in ``frozen`` take zero updates.  With
+    ``max_norm`` None nothing is clipped and no norm is taken (the grad
+    norm returned is None); ``weight_decay`` is ``adam``'s."""
     with torch.no_grad(), span("train.optimizer", device=True):
-        clipped, norm = clip_by_global_norm(grads, max_norm, norm)
-        updates, opt_state = adam(clipped, state.opt_state, rule, lr, b1, b2, eps)
+        if max_norm is None:
+            clipped = grads
+        else:
+            clipped, norm = clip_by_global_norm(grads, max_norm, norm)
+        updates, opt_state = adam(clipped, state.opt_state, rule, lr, b1, b2, eps, weight_decay, new_params)
         if frozen:
             updates = {k: tree_map(torch.zeros_like, v) if k in frozen else v for k, v in updates.items()}
         params = tree_map(lambda p, u: p.detach() + u, new_params, updates)

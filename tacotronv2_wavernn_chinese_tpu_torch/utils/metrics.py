@@ -20,7 +20,8 @@ object that records, allocates and synchronises nothing.  ``counters()``
 hands over the launch counters (``ops.LAUNCHES``), the decoder's steps
 by route (``models.tacotron.DECODER_STEPS``), the eager route's CUDA
 graphs (``models.tacotron.DECODER_GRAPHS``) and the Tacotron loader's
-read-ahead (``data.loader.LOADER``) by reference.  Backward runs
+read-ahead (``data.loader.LOADER``) and HiFi-GAN's samples and power
+iterations (``models.hifigan.HIFIGAN``) by reference.  Backward runs
 on autograd's device thread, where no span of the step is open: the spans
 there take ``parent=linked()``, the innermost open span of the thread
 that opened the step (a span with ``anchor=True``).
@@ -303,16 +304,19 @@ def drain() -> list:
 def counters() -> dict:
     """The program's counters, by reference: {"launches": ops.LAUNCHES,
     "decoder_steps": models.tacotron.DECODER_STEPS, "decoder_graphs":
-    models.tacotron.DECODER_GRAPHS, "loader": data.loader.LOADER}
-    (launches by kernel, decoder steps by route, the eager route's graphs
-    captured and steps replayed, the Tacotron loader's batches handed out,
-    those ready when asked for and the wait for the others in ns)."""
+    models.tacotron.DECODER_GRAPHS, "loader": data.loader.LOADER,
+    "hifigan": models.hifigan.HIFIGAN} (launches by kernel, decoder steps
+    by route, the eager route's graphs captured and steps replayed, the
+    Tacotron loader's batches handed out, those ready when asked for and
+    the wait for the others in ns, HiFi-GAN's samples generated and
+    spectral-norm power iterations)."""
     from ..data.loader import LOADER
+    from ..models.hifigan import HIFIGAN
     from ..models.tacotron import DECODER_GRAPHS, DECODER_STEPS
     from ..ops import LAUNCHES
 
     return {"launches": LAUNCHES, "decoder_steps": DECODER_STEPS, "decoder_graphs": DECODER_GRAPHS,
-            "loader": LOADER}
+            "loader": LOADER, "hifigan": HIFIGAN}
 
 
 # ---------------------------------------------------------------------------

@@ -321,7 +321,8 @@ def test_vocoder_dataset_bit_equal_to_jax(tmp_path):
 
 def test_native_loader_matches_jax(tmp_path):
     """One worker (a single random stream) and one seed: the port's build of
-    native/vocoder_loader.cc yields the JAX binding's batches, bit-equal."""
+    its copy of the C++ window sampler (``csrc/vocoder_loader.cc``) yields
+    the JAX binding's batches, bit-equal."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed: the native loader cannot be built")
     assert JNL.NativeVocoderLoader.available() and TNL.NativeVocoderLoader.available()

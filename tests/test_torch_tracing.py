@@ -301,12 +301,51 @@ def test_device_events_come_from_a_pool_and_are_read_once(monkeypatch):
 def test_counters_are_the_launch_counts_by_reference():
     from tacotronv2_wavernn_chinese_tpu_torch import ops
     from tacotronv2_wavernn_chinese_tpu_torch.data import loader as DL
+    from tacotronv2_wavernn_chinese_tpu_torch.models import hifigan as H
     from tacotronv2_wavernn_chinese_tpu_torch.models import tacotron as T
 
     assert M.counters() == {"launches": ops.LAUNCHES, "decoder_steps": T.DECODER_STEPS,
-                            "decoder_graphs": T.DECODER_GRAPHS, "loader": DL.LOADER}
+                            "decoder_graphs": T.DECODER_GRAPHS, "loader": DL.LOADER, "hifigan": H.HIFIGAN}
     assert M.counters()["launches"] is ops.LAUNCHES and M.counters()["decoder_steps"] is T.DECODER_STEPS
     assert M.counters()["decoder_graphs"] is T.DECODER_GRAPHS and M.counters()["loader"] is DL.LOADER
+    assert M.counters()["hifigan"] is H.HIFIGAN
+
+
+def test_hifigan_step_spans_and_counters():
+    """A HiFi-GAN step: one ``train.step`` trace; the generator's forward
+    and its backward under ``hifigan.generator``; the two mels; each
+    network's step with its forward, backward and optimizer; and the
+    counters advance by the samples generated and four power iterations."""
+    from tacotronv2_wavernn_chinese_tpu_torch.models import hifigan as H
+    from tacotronv2_wavernn_chinese_tpu_torch.train import hifigan_task as HT
+
+    cfg = default_config()
+    cfg = dataclasses.replace(
+        cfg, hifigan=dataclasses.replace(cfg.hifigan, upsample_initial_channel=16, mpd_channels=(4, 8, 8, 16, 16),
+                                         msd_channels=(16, 16, 16, 16, 32, 32, 32)),
+        hifigan_train=dataclasses.replace(cfg.hifigan_train, batch_size=2, segment_size=1024))
+    state = HT.init_state(3, cfg, "cpu")
+    audio = torch.randn(2, 1024, generator=torch.Generator().manual_seed(1)) * 0.1
+    before = dict(H.HIFIGAN)
+    M.enable()
+    try:
+        HT.train_step(state, {"audio": audio}, cfg)
+        spans = M.drain()
+    finally:
+        M.enable(False)
+    assert H.HIFIGAN == {"samples": before["samples"] + 2 * 1024, "sn_power_iters": before["sn_power_iters"] + 4}
+    by = _by_name(spans)
+    step = by["train.step"][0]
+    assert step["parent"] is None and step["attrs"] == {"step": 0, "rows": 2, "T": 1024}
+    assert {s["trace"] for s in spans} == {step["trace"]}
+    assert sorted(_chain(spans, s) for s in by["hifigan.generator"]) == [
+        ["train.backward", "hifigan.gen_step", "train.step"], ["train.forward", "train.step"]]
+    assert sorted(_chain(spans, s) for s in by["hifigan.mel"]) == [["train.forward", "train.step"], ["train.step"]]
+    for phase in ("hifigan.disc_step", "hifigan.gen_step"):
+        assert [_chain(spans, s) for s in by[phase]] == [["train.step"]]
+        for name in ("train.forward", "train.backward", "train.optimizer"):
+            assert sum(_chain(spans, s)[0] == phase for s in by[name]) == 1, (phase, name)
+    assert [_chain(spans, s) for s in by["train.readback"]] == [["train.step"]]
 
 
 def test_stamp_marks_the_innermost_span():
